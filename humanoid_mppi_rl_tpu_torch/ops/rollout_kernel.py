@@ -1,0 +1,407 @@
+"""Fused MPPI rollout: the CUDA kernel and its plain PyTorch version
+(ops/rollout_kernel.py counterpart).
+
+`build_rollout_kernel(...)` returns rollouts(qpos0 (nq,K), qvel0 (nv,K),
+time0 (1,K), U (T,nu), noise (T,nu,K), params=None) -> (costs (K,),
+qpos_T (nq,K), qvel_T (nv,K)), the JAX layout. Dispatch is by the tensors'
+device: a CUDA tensor launches the hand-written kernel (csrc/
+rollout_kernel.cu, built by nvcc, loaded with ctypes) or raises; a CPU
+tensor runs `rollouts_plain`, the T-step loop of scalar_step +
+scalar_forward + cost that the kernel is held against. There is no
+fallback from one to the other.
+
+The kernel is table-driven: the model and the cost constants are packed
+once into a flat struct (`pack_tables`, mirrored field for field from
+rollout_body.cuh with ctypes) that the kernel loops over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import inspect
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..physics.model import GEOM_PLANE, GEOM_SPHERE, HINGE, PhysicsModel
+from . import _build
+from . import kernel_costs
+from . import scalar_physics as sph
+
+NP = 16  # runtime cost-parameter slots (kernel_costs.PARAM_SLOTS)
+
+# capacities of csrc/rollout_body.cuh
+MAXB, MAXJ, MAXV, MAXQ, MAXU, MAXP, MAXT, MAXTNZ = 32, 32, 32, 40, 32, 32, 4, 8
+_COST_W = ("tx", "ty", "tz", "tvx", "tvy", "w_orient", "w_goal_xy", "w_height",
+           "w_swing_x", "w_swing_vel", "w_knee_x", "w_clearance", "w_foot_lift")
+_COST_PARAM_TARGET, _COST_PARAM_GAIT = 1, 2
+_PAIR_SPHERE, _PAIR_CAPSULE = 0, 1
+
+# CUDA kernel launches since import; callers that count reset it to 0
+launches = 0
+
+# hmr::Tables<T> of csrc/rollout_body.cuh, field for field in its order:
+# (name, kind, *shape) with kind i = int32, u = uint32, s = the scalar T
+_FIELDS = (
+    ("nbody", "i"), ("nq", "i"), ("nv", "i"), ("nu", "i"), ("npair", "i"),
+    ("nten", "i"), ("terminal", "i"), ("clamp_ctrl", "i"), ("cost_flags", "i"),
+    ("cost_body", "i", 4), ("body_parent", "i", MAXB),
+    ("body_jnt_adr", "i", MAXB), ("body_jnt_num", "i", MAXB),
+    ("jnt_type", "i", MAXJ), ("jnt_qposadr", "i", MAXJ),
+    ("jnt_dofadr", "i", MAXJ), ("jnt_limited", "i", MAXJ),
+    ("dof_body", "i", MAXV), ("act_dof", "i", MAXU), ("act_qpos", "i", MAXU),
+    ("act_ctrllimited", "i", MAXU), ("act_forcelimited", "i", MAXU),
+    ("pair_body", "i", MAXP), ("pair_type", "i", MAXP), ("ten_nnz", "i", MAXT),
+    ("ten_dof", "i", MAXT, MAXTNZ), ("ten_qpos", "i", MAXT, MAXTNZ),
+    ("dof_lc", "u", MAXV), ("dof_anc", "u", MAXV),
+    ("h", "s"), ("gravity", "s", 3), ("body_pos", "s", MAXB, 3),
+    ("body_quat", "s", MAXB, 4), ("body_ipos", "s", MAXB, 3),
+    ("body_iquat", "s", MAXB, 4), ("body_mass", "s", MAXB),
+    ("body_inertia", "s", MAXB, 3), ("jnt_pos", "s", MAXJ, 3),
+    ("jnt_axis", "s", MAXJ, 3), ("jnt_qpos0", "s", MAXJ),
+    ("jnt_stiffness", "s", MAXJ), ("jnt_springref", "s", MAXJ),
+    ("jnt_range", "s", MAXJ, 2), ("jnt_meff", "s", MAXJ),
+    ("jnt_kbase", "s", MAXJ), ("jnt_bref", "s", MAXJ),
+    ("jnt_solimp", "s", MAXJ, 5), ("dof_damping", "s", MAXV),
+    ("dof_extra", "s", MAXV), ("act_gear", "s", MAXU), ("act_gain", "s", MAXU),
+    ("act_bias", "s", MAXU, 3), ("act_ctrlrange", "s", MAXU, 2),
+    ("act_forcerange", "s", MAXU, 2), ("pair_frame", "s", MAXP, 3, 3),
+    ("pair_p0n", "s", MAXP), ("pair_gpos", "s", MAXP, 3),
+    ("pair_gquat", "s", MAXP, 4), ("pair_size", "s", MAXP, 2),
+    ("pair_mu", "s", MAXP), ("pair_kbase", "s", MAXP), ("pair_bref", "s", MAXP),
+    ("pair_meff", "s", MAXP), ("pair_margin", "s", MAXP),
+    ("pair_solimp", "s", MAXP, 5), ("ten_coef", "s", MAXT, MAXTNZ),
+    ("ten_range", "s", MAXT, 2), ("ten_meff", "s", MAXT), ("ten_kbase", "s", MAXT),
+    ("ten_bref", "s", MAXT), ("ten_solimp", "s", MAXT, 5),
+    ("ctrl_lo", "s", MAXU), ("ctrl_hi", "s", MAXU), ("cost_w", "s", len(_COST_W)),
+)
+
+
+def _ctype(base, shape):
+    for n in reversed(shape):
+        base = base * n
+    return base
+
+
+def tables_struct(dtype: torch.dtype):
+    """ctypes mirror of hmr::Tables<T> (csrc/rollout_body.cuh), same order."""
+    base = {"i": ctypes.c_int32, "u": ctypes.c_uint32,
+            "s": {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}[dtype]}
+    fields = [(name, _ctype(base[kind], shape)) for name, kind, *shape in _FIELDS]
+    return type(f"Tables_{base['s'].__name__}", (ctypes.Structure,),
+                {"_fields_": fields})
+
+
+def _solimp_power_ok(solimp) -> bool:
+    p = float(solimp[4])
+    return p == int(p) and 1 <= p <= 4
+
+
+def check_kernel_supported(model: PhysicsModel) -> None:
+    """Refuse what the kernel (and the plain step) does not cover: the JAX
+    guards (spatial tendons, mesh pairs -- neither can reach a port model),
+    the features named by scalar_physics.unsupported_features, and the
+    kernel's fixed capacities."""
+    bad = sph.unsupported_features(model)
+    for j in model.joints:
+        if j.limited and not _solimp_power_ok(j.solimp):
+            bad.append("joint-limit solimp power outside 1..4")
+    for p in model.contact_pairs:
+        if model.geoms[p.geom1].gtype == GEOM_PLANE and not _solimp_power_ok(p.solimp):
+            bad.append("contact solimp power outside 1..4")
+    chain = [set(np.nonzero(model.ancestor_mask[int(model.dof_bodyid[d])])[0])
+             for d in range(model.nv)]
+    for t in np.nonzero(model.tendon_limited)[0]:
+        nz = np.nonzero(model.tendon_coef[t])[0]
+        if not _solimp_power_ok(model.tendon_limit_solimp[t]):
+            bad.append("tendon-limit solimp power outside 1..4")
+        if len(nz) > MAXTNZ:
+            raise ValueError(f"tendon {t}: {len(nz)} dofs > capacity {MAXTNZ}")
+        if any(e not in chain[d] for d in nz for e in nz if e < d):
+            bad.append("tendon across branches (mass-matrix fill-in)")
+    if any(model.body_parent[b] >= b for b in range(1, model.nbody)):
+        bad.append("bodies not ordered parents-first")
+    for b, js in enumerate(model.body_joints):
+        if js and list(js) != list(range(js[0], js[0] + len(js))):
+            bad.append("non-contiguous joints of a body")
+    if bad:
+        raise NotImplementedError(
+            "rollout kernel does not cover: " + "; ".join(sorted(set(bad))))
+    npair = sum(model.geoms[p.geom1].gtype == GEOM_PLANE for p in model.contact_pairs)
+    caps = (("bodies", model.nbody, MAXB), ("joints", len(model.joints), MAXJ),
+            ("dofs", model.nv, MAXV), ("qpos", model.nq, MAXQ),
+            ("actuators", model.nu, MAXU), ("plane contact pairs", npair, MAXP),
+            ("limited tendons", int(np.sum(model.tendon_limited)), MAXT))
+    for what, n, cap in caps:
+        if n > cap:
+            raise ValueError(f"model has {n} {what}; the kernel holds {cap}")
+
+
+def _cost_constants(cost_factory: Callable, model: PhysicsModel, kw: dict):
+    """(flags, body ids, weights) of the humanoid cost for the kernel."""
+    if cost_factory is not kernel_costs.humanoid:
+        raise NotImplementedError(
+            f"the CUDA rollout kernel carries only kernel_costs.humanoid, "
+            f"not {getattr(cost_factory, '__name__', cost_factory)}")
+    a = inspect.signature(cost_factory).bind(model, **kw)
+    a.apply_defaults()
+    c = a.arguments
+    flags = (_COST_PARAM_TARGET * bool(c["param_target"])
+             | _COST_PARAM_GAIT * bool(c["param_gait"]))
+    bodies = [model.body_id(n) for n in
+              ("shin_left", "shin_right", "foot_left", "foot_right")]
+    vals = dict(zip(("tx", "ty", "tz"), [float(v) for v in c["target"]]))
+    vals.update(zip(("tvx", "tvy"), [float(v) for v in c["target_vel"]]))
+    vals.update({k: float(c[k]) for k in _COST_W if k.startswith("w_")})
+    return flags, bodies, [vals[k] for k in _COST_W]
+
+
+def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
+                ctrl_low, ctrl_high, terminal: bool, dtype: torch.dtype) -> bytes:
+    """The kernel's model/cost tables as the bytes of hmr::Tables<T>."""
+    check_kernel_supported(model)
+    flags, cost_bodies, cost_w = _cost_constants(cost_factory, model, cost_kwargs)
+    s = tables_struct(dtype)()
+    v = {name: np.ctypeslib.as_array(getattr(s, name))
+         for name, _, *shape in _FIELDS if shape}
+    h = float(model.timestep)
+    s.nbody, s.nq, s.nv, s.nu = model.nbody, model.nq, model.nv, model.nu
+    s.terminal, s.cost_flags = int(terminal), flags
+    s.clamp_ctrl = int(ctrl_low is not None)
+    if ctrl_low is not None:
+        v["ctrl_lo"][:model.nu] = ctrl_low
+        v["ctrl_hi"][:model.nu] = ctrl_high
+    v["cost_body"][:] = cost_bodies
+    v["cost_w"][:] = cost_w
+    s.h = h
+    v["gravity"][:] = model.gravity
+    nb = model.nbody
+    v["body_parent"][:nb] = model.body_parent
+    for name in ("body_pos", "body_quat", "body_ipos", "body_iquat",
+                 "body_mass", "body_inertia"):
+        v[name][:nb] = getattr(model, name)
+    for b, js in enumerate(model.body_joints):
+        v["body_jnt_adr"][b] = js[0] if js else 0
+        v["body_jnt_num"][b] = len(js)
+    chain_bits = [sum(1 << d for d in np.nonzero(model.ancestor_mask[b])[0])
+                  for b in range(nb)]
+    hs_meff = dict(zip(model.hs_dofadr.tolist(), model.hs_limit_meff.tolist()))
+    for j, jnt in enumerate(model.joints):
+        v["jnt_type"][j], v["jnt_qposadr"][j] = jnt.jtype, jnt.qposadr
+        v["jnt_dofadr"][j], v["jnt_limited"][j] = jnt.dofadr, int(jnt.limited)
+        v["jnt_pos"][j], v["jnt_axis"][j] = jnt.pos, jnt.axis
+        if jnt.jtype == HINGE:
+            v["jnt_qpos0"][j] = model.qpos0[jnt.qposadr]
+            v["jnt_stiffness"][j] = jnt.stiffness
+            v["jnt_springref"][j] = jnt.springref
+        if jnt.limited and jnt.jtype == HINGE:
+            v["jnt_range"][j] = jnt.range
+            v["jnt_meff"][j] = hs_meff[jnt.dofadr]
+            v["jnt_kbase"][j], v["jnt_bref"][j] = sph._solref_kb_scalar(
+                jnt.solref, jnt.solimp)
+            v["jnt_solimp"][j] = jnt.solimp
+    nv = model.nv
+    v["dof_body"][:nv] = model.dof_bodyid
+    chain = [chain_bits[int(model.dof_bodyid[d])] for d in range(nv)]
+    v["dof_anc"][:nv] = [chain[d] & ((1 << d) - 1) for d in range(nv)]
+    v["dof_lc"][:nv] = [sum(1 << e for e in range(d + 1, nv) if chain[e] >> d & 1)
+                        for d in range(nv)]
+    v["dof_damping"][:nv] = model.dof_damping
+    v["dof_extra"][:nv] = [float(model.dof_armature[d]) + h * float(model.dof_damping[d])
+                           for d in range(nv)]
+    for i, act in enumerate(model.actuators):
+        v["act_dof"][i], v["act_qpos"][i] = act.dofadr, act.qposadr
+        v["act_ctrllimited"][i] = int(act.ctrllimited)
+        v["act_forcelimited"][i] = int(act.forcelimited)
+        v["act_gear"][i], v["act_gain"][i] = act.gear, act.gain
+        v["act_bias"][i] = act.bias
+        v["act_ctrlrange"][i] = act.ctrlrange
+        v["act_forcerange"][i] = act.forcerange
+    npair = 0
+    for pair in model.contact_pairs:
+        g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
+        if g1.gtype != GEOM_PLANE:
+            continue  # the planner tier has floor contacts only
+        i = npair
+        npair += 1
+        qw, qx, qy, qz = [float(x) for x in g1.quat]
+        n = np.array([2 * (qx * qz + qw * qy), 2 * (qy * qz - qw * qx),
+                      1 - 2 * (qx * qx + qy * qy)])
+        if tuple(n) == (0.0, 0.0, 1.0):
+            t1, t2 = np.array([1.0, 0.0, 0.0]), np.array([0.0, 1.0, 0.0])
+        else:
+            t1 = np.cross(n, [0.0, 0.0, 1.0])
+            if np.linalg.norm(t1) < 1e-6:
+                t1 = np.cross(n, [0.0, 1.0, 0.0])
+            t1 /= np.linalg.norm(t1)
+            t2 = np.cross(n, t1)
+        v["pair_frame"][i] = np.stack([t1, t2, n])
+        v["pair_p0n"][i] = float(np.dot(np.asarray(g1.pos), n))
+        v["pair_body"][i] = g2.bodyid
+        v["pair_type"][i] = _PAIR_SPHERE if g2.gtype == GEOM_SPHERE else _PAIR_CAPSULE
+        v["pair_gpos"][i], v["pair_gquat"][i] = g2.pos, g2.quat
+        v["pair_size"][i] = g2.size[:2]
+        v["pair_mu"][i] = pair.mu if pair.condim > 1 else 0.0
+        v["pair_kbase"][i], v["pair_bref"][i] = sph._solref_kb_scalar(
+            pair.solref, pair.solimp)
+        v["pair_meff"][i], v["pair_margin"][i] = pair.m_eff, pair.margin
+        v["pair_solimp"][i] = pair.solimp
+    s.npair = npair
+    dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype == HINGE}
+    nten = 0
+    for t in np.nonzero(model.tendon_limited)[0]:
+        nz = np.nonzero(model.tendon_coef[t])[0]
+        v["ten_nnz"][nten] = len(nz)
+        v["ten_dof"][nten, :len(nz)] = nz
+        v["ten_qpos"][nten, :len(nz)] = [dof2q[d] for d in nz]
+        v["ten_coef"][nten, :len(nz)] = model.tendon_coef[t, nz]
+        v["ten_range"][nten] = model.tendon_range[t]
+        v["ten_meff"][nten] = model.tendon_limit_meff[t]
+        v["ten_kbase"][nten], v["ten_bref"][nten] = sph._solref_kb_scalar(
+            model.tendon_limit_solref[t], model.tendon_limit_solimp[t])
+        v["ten_solimp"][nten] = model.tendon_limit_solimp[t]
+        nten += 1
+    s.nten = nten
+    return bytes(s)
+
+
+def rollouts_plain(model: PhysicsModel, running_cost: Callable,
+                   terminal_cost: Callable, qpos0, qvel0, time0, U, noise, params,
+                   ctrl_low=None, ctrl_high=None, terminal: bool = True):
+    """The T-step rollout loop in plain PyTorch (the JAX kernel body,
+    ops/rollout_kernel.py:86-126): what the CUDA kernel computes."""
+    nq, nv, nu = model.nq, model.nv, model.nu
+    h = model.timestep
+    qpos = [qpos0[i] for i in range(nq)]
+    qvel = [qvel0[i] for i in range(nv)]
+    t0 = time0[0]
+    prm = [params[i] for i in range(NP)]
+    fwd = sph.scalar_forward(model, qpos, qvel)
+    cost = torch.zeros_like(qpos[0])
+
+    def make_ctx(fwd2, qpos2, qvel2, u, time):
+        ctx = sph.ctx_from(model, fwd2, qpos2, qvel2, u, time)
+        ctx.params = prm
+        return ctx
+
+    for t in range(U.shape[0]):
+        u = []
+        for i in range(nu):
+            ui = U[t, i] + noise[t, i]
+            if ctrl_low is not None:
+                ui = torch.clamp(ui, float(ctrl_low[i]), float(ctrl_high[i]))
+            u.append(ui)
+        time = t0 + t * h
+        qpos, qvel, _ = sph.scalar_step(model, qpos, qvel, u, time, fwd=fwd)
+        fwd = sph.scalar_forward(model, qpos, qvel)
+        cost = cost + running_cost(make_ctx(fwd, qpos, qvel, u, time + h), t)
+    if terminal:
+        T = U.shape[0]
+        cost = cost + terminal_cost(make_ctx(fwd, qpos, qvel, [0.0] * nu, t0 + T * h))
+    return cost, torch.stack(qpos), torch.stack(qvel)
+
+
+def build_rollout_kernel(
+    model: PhysicsModel,
+    cost_factory: Callable,
+    horizon: int,
+    ctrl_low: Optional[np.ndarray] = None,
+    ctrl_high: Optional[np.ndarray] = None,
+    terminal: bool = True,
+    cost_kwargs: Optional[dict] = None,
+    device="cuda",
+):
+    """Returns rollouts(qpos0, qvel0, time0, U, noise, params=None) ->
+    (costs (K,), qpos_T (nq,K), qvel_T (nv,K)); `rollouts.plain` is the
+    plain version on whatever device its inputs are."""
+    dev = resolve_device(device)
+    check_kernel_supported(model)
+    nq, nv, nu = model.nq, model.nv, model.nu
+    T = int(horizon)
+    kw = dict(cost_kwargs or {})
+    if "horizon" in inspect.signature(cost_factory).parameters:
+        kw.setdefault("horizon", T)
+    running_cost, terminal_cost = cost_factory(model, **kw)
+    clo = None if ctrl_low is None else [float(x) for x in ctrl_low]
+    chi = None if ctrl_high is None else [float(x) for x in ctrl_high]
+    tables = {}
+    if dev.type == "cuda":
+        for dt in (torch.float32, torch.float64):
+            raw = pack_tables(model, cost_factory, kw, clo, chi, terminal, dt)
+            tables[dt] = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
+
+    def _params(params, ref):
+        if params is None:
+            return torch.zeros(NP, dtype=ref.dtype, device=ref.device)
+        p = torch.as_tensor(params, dtype=ref.dtype, device=ref.device).reshape(-1)
+        return torch.nn.functional.pad(p, (0, NP - p.shape[0]))
+
+    def _check(qpos0, qvel0, time0, U, noise):
+        K = qpos0.shape[-1]
+        want = {"qpos0": (nq, K), "qvel0": (nv, K), "time0": (1, K),
+                "U": (T, nu), "noise": (T, nu, K)}
+        got = {"qpos0": qpos0, "qvel0": qvel0, "time0": time0, "U": U, "noise": noise}
+        for name, shape in want.items():
+            x = got[name]
+            if tuple(x.shape) != shape:
+                raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+            if x.dtype != qpos0.dtype or x.device != qpos0.device:
+                raise ValueError(f"{name}: {x.dtype} on {x.device}, expected "
+                                 f"{qpos0.dtype} on {qpos0.device}")
+
+    def plain(qpos0, qvel0, time0, U, noise, params=None):
+        _check(qpos0, qvel0, time0, U, noise)
+        return rollouts_plain(model, running_cost, terminal_cost, qpos0, qvel0,
+                              time0, U, noise, _params(params, qpos0), clo, chi,
+                              terminal)
+
+    def launch(qpos0, qvel0, time0, U, noise, params=None):
+        # time0 is checked but not read: the humanoid cost ignores the clock
+        global launches
+        _check(qpos0, qvel0, time0, U, noise)
+        params = _params(params, qpos0)
+        if qpos0.dtype not in tables or qpos0.device != dev:
+            raise ValueError(
+                f"rollout kernel built for {dev} (f32/f64); got {qpos0.dtype} "
+                f"on {qpos0.device}")
+        lib = _rollout_lib()
+        tab = tables[qpos0.dtype]
+        if lib.hmr_tables_size(int(qpos0.dtype == torch.float64)) != tab.numel():
+            raise RuntimeError("Tables layout differs between Python and CUDA")
+        K = qpos0.shape[-1]
+        ins = [x.contiguous() for x in (qpos0, qvel0, U, noise, params)]
+        cost = torch.empty(K, dtype=qpos0.dtype, device=dev)
+        qpos_f = torch.empty(nq, K, dtype=qpos0.dtype, device=dev)
+        qvel_f = torch.empty(nv, K, dtype=qpos0.dtype, device=dev)
+        fn = lib.hmr_rollout_f64 if qpos0.dtype == torch.float64 else lib.hmr_rollout_f32
+        rc = fn(tab.data_ptr(), *[x.data_ptr() for x in ins], cost.data_ptr(),
+                qpos_f.data_ptr(), qvel_f.data_ptr(), K, T,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"rollout kernel launch failed: cudaError {rc}")
+        launches += 1
+        return cost, qpos_f, qvel_f
+
+    def rollouts(qpos0, qvel0, time0, U, noise, params=None):
+        if qpos0.device.type == "cuda":
+            return launch(qpos0, qvel0, time0, U, noise, params)
+        if qpos0.device.type == "cpu":
+            return plain(qpos0, qvel0, time0, U, noise, params)
+        raise ValueError(f"no rollout path for device {qpos0.device}")
+
+    rollouts.plain = plain
+    return rollouts
+
+
+def _rollout_lib() -> ctypes.CDLL:
+    lib = _build.load_library("rollout_kernel.cu")
+    ptr = ctypes.c_void_p
+    for name in ("hmr_rollout_f32", "hmr_rollout_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 9 + [ctypes.c_int, ctypes.c_int, ptr]
+        fn.restype = ctypes.c_int
+    lib.hmr_tables_size.argtypes = [ctypes.c_int]
+    lib.hmr_tables_size.restype = ctypes.c_int
+    return lib
