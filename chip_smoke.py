@@ -4,17 +4,37 @@
 
 Phases, one JSON line each (with its own `seconds`):
   device  -- requires CUDA; prints the card's name and power limit
-  build   -- nvcc-builds every kernel of the port from csrc/, prints the
-             ptxas register/stack/spill lines
-  check   -- each kernel against its plain PyTorch version on the card
-             (humanoid_bench model and cost, K=256, T=4, seeded inputs):
-             f64 to rtol 1e-9; f32 median relative cost error < 1e-3, max < 1e-2
-  main    -- the port's main path at full width: load_task("humanoid_bench")
-             (K=8192, H=64, f32) + make_kernel_mppi, 2 warm-up and 20 timed
-             chained replans; finite outputs, one kernel launch per replan
-  time    -- each kernel alone at the main path's shapes beside its plain
-             version (outputs compared too: f32 cost rel median < 1e-3)
-             and its bound
+  build   -- nvcc-builds every kernel of the port from csrc/ (one nvcc per
+             source, all started together), one line per source with the
+             ptxas register/stack/spill/shared-memory lines
+  check   -- the rollout kernel against its plain PyTorch version on the
+             card (humanoid_bench model and cost, K=256, T=4, seeded
+             inputs): f64 to rtol 1e-9; f32 median relative cost error
+             < 1e-3, max < 1e-2
+  main    -- slice 1 at full width: load_task("humanoid_bench") (K=8192,
+             H=64, f32) + make_kernel_mppi, 2 warm-up and 20 timed chained
+             replans; finite outputs, one kernel launch per replan
+  time    -- the rollout kernel alone at the main path's shapes beside its
+             plain version (outputs compared too: f32 cost rel median
+             < 1e-3) and its bound
+  check_estimator -- the estimator kernel against its plain version on the
+             card, seeded weights with nonzero biases and LayerNorm terms,
+             presets quadruped/humanoid/cartpole_attention at B=64 and 61:
+             f32 to rtol=atol=1e-4; bf16 median |diff| <= 3e-3 and max
+             |diff| <= 3e-2, each times max(1, max|y|) (TF32 and reduced-
+             precision bf16 reductions off in the plain version's products);
+             then each of its kernels alone (encode, LayerNorm, the four
+             GEMM epilogues, attention, head) at each preset's widths, B=61,
+             on inputs whose sums are exact in any order: bf16 bit for bit
+  main_estimator -- slice 2 at full width: quadruped_attention (bf16) +
+             make_learned_dynamics + quadruped_estimator_costs + make_mppi
+             with ESTIMATOR_CONFIGS["quadruped"] (K=2048, T=50), 2 warm-up
+             and 10 timed chained replans; finite outputs, T kernel
+             forwards per replan
+  time_estimator -- one forward alone at B=2048 and at B=65536 beside the
+             plain version (outputs compared, bf16 tolerance above), its
+             bound, and one PyTorch TransformerEncoder forward of the same
+             weights as a yardstick (`library_ms`; the port never calls it)
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -24,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
@@ -32,12 +53,18 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate and f32 rate
-# outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): device memory rate, f32 rate outside
+# the tensor cores, dense bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 CHECK_K, CHECK_T = 256, 4
 WARMUP, TIMED = 2, 20
+EST_WARMUP, EST_TIMED = 2, 10
+EST_PRESETS = ("quadruped_attention", "humanoid_attention", "cartpole_attention")
+EST_CHECK_B = (64, 61)
+EST_TIME_B = (2048, 65536)
+EST_PLAIN_CHUNK = 8192   # the plain forward at B=65536 runs in sample chunks (memory)
 
 
 def emit(obj):
@@ -77,6 +104,198 @@ def seeded_inputs(model, K, T, dtype, seed=0, device="cuda"):
             as_t(U), as_t(noise))
 
 
+def device_profile(fn) -> dict:
+    """One call of fn under torch.profiler: device time by kernel, its sum,
+    the call's wall time and the device's busy share (the profiler's own
+    launch overhead lengthens the wall time a little)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0]
+            by_kernel[name] = by_kernel.get(name, 0.0) + ev.self_device_time_total / 1e3
+    busy_ms = sum(by_kernel.values())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+            "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]))}
+
+
+def seeded_weights(module, seed: int):
+    """Load weights drawn from a numpy seed: every bias, LayerNorm scale and
+    offset nonzero (a fresh init has zero biases and unit scales), so every
+    term of the forward is exercised."""
+    from torch import nn
+
+    rng = np.random.default_rng(seed)
+    ln_scales = {f"{n}.weight" for n, m in module.named_modules() if isinstance(m, nn.LayerNorm)}
+    sd = {}
+    for name, p in module.state_dict().items():
+        if name in ln_scales:
+            a = 1.0 + 0.1 * rng.normal(size=p.shape)
+        elif name == "pos_embedding":
+            a = 0.5 * rng.normal(size=p.shape)
+        elif p.ndim >= 2:
+            a = rng.normal(size=p.shape) / np.sqrt(p.shape[-1])
+        else:
+            a = 0.1 * rng.normal(size=p.shape)
+        sd[name] = torch.tensor(a, dtype=torch.float32)
+    module.load_state_dict(sd)
+    return module
+
+
+def bf16_errors(got, want) -> dict:
+    """|got - want| against the bf16 tolerance: a bf16 rounding flips
+    wherever the f32 sum in front of it differs in its last bits (the
+    kernel and the plain version sum in other orders), one flip is 2^-8
+    relative, and flips propagate through the layers. Held: median |diff|
+    <= 3e-3 and max |diff| <= 3e-2, each times max(1, max|y|)."""
+    d = (got - want).abs().double()
+    scale = max(1.0, float(want.abs().max()))
+    e = {"max_abs": float(d.max()), "median_abs": float(d.median()), "scale": scale}
+    e["within"] = e["median_abs"] <= 3e-3 * scale and e["max_abs"] <= 3e-2 * scale
+    return e
+
+
+def exact_stage_cases(module, B: int, seed: int, device="cuda") -> dict:
+    """bf16 inputs for each kernel of the estimator forward alone, at the
+    module's widths, on which every f32 sum is exact in any order (few
+    mantissa bits, narrow exponent range): LayerNorm rows sum to a multiple
+    of H, so mean and variance are exact and the kernel's rsqrtf and
+    torch.rsqrt take the same argument; attention scores of a row tie or
+    differ by >= 128, so every softmax weight is 0 or 1/count. The kernel
+    must then equal its plain
+    version bit for bit, while each bf16 rounding still changes the result
+    (sums carry 10-16 bits, the encode's x is a grid value plus a part
+    below half its bf16 ulp). Returns {case: (stage, args, kwargs)}."""
+    rng = np.random.default_rng(seed)
+    F, H, nh = module.input_dim, module.hidden_dim, module.num_heads
+    hd = H // nh
+
+    def t(a, dtype=torch.bfloat16):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def grid(shape, k, den):
+        return rng.integers(-k, k + 1, size=shape) / den
+
+    def centred_rows(shape, c_k, c_den, e_k, e_den):
+        """Rows c + (e, -e pairs), shuffled: each row sums to H c exactly."""
+        c = grid(shape[:-1] + (1,), c_k, c_den)
+        e = grid(shape[:-1] + (H // 2,), e_k, e_den)
+        rows = np.concatenate([e, -e], axis=-1)
+        return c + rng.permuted(rows, axis=-1)
+
+    ln = lambda: t(np.stack([rng.choice([0.75, 1.0, 1.25, 1.5], H), grid(H, 8, 8)]))
+    mat = lambda k, n: t(rng.choice([0, 0.125, -0.125, 0.25, -0.25, 0.5, -0.5], (k, n)))
+    cases = {}
+
+    # x = +-k/4 and a part away from zero below half its bf16 ulp (>= 2^-10)
+    sign = rng.choice([-1, 1], (B, F))
+    x = sign * (rng.integers(1, 9, (B, F)) / 4 + rng.integers(0, 4, (B, F)) * 2.0 ** -12)
+    w_half = grid(H // 2, 4, 4)
+    w_enc = rng.permuted(np.concatenate([w_half, -w_half]))     # sums to 0
+    enc = np.stack([w_enc, centred_rows((H,), 4, 8, 4, 8), *ln().float().cpu().numpy(),
+                    grid(H, 8, 8)])
+    cases["encode"] = ("encode", (t(x, torch.float32), t(enc), t(grid((F, H), 8, 8))), {})
+    # rows scaled by 1, 1/4 or 1/16: in the small ones eps 1e-6 matters
+    h = centred_rows((B, F, H), 4, 4, 6, 4) * 2.0 ** -rng.choice([0, 2, 4], (B, F, 1))
+    cases["layer_norm"] = ("layer_norm", (t(h), ln()), {})
+    for name, K, N, res, relu in (("gemm_qkv", H, 3 * H, False, False),
+                                  ("gemm_out_residual", H, H, True, False),
+                                  ("gemm_ffn_up_relu", H, 4 * H, False, True),
+                                  ("gemm_ffn_down_residual", 4 * H, H, True, False)):
+        kw = {"relu": relu}
+        if res:
+            kw["res"] = t(grid((B, F, N), 8, 4))
+        cases[name] = ("gemm", (t(grid((B, F, K), 8, 4)), mat(K, N), t(grid(N, 8, 8))), kw)
+
+    # per (sample, head): q_i = b_i u, k_j = a_j u with u in {-1, 1}^hd, so
+    # scores b_i a_j sqrt(hd): rows with b_i = 0 are uniform, the others put
+    # 1/count on the tied best a_j and exp(<= -128) = 0 elsewhere
+    u = rng.choice([-1.0, 1.0], (B, 1, nh, hd))
+    q = rng.choice([-32.0, 0.0, 32.0], (B, F, nh, 1)) * u
+    kk = rng.integers(0, 3, (B, F, nh, 1)) * u
+    v = grid((B, F, nh, hd), 8, 4)
+    qkv = np.concatenate([a.reshape(B, F, H) for a in (q, kk, v)], axis=-1)
+    cases["attention"] = ("attention", (t(qkv), nh, 1.0 / hd ** 0.5), {})
+    cases["head"] = ("head", (t(grid((B, F, H), 127, 32)), t(grid(H, 31, 32)), 0.375,
+                              module.state_dim), {})
+    return cases
+
+
+def estimator_ops(module, B: int) -> int:
+    """Product operations that one forward needs: in every layer but the
+    last, 12 H^2 MACs per token (QKV, out-projection, FFN) plus 2 F H for
+    scores and weighted values. The output keeps only the state_dim tokens,
+    so in the last layer the action tokens need only their K and V
+    projections (2 H^2); Q, attention, out-projection and FFN (10 H^2 +
+    2 F H) count for the state_dim tokens alone. The encode and the head
+    (F H and state_dim H per sample) are left out: under 0.01%."""
+    F, Sd, H, L = module.input_dim, module.state_dim, module.hidden_dim, module.attn_layers
+    full = F * (12 * H * H + 2 * F * H)
+    last = F * 2 * H * H + Sd * (10 * H * H + 2 * F * H)
+    return 2 * B * ((L - 1) * full + last)
+
+
+def estimator_bytes(module, B: int, esize: int) -> dict:
+    """Bytes of one forward: what the function must move (x in, the output,
+    each weight once) and what the layer-wise design also moves (each kernel
+    reads its inputs and writes its outputs once: 26 H-wide rows per token
+    per layer, the encode's and the head's rows)."""
+    F, Sd, H, L = module.input_dim, module.state_dim, module.hidden_dim, module.attn_layers
+    n_w = sum(p.numel() for p in module.parameters())
+    function = 4 * B * F + 4 * B * Sd + esize * n_w
+    M = B * F
+    design = function + esize * (L * 26 * M * H + M * H + B * Sd * H)
+    return {"function": function, "design": design}
+
+
+def library_forward(module):
+    """The same forward through PyTorch's TransformerEncoder in bf16, with the
+    encode and the head as torch ops around it: a yardstick only."""
+    from torch import nn
+    import torch.nn.functional as Fn
+
+    H, nh, L = module.hidden_dim, module.num_heads, module.attn_layers
+    layer = nn.TransformerEncoderLayer(H, nh, 4 * H, dropout=0.0, norm_first=True,
+                                       layer_norm_eps=1e-6, batch_first=True)
+    enc = nn.TransformerEncoder(layer, L, enable_nested_tensor=False)
+    sd = module.state_dict()
+    lib = {}
+    names = {"self_attn.in_proj_weight": "attention.in_proj_weight",
+             "self_attn.in_proj_bias": "attention.in_proj_bias",
+             "self_attn.out_proj.weight": "attention.out_proj.weight",
+             "self_attn.out_proj.bias": "attention.out_proj.bias",
+             "linear1.weight": "ffn.0.weight", "linear1.bias": "ffn.0.bias",
+             "linear2.weight": "ffn.3.weight", "linear2.bias": "ffn.3.bias",
+             "norm1.weight": "norm1.weight", "norm1.bias": "norm1.bias",
+             "norm2.weight": "norm2.weight", "norm2.bias": "norm2.bias"}
+    for i in range(L):
+        lib.update({f"layers.{i}.{a}": sd[f"layers.{i}.{b}"] for a, b in names.items()})
+    enc.load_state_dict(lib)
+    enc = enc.to("cuda", torch.bfloat16).eval()
+    w = {k: v.to("cuda", torch.bfloat16) for k, v in sd.items()
+         if k.startswith(("feature_encoding", "pos_embedding", "output_layer"))}
+
+    @torch.inference_mode()
+    def forward(x):
+        h = Fn.linear(x.to(torch.bfloat16)[..., None], w["feature_encoding.0.weight"],
+                      w["feature_encoding.0.bias"])
+        h = Fn.layer_norm(h, (H,), w["feature_encoding.1.weight"],
+                          w["feature_encoding.1.bias"], eps=1e-6)
+        h = enc(torch.relu(h) + w["pos_embedding"])
+        out = Fn.linear(h, w["output_layer.weight"], w["output_layer.bias"])
+        return out[..., 0][:, :module.state_dim].float()
+
+    return forward
+
+
 def ops_per_rollout(spec, model, T) -> int:
     """Scalar operations one sample's rollout needs: the plain version's
     arithmetic ops (0/1 constants already folded away), counted on the CPU
@@ -113,6 +332,206 @@ def ops_per_rollout(spec, model, T) -> int:
     return n1 + (T - 1) * (n2 - n1)
 
 
+def estimator_phases() -> dict:
+    """check_estimator, main_estimator and time_estimator; returns the
+    estimator kernel's entry of the `kernels` line."""
+    from humanoid_mppi_rl_tpu_torch.collect.estimator import (
+        ESTIMATOR_CONFIGS, quadruped_estimator_costs)
+    from humanoid_mppi_rl_tpu_torch.dynamics.learned import make_learned_dynamics
+    from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+    from humanoid_mppi_rl_tpu_torch.solver.mppi import MPPIState, make_mppi
+
+    # the plain version's products in full f32: no TF32, and no reduced-
+    # precision reductions in bf16 products (PyTorch's default allows them)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    def x_on_card(B, F, seed):
+        x = np.random.default_rng(seed).normal(size=(B, F))
+        return torch.tensor(x, dtype=torch.float32, device="cuda")
+
+    # ---- check_estimator: kernel against its plain version -----------------
+    t0 = time.perf_counter()
+    errs = {}
+    for preset in EST_PRESETS:
+        module = seeded_weights(make_model(preset), seed=1)
+        applies = {cd: ek.make_flash_feature_attention(module, cd)
+                   for cd in (torch.float32, torch.bfloat16)}
+        for B in EST_CHECK_B:
+            x = x_on_card(B, module.input_dim, seed=B)
+            plain = {}
+            for cd, apply in applies.items():
+                n0 = ek.launches
+                got = apply(x)
+                torch.cuda.synchronize()
+                if ek.launches != n0 + 1:
+                    raise AssertionError("estimator kernel launch was not counted")
+                want = plain[cd] = apply.plain(x)
+                key = f"{preset}/{str(cd).replace('torch.', '')}/B={B}"
+                if tuple(got.shape) != (B, module.state_dim) or not torch.isfinite(got).all():
+                    raise AssertionError(f"{key}: bad kernel output")
+                if cd == torch.float32:
+                    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=key)
+                    errs[key] = {"max_abs": float((got - want).abs().max())}
+                else:
+                    e = bf16_errors(got, want)
+                    if not e["within"]:
+                        raise AssertionError(f"{key}: {e}")
+                    # for scale: how far bf16 itself lies from f32
+                    e["plain_bf16_vs_f32_median_abs"] = float(
+                        (plain[torch.bfloat16] - plain[torch.float32]).abs().median())
+                    errs[key] = e
+    # each kernel alone on inputs whose sums are exact in any order: bf16
+    # roundings placed anywhere but where the plain version places them
+    # show as differences here, which summation order cannot explain
+    exact = {}
+    for preset in EST_PRESETS:
+        cases = exact_stage_cases(make_model(preset), B=EST_CHECK_B[-1], seed=5)
+        for name, (stage, args, kw) in cases.items():
+            kernel, plain = ek.STAGES[stage]
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            key = f"{preset}/{name}"
+            differ = int((got != want).sum())
+            exact[key] = {"differ": differ, "of": want.numel()}
+            if differ or not torch.isfinite(got).all():
+                raise AssertionError(f"{key}: kernel and plain differ in {differ} of "
+                                     f"{want.numel()} (max {float((got - want).abs().max())})")
+    emit({"phase": "check_estimator", "presets": list(EST_PRESETS), "B": list(EST_CHECK_B),
+          "tolerance": {"float32": "rtol=atol=1e-4",
+                        "bfloat16": "median|diff|<=3e-3*s, max|diff|<=3e-2*s, s=max(1,max|y|)",
+                        "bit_exact_stages_bf16": "equal (exact_stage_cases, B=61)"},
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "errors": errs, "bit_exact_stages_bf16": exact,
+          "seconds": time.perf_counter() - t0})
+
+    # ---- main_estimator: the estimator replan at full width ----------------
+    t0 = time.perf_counter()
+    module = seeded_weights(make_model("quadruped_attention"), seed=0)
+    with torch.no_grad():
+        # a trained surrogate predicts small per-step deltas: scale the head
+        # so that 50 seeded steps stay near the start and the weights spread
+        module.output_layer.weight.mul_(0.01)
+        module.output_layer.bias.mul_(0.01)
+    apply = ek.make_flash_feature_attention(module)
+    running, terminal = quadruped_estimator_costs()
+    cfg = ESTIMATOR_CONFIGS["quadruped"]
+    plan = make_mppi(make_learned_dynamics(apply, state_slice=module.state_dim), running, cfg,
+                     terminal_fn=terminal)
+    ms = MPPIState.seeded(0, cfg.T, module.action_dim)
+    x0 = torch.tensor(np.random.default_rng(0).normal(0, 0.1, module.state_dim),
+                      dtype=torch.float32, device="cuda")
+    ek.launches = 0
+    ek.kernel_launches.update(dict.fromkeys(ek.KINDS, 0))
+    times = []
+    for i in range(EST_WARMUP + EST_TIMED):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        action, ms, diag = plan(ms, x0)
+        b.record()
+        torch.cuda.synchronize()
+        if i >= EST_WARMUP:
+            times.append(a.elapsed_time(b))
+    est_launches, per_kind = ek.launches, dict(ek.kernel_launches)
+    n_replans = EST_WARMUP + EST_TIMED
+    if est_launches != cfg.T * n_replans:
+        raise AssertionError(f"{est_launches} estimator forwards for {n_replans} replans of T={cfg.T}")
+    outs = {"action": action, "U": ms.U, **dataclasses.asdict(diag)}
+    for name, v in outs.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"non-finite {name}")
+    if tuple(action.shape) != (module.action_dim,) or tuple(ms.U.shape) != (cfg.T, module.action_dim):
+        raise AssertionError("unexpected output shapes")
+    q1, q3 = np.percentile(times, [25, 75])
+    med = statistics.median(times)
+    prof = device_profile(lambda: plan(ms, x0))
+    emit({"phase": "main_estimator", "model": "quadruped_attention", "dtype": "bfloat16",
+          "K": cfg.K, "T": cfg.T, "replans": EST_TIMED, "launches": est_launches,
+          "launches_per_replan": est_launches / n_replans, "kernel_launches": per_kind,
+          "replan_ms_median": med, "replan_ms_q1": float(q1), "replan_ms_q3": float(q3),
+          "replan_ms_min": min(times), "replan_ms_max": max(times),
+          "rollouts_per_s": cfg.K / (med / 1e3),
+          "beta": float(diag.beta), "ess": float(diag.ess),
+          "profiled_replan": prof, "seconds": time.perf_counter() - t0})
+
+    # ---- time_estimator: one forward alone ---------------------------------
+    module = seeded_weights(make_model("quadruped_attention"), seed=0)
+    apply = ek.make_flash_feature_attention(module)
+    library = library_forward(module)
+    timed = {}
+    for B in EST_TIME_B:
+        t0 = time.perf_counter()
+        x = x_on_card(B, module.input_dim, seed=3)
+        reps = 5 if B <= 8192 else 2
+        apply(x)
+        kernel_ms = cuda_ms(lambda: apply(x), reps)
+        got = apply(x)
+        parts = []
+
+        def plain():
+            parts[:] = [apply.plain(x[i:i + EST_PLAIN_CHUNK])
+                        for i in range(0, B, EST_PLAIN_CHUNK)]
+
+        if B <= EST_PLAIN_CHUNK:
+            plain()     # first use of the library's products outside the timing
+        plain_ms = cuda_ms(plain, 1)
+        want = torch.cat(parts)
+        del parts[:]
+        e = bf16_errors(got, want)
+        if not (e["within"] and torch.isfinite(got).all()):
+            raise AssertionError(f"B={B} kernel vs plain: {e}")
+        library(x)
+        library_ms = cuda_ms(lambda: library(x), reps)
+        lib_e = bf16_errors(library(x), want)
+        n_ops = estimator_ops(module, B)
+        n_bytes = estimator_bytes(module, B, esize=2)
+        t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+        t_bytes = n_bytes["function"] / PEAK_BYTES_PER_S * 1e3
+        timed[B] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                    "max_abs_err": e["max_abs"]}
+        emit({"phase": "time_estimator", "model": "quadruped_attention", "dtype": "bfloat16",
+              "B": B, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "plain_chunk": EST_PLAIN_CHUNK, "library_ms": library_ms,
+              "library": "nn.TransformerEncoder(norm_first, eps=1e-6) in bf16 + torch encode/head",
+              "ops": n_ops, "bytes_function": n_bytes["function"],
+              "bytes_design": n_bytes["design"], "bound_ops_ms": t_ops,
+              "bound_bytes_ms": t_bytes,
+              "bound_design_bytes_ms": n_bytes["design"] / PEAK_BYTES_PER_S * 1e3,
+              "kernel_tflops": n_ops / kernel_ms / 1e9,
+              "kernel_vs_plain": e, "library_vs_plain": lib_e,
+              "library_within_bf16_tolerance": lib_e["within"],
+              "seconds": time.perf_counter() - t0})
+        del x, got, want
+        torch.cuda.empty_cache()
+
+    main_b = ESTIMATOR_CONFIGS["quadruped"].K
+    check_max = max(v["max_abs"] for k, v in errs.items() if "bfloat16" in k)
+    return {
+        "name": "estimator",
+        "route": "cuda",
+        "source": "humanoid_mppi_rl_tpu_torch/ops/csrc/estimator_kernel.cu",
+        "replaces": "humanoid_mppi_rl_tpu/ops/estimator_kernel.py:129",
+        "launches": est_launches,
+        "kernel_launches": per_kind,
+        "max_abs_err": timed[main_b]["max_abs_err"],
+        "max_abs_err_check_bf16": check_max,
+        "max_abs_err_check_f32": max(v["max_abs"] for k, v in errs.items() if "float32" in k),
+        "bit_exact_stage_cases_bf16": len(exact),
+        "ms": timed[main_b]["kernel_ms"],
+        "plain_ms": timed[main_b]["plain_ms"],
+        "bound_ms": timed[main_b]["bound_ms"],
+        "bound_by": timed[main_b]["bound_by"],
+        "library_ms": timed[main_b]["library_ms"],
+        "at_B": main_b,
+        "B65536": timed[EST_TIME_B[-1]],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -137,12 +556,14 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    built = _build.build("rollout_kernel.cu")
-    ptxas = [ln.strip() for ln in built["log"].splitlines()
-             if any(s in ln for s in ("rollout_kernel", "stack frame", "registers"))]
-    emit({"phase": "build", "source": "rollout_kernel.cu", "cached": built["cached"],
-          "nvcc_seconds": built["seconds"], "ptxas": ptxas,
-          "seconds": time.perf_counter() - t0})
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        builds = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
+    for source, built in builds.items():
+        ptxas = [ln.strip() for ln in built["log"].splitlines()
+                 if any(s in ln for s in ("Function properties for", "stack frame", "registers"))]
+        emit({"phase": "build", "source": source, "cached": built["cached"],
+              "nvcc_seconds": built["seconds"], "ptxas": ptxas,
+              "seconds": time.perf_counter() - t0})
 
     # ---- check: kernel against its plain version on the card -------------
     t0 = time.perf_counter()
@@ -235,6 +656,8 @@ def main() -> int:
           "kernel_vs_plain": full, "tolerance": "cost rel median<1e-3",
           "seconds": time.perf_counter() - t0})
 
+    est = estimator_phases()
+
     emit({"kernels": [{
         "name": "rollout",
         "route": "cuda",
@@ -251,7 +674,7 @@ def main() -> int:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": None,
-    }]})
+    }, est]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

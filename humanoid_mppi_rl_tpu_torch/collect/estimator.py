@@ -1,0 +1,215 @@
+"""Estimator MPPI on a learned surrogate: the solver configurations and the
+costs (collect/estimator.py counterpart).
+
+Every cost here is batched: x (..., nx) and u (..., nu) -> (...), summing
+over the last axis only (the JAX costs are per-sample and vmapped over K).
+
+Still to port: humanoid_fk/predvel_estimator_costs (they need the array
+engine's forward kinematics and costs/humanoid) and EstimatorRunner (it
+steps the plant on the array engine).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..solver.mppi import MPPIConfig
+
+ESTIMATOR_CONFIGS = {
+    # reference src/cartpole_mppi_estimator.py:37-40
+    "cartpole": MPPIConfig(n_samples=2048, horizon=100, temperature=10.0,
+                           sigma=0.5, update_mode="replace", tail_decay=0.1),
+    # reference src/quadruped_mppi_estimator.py:38-41
+    "quadruped": MPPIConfig(n_samples=2048, horizon=50, temperature=10.0,
+                            sigma=0.4, update_mode="replace", tail_decay=0.1),
+    # the humanoid surrogate, in the same replace-mode pattern
+    "humanoid": MPPIConfig(n_samples=2048, horizon=50, temperature=10.0,
+                           sigma=0.4, update_mode="replace", tail_decay=0.1),
+}
+
+
+def _const(values, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(values, dtype=like.dtype, device=like.device)
+
+
+def _goal_costs(goal_pos):
+    """Drive the root toward the goal, regularise control; terminal 10x."""
+
+    def running(x, u, t):
+        goal = _const(goal_pos, x)
+        return (torch.sum((x[..., :3] - goal) ** 2, dim=-1)
+                + 0.1 * torch.sum(u ** 2, dim=-1))
+
+    def terminal(x, t):
+        return 10.0 * torch.sum((x[..., :3] - _const(goal_pos, x)) ** 2, dim=-1)
+
+    return running, terminal
+
+
+def humanoid_estimator_costs(goal_pos=(2.0, 0.0, 1.28), action_dim=21):
+    """Goal-reaching cost over the humanoid surrogate's 30-dim state
+    [qpos(28); foot_l_z; foot_r_z]."""
+    return _goal_costs(goal_pos)
+
+
+def quadruped_estimator_costs(goal_pos=(2.0, 0.0, 0.35), action_dim=12):
+    """reference src/quadruped_mppi_estimator.py:48-55"""
+    return _goal_costs(goal_pos)
+
+
+def make_fd_time_augmented(base_dyn, nx: int, dt: float):
+    """Wrap a flat-state surrogate dynamics with the [x_t; x_{t-1}; t_abs]
+    augmentation, so costs can finite-difference velocities and keep an
+    absolute gait clock across replans."""
+
+    def dyn(x_aug, u, t):
+        x = x_aug[..., :nx]
+        tau = x_aug[..., 2 * nx:]
+        return torch.cat([base_dyn(x, u, t), x, tau + dt], dim=-1)
+
+    def augment_state(x, t_abs):
+        return torch.cat([x, x, _const(t_abs, x).reshape(1)])
+
+    return dyn, augment_state
+
+
+def humanoid_gait_estimator_costs(goal_pos=(3.0, 0.0, 1.28), nx: int = 30,
+                                  dt: float = 0.005,
+                                  target_vel: float = 0.35,
+                                  gait_period: float = 0.9,
+                                  foot_lift: float = 0.10,
+                                  w_vel=10.0, w_height=22.0, w_orient=17.0,
+                                  w_goal=1.0, w_lat=2.0, w_gait=60.0,
+                                  w_ctrl=0.1):
+    """Gait-shaped cost over the FD/time-augmented humanoid surrogate state
+    [qpos(28); foot_l_z; foot_r_z; prev...; t_abs]: forward-velocity
+    tracking from FD root x, an alternating foot-lift clock on the two
+    predicted foot heights, orientation and height anchors."""
+    om = 2.0 * math.pi / gait_period
+
+    def running(x_aug, u, t):
+        goal = _const(goal_pos, x_aug)
+        x = x_aug[..., :nx]
+        xp = x_aug[..., nx:2 * nx]
+        tau = x_aug[..., 2 * nx]
+        vx = (x[..., 0] - xp[..., 0]) / dt
+        vy = (x[..., 1] - xp[..., 1]) / dt
+        qw, qx, qy, qz = x[..., 3], x[..., 4], x[..., 5], x[..., 6]
+        roll = torch.atan2(2 * (qw * qx + qy * qz), 1 - 2 * (qx * qx + qy * qy))
+        pitch = torch.asin(torch.clamp(2 * (qw * qy - qz * qx), -1.0, 1.0))
+        fl, fr = x[..., 28], x[..., 29]
+        s = torch.sin(om * tau)
+        tl = 0.07 + foot_lift * torch.clamp(s, min=0.0)
+        tr = 0.07 + foot_lift * torch.clamp(-s, min=0.0)
+        c = w_vel * (vx - target_vel) ** 2 + w_vel * vy ** 2
+        c = c + w_height * (x[..., 2] - goal[2]) ** 2
+        c = c + w_orient * (roll ** 2 + pitch ** 2)
+        c = c + w_lat * x[..., 1] ** 2
+        c = c + w_goal * torch.sum((x[..., :2] - goal[:2]) ** 2, dim=-1)
+        c = c + w_gait * ((fl - tl) ** 2 + (fr - tr) ** 2)
+        return c + w_ctrl * torch.sum(u ** 2, dim=-1)
+
+    def terminal(x_aug, t):
+        goal = _const(goal_pos, x_aug)
+        x = x_aug[..., :nx]
+        return 10.0 * (w_goal * torch.sum((x[..., :2] - goal[:2]) ** 2, dim=-1)
+                       + w_height * (x[..., 2] - goal[2]) ** 2)
+
+    return running, terminal
+
+
+def quadruped_gait_estimator_costs(home12, goal_xy=(2.0, 0.0), nx: int = 37,
+                                   target_vel: float = 0.45,
+                                   w_home: float = 3000.0):
+    """The trot cost of the true Go1 plant (costs/quadruped.make_costs with
+    GAIT_TUNED shaping) over the surrogate's predicted [qpos(19); qvel(18)]
+    state in the FD/time augmentation. `home12` is the home-keyframe leg
+    pose. Indices marked [sic] follow the reference."""
+    gx, gy = float(goal_xy[0]), float(goal_xy[1])
+
+    def running(x_aug, u, t):
+        home = _const(home12, x_aug)
+        x = x_aug[..., :nx]
+        tau = x_aug[..., 2 * nx]
+        q = x[..., :19]
+        v = x[..., 19:37]
+        phase = (tau % 0.5) / 0.5 * 2 * math.pi
+        trot = torch.sin(phase)
+        tv = target_vel + 0.1 * torch.sin(phase)
+        c = 10000.0 * (q[..., 2] - 0.4) ** 2          # GAIT_TUNED w_height
+        c = c + 30000.0 * (v[..., 0] - tv) ** 2
+        c = c + 500.0 * (q[..., 6] ** 2 + q[..., 7] ** 2)   # [sic]
+        c = c + 20.0 * torch.sum(v[..., 6:9] ** 2, dim=-1)
+        c = c + 50000.0 * (q[..., 1] ** 2 + v[..., 1] ** 2)
+        c = c + 0.01 * torch.sum(u ** 2, dim=-1)
+        c = c + 3000.0 * ((q[..., 0] - gx) ** 2 + (q[..., 1] - gy) ** 2)
+        f1 = (q[..., 2] - q[..., 11]) * trot          # [sic]
+        f2 = (q[..., 5] - q[..., 8]) * (-trot)
+        c = c + 34000.0 * (f1 * f1 + f2 * f2)
+        c = c + w_home * torch.sum((q[..., 7:19] - home) ** 2, dim=-1)
+        nk = 0.5
+        c = c + 2000.0 * ((q[..., 2] - nk) ** 2 + (q[..., 5] - nk) ** 2
+                          + (q[..., 8] - nk) ** 2 + (q[..., 11] - nk) ** 2)
+        return c + 5.0 * torch.sum(q[..., 0:12] ** 2, dim=-1)
+
+    def terminal(x_aug, t):
+        x = x_aug[..., :nx]
+        return 10.0 * 3000.0 * ((x[..., 0] - gx) ** 2 + (x[..., 1] - gy) ** 2)
+
+    return running, terminal
+
+
+def quadruped_fd_gait_estimator_costs(home12, goal_xy=(2.0, 0.0),
+                                      nx: int = 19, dt: float = 0.002,
+                                      w_home: float = 3000.0):
+    """The collection trot cost (costs/quadruped.make_costs plus the
+    GAIT_TUNED deltas) over a position-only quad surrogate state [qpos(19)],
+    every velocity read replaced by its finite difference over the
+    [x; x_prev; t_abs] augmentation. Indices marked [sic] follow the
+    reference."""
+    w_pos, w_height, w_vel = 50000.0, 500.0 * math.exp(3.0), 30000.0
+    w_ori, w_ang, w_ctrl = 500.0, 20.0, 0.01
+    w_goal, w_trot = 3000.0, 34000.0
+    w_front, w_back = 4400.0, 10000.0
+    w_knee, w_posture = 2000.0, 5.0
+    target_height, base_tv, osc, nk, period = 0.4, 0.9, 0.1, 0.5, 0.5
+
+    def running(x_aug, u, t):
+        goal = _const([float(goal_xy[0]), float(goal_xy[1])], x_aug)
+        home = _const(home12, x_aug)
+        q = x_aug[..., :nx]
+        qp = x_aug[..., nx:2 * nx]
+        tau = x_aug[..., 2 * nx]
+        vel3 = (q[..., 0:3] - qp[..., 0:3]) / dt
+        ang3 = (q[..., 6:9] - qp[..., 6:9]) / dt   # [sic]
+        phase = (tau % period) / period * 2 * math.pi
+        trot = torch.sin(phase)
+        tv = base_tv + osc * torch.sin(phase)
+        FL, FR = q[..., 2], q[..., 5]              # [sic]
+        RL, RR = q[..., 8], q[..., 11]
+        c = w_height * (q[..., 2] - target_height) ** 2
+        c = c + w_vel * (vel3[..., 0] - tv) ** 2
+        c = c + w_ori * (q[..., 6] ** 2 + q[..., 7] ** 2)   # [sic]
+        c = c + w_ang * torch.sum(ang3 ** 2, dim=-1)
+        c = c + w_pos * (q[..., 1] ** 2 + vel3[..., 1] ** 2)
+        c = c + w_ctrl * torch.sum(u ** 2, dim=-1)
+        c = c + w_goal * torch.sum((q[..., 0:2] - goal) ** 2, dim=-1)
+        f1 = (FL - RR) * trot
+        f2 = (FR - RL) * (-trot)
+        c = c + w_trot * (f1 * f1 + f2 * f2)
+        c = c - w_front * (u[..., 1] ** 2 + u[..., 4] ** 2)
+        c = c + w_front * (u[..., 2] ** 2 + u[..., 5] ** 2)
+        c = c - w_back * (u[..., 7] ** 2 + u[..., 10] ** 2)
+        c = c + w_back * (u[..., 8] ** 2 + u[..., 11] ** 2)
+        c = c + w_knee * ((FL - nk) ** 2 + (FR - nk) ** 2
+                          + (RL - nk) ** 2 + (RR - nk) ** 2)
+        c = c + w_posture * torch.sum(q[..., 0:12] ** 2, dim=-1)
+        return c + w_home * torch.sum((q[..., 7:19] - home) ** 2, dim=-1)
+
+    def terminal(x_aug, t):
+        # the reference adds no terminal (costs/quadruped.make_costs)
+        return torch.zeros(x_aug.shape[:-1], dtype=x_aug.dtype, device=x_aug.device)
+
+    return running, terminal

@@ -1,0 +1,67 @@
+"""Flax FeatureAttention weights -> the port's module.
+
+`params_from_flax` is the exact inverse of the JAX package's
+learning/torch_import.feature_attention_params: a flax parameter tree (of
+numpy arrays) becomes a state_dict with the reference PyTorch model's names.
+
+Layouts (flax -> torch):
+  Dense kernel (in, out)                 -> Linear.weight (out, in) = kernel.T
+  attention query/key/value kernel (H, nh, hd), bias (nh, hd)
+                                         -> in_proj_weight rows [Wq; Wk; Wv],
+                                            each kernel.reshape(H, H).T
+  attention out kernel (nh, hd, H)       -> out_proj.weight = kernel.reshape(H, H).T
+  LayerNorm scale/bias                   -> LayerNorm weight/bias
+  pos_embedding (F, H)                   -> pos_embedding (1, F, H)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .predictors import FeatureAttentionStatePredictor
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _linear(sd, prefix, dense):
+    sd[f"{prefix}.weight"] = _t(np.asarray(dense["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(dense["bias"])
+
+
+def _layernorm(sd, prefix, ln):
+    sd[f"{prefix}.weight"] = _t(ln["scale"])
+    sd[f"{prefix}.bias"] = _t(ln["bias"])
+
+
+def params_from_flax(params: Dict[str, Any],
+                     module: FeatureAttentionStatePredictor) -> Dict[str, torch.Tensor]:
+    """flax params ({"params": ...} or the inner tree) -> module.state_dict()."""
+    p = params["params"] if "params" in params else params
+    H = module.hidden_dim
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "feature_encoding.0", p["Dense_0"])
+    _layernorm(sd, "feature_encoding.1", p["LayerNorm_0"])
+    sd["pos_embedding"] = _t(p["pos_embedding"])[None]
+    for i in range(module.attn_layers):
+        blk = p[f"_TransformerBlock_{i}"]
+        mha = blk["MultiHeadDotProductAttention_0"]
+        pre = f"layers.{i}"
+        _layernorm(sd, f"{pre}.norm1", blk["LayerNorm_0"])
+        sd[f"{pre}.attention.in_proj_weight"] = torch.cat(
+            [_t(np.asarray(mha[n]["kernel"]).reshape(H, H).T)
+             for n in ("query", "key", "value")])
+        sd[f"{pre}.attention.in_proj_bias"] = torch.cat(
+            [_t(np.asarray(mha[n]["bias"]).reshape(H)) for n in ("query", "key", "value")])
+        sd[f"{pre}.attention.out_proj.weight"] = _t(
+            np.asarray(mha["out"]["kernel"]).reshape(H, H).T)
+        sd[f"{pre}.attention.out_proj.bias"] = _t(mha["out"]["bias"])
+        _layernorm(sd, f"{pre}.norm2", blk["LayerNorm_1"])
+        _linear(sd, f"{pre}.ffn.0", blk["Dense_0"])
+        _linear(sd, f"{pre}.ffn.3", blk["Dense_1"])
+    _linear(sd, "output_layer", p["Dense_1"])
+    return sd

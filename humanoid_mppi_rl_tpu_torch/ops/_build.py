@@ -3,8 +3,8 @@
 One `nvcc -gencode arch=compute_90a,code=sm_90a -shared` per source in
 csrc/, into humanoid_mppi_rl_tpu_torch/_build/, with a plain C interface:
 no PyTorch headers, so a build takes seconds, not minutes. A build is keyed
-by a hash of the sources, headers and flags and is redone only when they
-change. Nothing is built at import: the first caller builds.
+by a hash of its source, the headers it includes and the flags, and is
+redone only when they change. Nothing is built at import: the first caller builds.
 """
 
 from __future__ import annotations
@@ -20,8 +20,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("rollout_kernel.cu",)
-HEADERS = ("rollout_body.cuh",)
+# each source in csrc/ with the headers of csrc/ it includes
+SOURCES = {"rollout_kernel.cu": ("rollout_body.cuh",),
+           "estimator_kernel.cu": ()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,14 +40,14 @@ def _nvcc() -> str:
 
 def _digest(source: str) -> str:
     h = hashlib.sha256()
-    for name in (source,) + HEADERS:
+    for name in (source,) + SOURCES[source]:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build(source: str = SOURCES[0]) -> dict:
+def build(source: str) -> dict:
     """Compile csrc/<source> into a shared library unless an identical
     build exists. Returns {"path", "log" (nvcc/ptxas output), "seconds",
     "cached"}."""
@@ -72,6 +73,6 @@ def build(source: str = SOURCES[0]) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(source: str = SOURCES[0]) -> ctypes.CDLL:
+def load_library(source: str) -> ctypes.CDLL:
     """The built library of csrc/<source>, loaded once per process."""
     return ctypes.CDLL(str(build(source)["path"]))

@@ -13,7 +13,7 @@ from .._device import resolve_device
 from ..ops.rollout_kernel import build_rollout_kernel
 from ..physics.model import PhysicsModel
 from ..physics.state import PhysicsState
-from .mppi import (MPPIConfig, MPPIDiagnostics, MPPIState, _clip_ctrl,
+from .mppi import (MPPIConfig, MPPIState, _clip_ctrl, diagnostics,
                    mppi_weights, shift_plan, weighted_noise_update)
 
 
@@ -74,15 +74,8 @@ def make_kernel_mppi(
         action = _clip_ctrl(U_new[0], cfg)
         U_shifted = shift_plan(U_new, cfg.tail_decay)
 
-        diag = MPPIDiagnostics(
-            beta=beta,
-            mean_cost=torch.mean(costs),
-            ess=1.0 / torch.sum(w * w),
-            weight_entropy=-torch.sum(
-                w * torch.where(w > 0, torch.log(w + 1e-30), 0.0)),
-            update_norm=torch.linalg.norm(update),
-        )
-        return action, MPPIState(U=U_shifted, generator=mppi_state.generator), diag
+        return (action, MPPIState(U=U_shifted, generator=mppi_state.generator),
+                diagnostics(costs, w, beta, update))
 
     plan.rollouts = rollouts
     return plan

@@ -1,8 +1,11 @@
-"""MPPI pieces the kernel planner uses (solver/mppi.py counterpart).
+"""MPPI solver core (solver/mppi.py counterpart): the pieces the kernel
+planner uses, and `make_mppi` for dynamics that step the whole (K, nx)
+batch (the learned surrogates).
 
 The algorithm per replan:
 
-    noise   ~ N(0, sigma^2), shape (T, nu, K)  (the kernel's layout)
+    noise   ~ N(0, sigma^2), shape (T, nu, K) for the kernel planner,
+              (K, T, nu) for make_mppi (the JAX layouts)
     costs_k = sum_t running_cost(step(x_t, clip(U_t + eps_t))) + terminal
     beta    = min_k costs_k
     w_k     = exp(-(costs_k - beta) / lambda);  w /= sum(w) (+eps)
@@ -17,7 +20,7 @@ numbers from one seed, so parity tests inject the same noise into both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -26,7 +29,7 @@ from .._device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class MPPIConfig:
-    """Static MPPI hyperparameters (the fields the kernel planner reads)."""
+    """Static MPPI hyperparameters."""
 
     n_samples: int = 30          # K
     horizon: int = 100           # T
@@ -39,6 +42,8 @@ class MPPIConfig:
     ctrl_high: Optional[tuple] = None
     clamp_plan: bool = False     # clamp U after update
     clamp_rollout_ctrl: bool = True  # clip perturbed ctrl inside rollouts
+    terminal_scale: float = 0.0  # if no terminal_fn, terminal = scale * running
+    replans_per_step: int = 1    # sample/update passes per control step
     noise_block: Optional[int] = None  # sharding-invariant noise (not ported)
 
     @property
@@ -103,3 +108,90 @@ def weighted_noise_update(weights: torch.Tensor, noise: torch.Tensor) -> torch.T
 def shift_plan(U: torch.Tensor, tail_decay: float) -> torch.Tensor:
     """Receding-horizon shift (reference src/cartpole_mppi.py:102-103)."""
     return torch.cat([U[1:], tail_decay * U[-1:]], dim=0)
+
+
+def diagnostics(costs: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
+                update: torch.Tensor) -> MPPIDiagnostics:
+    return MPPIDiagnostics(
+        beta=beta,
+        mean_cost=torch.mean(costs),
+        ess=1.0 / torch.sum(w * w),
+        weight_entropy=-torch.sum(w * torch.where(w > 0, torch.log(w + 1e-30), 0.0)),
+        update_norm=torch.linalg.norm(update),
+    )
+
+
+def rollout_costs_batched(dynamics_fn: Callable, cost_fn: Callable,
+                          terminal_fn: Optional[Callable], cfg: MPPIConfig,
+                          x0: torch.Tensor, U: torch.Tensor,
+                          noise: torch.Tensor) -> torch.Tensor:
+    """Cost of each of K perturbed plans, noise (K, T, nu) -> costs (K,).
+
+    dynamics_fn(x (K, nx), u (K, nu), t) -> (K, nx) and cost_fn(x, u, t) ->
+    (K,) take the K batch natively. The running cost is taken on the
+    post-step state with the (clipped) applied control; the terminal cost
+    at t = T."""
+    K = noise.shape[0]
+    x = x0.expand(K, *x0.shape)
+    acc = 0.0
+    for t in range(cfg.T):
+        u = U[t] + noise[:, t]
+        if cfg.clamp_rollout_ctrl:
+            u = _clip_ctrl(u, cfg)
+        x = dynamics_fn(x, u, t)
+        acc = acc + cost_fn(x, u, t)
+    if terminal_fn is not None:
+        acc = acc + terminal_fn(x, cfg.T)
+    elif cfg.terminal_scale:
+        acc = acc + cfg.terminal_scale * cost_fn(
+            x, torch.zeros(K, U.shape[-1], dtype=U.dtype, device=U.device), cfg.T)
+    return acc
+
+
+def make_mppi(dynamics_fn: Callable, cost_fn: Callable, cfg: MPPIConfig,
+              terminal_fn: Optional[Callable] = None,
+              update_op: Optional[Callable] = None):
+    """plan(mppi_state, x0, noise=None) -> (action, state', diag).
+
+    Rollouts go through `rollout_costs_batched`: the dynamics (e.g. a
+    learned surrogate through ops/estimator_kernel) and the costs take the
+    K batch natively. `update_op(costs, noise) -> (update, (w, beta))`
+    replaces the plain weighting. `noise` (K, T, nu), when given, replaces
+    the sigma-scaled draw from the state's generator: the matched-noise
+    hook the parity tests use; it requires replans_per_step=1."""
+    if cfg.noise_block is not None:
+        raise NotImplementedError("noise_block (sharding-invariant noise) is not ported")
+
+    def plan(mppi_state: MPPIState, x0: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        if noise is not None and cfg.replans_per_step != 1:
+            raise ValueError("noise injection requires replans_per_step=1")
+        U = mppi_state.U
+        nu = U.shape[-1]
+        injected = noise
+        # one or more sample -> weight -> update passes before acting; only
+        # the last pass's diagnostics survive
+        for _ in range(cfg.replans_per_step):
+            if injected is None:
+                sigma = torch.as_tensor(cfg.sigma, dtype=U.dtype, device=U.device)
+                noise = sigma * torch.randn((cfg.K, cfg.T, nu), generator=mppi_state.generator,
+                                            dtype=U.dtype, device=U.device)
+            elif tuple(injected.shape) != (cfg.K, cfg.T, nu):
+                raise ValueError(f"noise: shape {tuple(injected.shape)}, "
+                                 f"expected {(cfg.K, cfg.T, nu)}")
+            costs = rollout_costs_batched(dynamics_fn, cost_fn, terminal_fn, cfg, x0, U, noise)
+            if update_op is not None:
+                update, (w, beta) = update_op(costs, noise)
+            else:
+                w, beta = mppi_weights(costs, cfg.temperature, cfg.weight_eps)
+                update = torch.einsum("k,ktu->tu", w, noise.to(w.dtype))
+            # contain cost-side dtype drift (e.g. f64 cost constants)
+            update = update.to(U.dtype)
+            U = update if cfg.update_mode == "replace" else U + update
+            if cfg.clamp_plan:
+                U = _clip_ctrl(U, cfg)
+        action = _clip_ctrl(U[0], cfg)
+        return (action,
+                MPPIState(U=shift_plan(U, cfg.tail_decay), generator=mppi_state.generator),
+                diagnostics(costs, w, beta, update))
+
+    return plan

@@ -15,7 +15,9 @@ import torch
 
 from humanoid_mppi_rl_tpu.physics.model import build_from_mjcf
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 from humanoid_mppi_rl_tpu_torch.ops import kernel_costs
+from humanoid_mppi_rl_tpu_torch.ops.estimator_kernel import make_flash_feature_attention
 from humanoid_mppi_rl_tpu_torch.ops.rollout_kernel import build_rollout_kernel
 from humanoid_mppi_rl_tpu_torch.physics.model import (
     export_model_arrays, load_model, model_from_arrays, snapshot_json,
@@ -61,6 +63,21 @@ st = MPPIState.seeded(0, cfg.T, model.nu, device="cpu")
 action, st, diag = plan(st, init)
 assert action.shape == (model.nu,) and bool(torch.isfinite(st.U).all())
 assert bool(torch.isfinite(diag.beta))
+from humanoid_mppi_rl_tpu_torch.collect.estimator import (
+    ESTIMATOR_CONFIGS, quadruped_estimator_costs)
+from humanoid_mppi_rl_tpu_torch.dynamics.learned import make_learned_dynamics
+from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
+from humanoid_mppi_rl_tpu_torch.ops.estimator_kernel import make_flash_feature_attention
+from humanoid_mppi_rl_tpu_torch.solver.mppi import make_mppi
+net = make_model("quadruped_attention", hidden_dim=32, attn_layers=1)
+running, terminal = quadruped_estimator_costs()
+cfg = dataclasses.replace(ESTIMATOR_CONFIGS["quadruped"], n_samples=8, horizon=2)
+plan = make_mppi(make_learned_dynamics(make_flash_feature_attention(net, device="cpu"),
+                                       state_slice=37), running, cfg, terminal_fn=terminal)
+st = MPPIState.seeded(0, cfg.T, 12, device="cpu")
+action, st, diag = plan(st, torch.zeros(37))
+assert action.shape == (12,) and bool(torch.isfinite(st.U).all())
+assert bool(torch.isfinite(diag.ess))
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
@@ -78,7 +95,8 @@ def test_port_runs_without_jax_mujoco_or_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["load_task", "make_kernel_mppi",
-                                   "build_rollout_kernel"])
+                                   "build_rollout_kernel",
+                                   "make_flash_feature_attention"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -89,6 +107,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
             model, kernel_costs.humanoid, cfg, spec.cost_kwargs),
         "build_rollout_kernel": lambda: build_rollout_kernel(
             model, kernel_costs.humanoid, 4),
+        "make_flash_feature_attention": lambda: make_flash_feature_attention(
+            make_model("cartpole_attention")),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
