@@ -6,7 +6,9 @@ Phases, one JSON line each (with its own `seconds`):
   device  -- requires CUDA; prints the card's name and power limit
   build   -- nvcc-builds every kernel of the port from csrc/ (one nvcc per
              source, all started together), one line per source with the
-             ptxas register/stack/spill/shared-memory lines
+             ptxas register/stack/spill/shared-memory lines and the count of
+             HGMMA (wgmma) instructions in its SASS, which must be > 0 for
+             the estimator library ("not available" without cuobjdump)
   check   -- the rollout kernel against its plain PyTorch version on the
              card (humanoid_bench model and cost, K=256, T=4, seeded
              inputs): f64 to rtol 1e-9; f32 median relative cost error
@@ -24,8 +26,11 @@ Phases, one JSON line each (with its own `seconds`):
              |diff| <= 3e-2, each times max(1, max|y|) (TF32 and reduced-
              precision bf16 reductions off in the plain version's products);
              then each of its kernels alone (encode, LayerNorm, the four
-             GEMM epilogues, attention, head) at each preset's widths, B=61,
-             on inputs whose sums are exact in any order: bf16 bit for bit
+             GEMM epilogues and the last layer's out-projection on the
+             compacted state rows, attention over all queries and over the
+             state queries, the head on full and on compacted rows) at each
+             preset's widths, B=61, on inputs whose sums are exact in any
+             order: bf16 bit for bit
   main_estimator -- slice 2 at full width: quadruped_attention (bf16) +
              make_learned_dynamics + quadruped_estimator_costs + make_mppi
              with ESTIMATOR_CONFIGS["quadruped"] (K=2048, T=50), 2 warm-up
@@ -34,7 +39,10 @@ Phases, one JSON line each (with its own `seconds`):
   time_estimator -- one forward alone at B=2048 and at B=65536 beside the
              plain version (outputs compared, bf16 tolerance above), its
              bound, and one PyTorch TransformerEncoder forward of the same
-             weights as a yardstick (`library_ms`; the port never calls it)
+             weights as a yardstick (`library_ms`; the port never calls it);
+             at B=2048 also each kernel alone at the forward's shapes
+             (`stages`: each GEMM's ms and TFLOP/s, attention's and
+             LayerNorm's ms and GB/s)
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -45,6 +53,8 @@ from __future__ import annotations
 import dataclasses
 import json
 from concurrent.futures import ThreadPoolExecutor
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -76,6 +86,20 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def sass_count(library, opcode: str):
+    """Lines of the library's SASS (`cuobjdump --dump-sass`) holding opcode,
+    or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        cand = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+        tool = cand if os.path.exists(cand) else None
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    return sum(opcode in ln for ln in sass.splitlines())
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -192,7 +216,7 @@ def exact_stage_cases(module, B: int, seed: int, device="cuda") -> dict:
         return c + rng.permuted(rows, axis=-1)
 
     ln = lambda: t(np.stack([rng.choice([0.75, 1.0, 1.25, 1.5], H), grid(H, 8, 8)]))
-    mat = lambda k, n: t(rng.choice([0, 0.125, -0.125, 0.25, -0.25, 0.5, -0.5], (k, n)))
+    mat = lambda n, k: t(rng.choice([0, 0.125, -0.125, 0.25, -0.25, 0.5, -0.5], (n, k)))
     cases = {}
 
     # x = +-k/4 and a part away from zero below half its bf16 ulp (>= 2^-10)
@@ -206,14 +230,18 @@ def exact_stage_cases(module, B: int, seed: int, device="cuda") -> dict:
     # rows scaled by 1, 1/4 or 1/16: in the small ones eps 1e-6 matters
     h = centred_rows((B, F, H), 4, 4, 6, 4) * 2.0 ** -rng.choice([0, 2, 4], (B, F, 1))
     cases["layer_norm"] = ("layer_norm", (t(h), ln()), {})
-    for name, K, N, res, relu in (("gemm_qkv", H, 3 * H, False, False),
-                                  ("gemm_out_residual", H, H, True, False),
-                                  ("gemm_ffn_up_relu", H, 4 * H, False, True),
-                                  ("gemm_ffn_down_residual", 4 * H, H, True, False)):
+    Sd = module.state_dim
+    # the last layer's out-projection runs on the Sd state rows of each
+    # sample and reads its residual from the full (B, F, N) stream
+    for name, K, N, Fq, res, relu in (("gemm_qkv", H, 3 * H, F, False, False),
+                                      ("gemm_out_residual", H, H, F, True, False),
+                                      ("gemm_ffn_up_relu", H, 4 * H, F, False, True),
+                                      ("gemm_ffn_down_residual", 4 * H, H, F, True, False),
+                                      ("gemm_out_residual_state_rows", H, H, Sd, True, False)):
         kw = {"relu": relu}
         if res:
             kw["res"] = t(grid((B, F, N), 8, 4))
-        cases[name] = ("gemm", (t(grid((B, F, K), 8, 4)), mat(K, N), t(grid(N, 8, 8))), kw)
+        cases[name] = ("gemm", (t(grid((B, Fq, K), 8, 4)), mat(N, K), t(grid(N, 8, 8))), kw)
 
     # per (sample, head): q_i = b_i u, k_j = a_j u with u in {-1, 1}^hd, so
     # scores b_i a_j sqrt(hd): rows with b_i = 0 are uniform, the others put
@@ -224,8 +252,13 @@ def exact_stage_cases(module, B: int, seed: int, device="cuda") -> dict:
     v = grid((B, F, nh, hd), 8, 4)
     qkv = np.concatenate([a.reshape(B, F, H) for a in (q, kk, v)], axis=-1)
     cases["attention"] = ("attention", (t(qkv), nh, 1.0 / hd ** 0.5), {})
-    cases["head"] = ("head", (t(grid((B, F, H), 127, 32)), t(grid(H, 31, 32)), 0.375,
-                              module.state_dim), {})
+    # the last layer's: the Sd state queries against all F keys
+    cases["attention_state_queries"] = ("attention", (t(qkv), nh, 1.0 / hd ** 0.5),
+                                        {"n_query": Sd})
+    cases["head"] = ("head", (t(grid((B, F, H), 127, 32)), t(grid(H, 31, 32)), 0.375, Sd), {})
+    # ... and the head on the compacted state rows
+    cases["head_state_rows"] = ("head", (t(grid((B, Sd, H), 127, 32)), t(grid(H, 31, 32)),
+                                         -0.625, Sd), {})
     return cases
 
 
@@ -246,14 +279,68 @@ def estimator_ops(module, B: int) -> int:
 def estimator_bytes(module, B: int, esize: int) -> dict:
     """Bytes of one forward: what the function must move (x in, the output,
     each weight once) and what the layer-wise design also moves (each kernel
-    reads its inputs and writes its outputs once: 26 H-wide rows per token
-    per layer, the encode's and the head's rows)."""
+    reads its inputs and writes its outputs once, in H-wide rows: per token
+    and layer LN1 2, QKV 4, attention 4, out-projection 3 (A, residual, C),
+    LN2 2, FFN up 5, FFN down 6, i.e. 26; in the last layer LN1, QKV and the
+    attention's reads (9) for all tokens and the rest (17) for the state
+    tokens only; the encode's output and the head's input)."""
     F, Sd, H, L = module.input_dim, module.state_dim, module.hidden_dim, module.attn_layers
     n_w = sum(p.numel() for p in module.parameters())
     function = 4 * B * F + 4 * B * Sd + esize * n_w
-    M = B * F
-    design = function + esize * (L * 26 * M * H + M * H + B * Sd * H)
+    M, Mq = B * F, B * Sd
+    rows = (L - 1) * 26 * M + 9 * M + 17 * Mq if L else 0
+    design = function + esize * H * (rows + M + Mq)
     return {"function": function, "design": design}
+
+
+def stage_times(module, B: int, reps: int = 20) -> dict:
+    """Device ms of each bf16 kernel alone at the shapes one forward at
+    batch B gives it (CUDA events around `reps` back-to-back calls of the
+    stage entry point, random inputs): the GEMMs with their TFLOP/s, the
+    attention and the LayerNorm with their GB/s (inputs read once, outputs
+    written once)."""
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+
+    F, Sd, H, nh = module.input_dim, module.state_dim, module.hidden_dim, module.num_heads
+    w = ek.pack_weights(module, torch.bfloat16, "cuda")
+    ln1, w_qkv, b_qkv, w_o, b_o, ln2, w1, b1, w2, b2 = w[2:12]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def act(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    h, y, big, qkv = act(B, F, H), act(B, F, H), act(B, F, 4 * H, s=0.1), act(B, F, 3 * H)
+    yq, bigq, hq = act(B, Sd, H), act(B, Sd, 4 * H, s=0.1), act(B, Sd, H)
+    scale = 1.0 / (H // nh) ** 0.5
+    gemms = {"qkv": (y, w_qkv, b_qkv, None, False),
+             "out_residual": (y, w_o, b_o, h, False),
+             "ffn_up_relu": (y, w1, b1, None, True),
+             "ffn_down_residual": (big, w2, b2, h, False),
+             "out_residual_state_rows": (yq, w_o, b_o, h, False),
+             "ffn_up_relu_state_rows": (yq, w1, b1, None, True),
+             "ffn_down_residual_state_rows": (bigq, w2, b2, hq, False)}
+    out = {}
+    for name, (a, wt, b, res, relu) in gemms.items():
+        fn = lambda: ek.gemm_cuda(a, wt, b, res=res, relu=relu)
+        fn()
+        ms = cuda_ms(fn, reps)
+        M, (N, K) = a.shape[0] * a.shape[1], wt.shape
+        out[f"gemm_{name}"] = {"M": M, "N": N, "K": K, "ms": ms,
+                               "tflops": 2 * M * N * K / ms / 1e9}
+    for name, n_query in (("attention", None), ("attention_state_queries", Sd)):
+        fn = lambda: ek.attention_cuda(qkv, nh, scale, n_query=n_query)
+        fn()
+        ms = cuda_ms(fn, reps)
+        n_bytes = 2 * (qkv.numel() + B * (n_query or F) * H)
+        out[name] = {"B": B, "F": F, "n_query": n_query or F, "ms": ms,
+                     "gb_per_s": n_bytes / ms / 1e6}
+    for name, x in (("layer_norm", h), ("layer_norm_state_rows", hq)):
+        fn = lambda: ek.layer_norm_cuda(x, ln1)
+        fn()
+        ms = cuda_ms(fn, reps)
+        out[name] = {"rows": x.shape[0] * x.shape[1], "ms": ms,
+                     "gb_per_s": 2 * 2 * x.numel() / ms / 1e6}
+    return out
 
 
 def library_forward(module):
@@ -488,6 +575,7 @@ def estimator_phases() -> dict:
         lib_e = bf16_errors(library(x), want)
         n_ops = estimator_ops(module, B)
         n_bytes = estimator_bytes(module, B, esize=2)
+        stages = stage_times(module, B) if B == ESTIMATOR_CONFIGS["quadruped"].K else None
         t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
         t_bytes = n_bytes["function"] / PEAK_BYTES_PER_S * 1e3
         timed[B] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -505,7 +593,7 @@ def estimator_phases() -> dict:
               "kernel_tflops": n_ops / kernel_ms / 1e9,
               "kernel_vs_plain": e, "library_vs_plain": lib_e,
               "library_within_bf16_tolerance": lib_e["within"],
-              "seconds": time.perf_counter() - t0})
+              "stages": stages, "seconds": time.perf_counter() - t0})
         del x, got, want
         torch.cuda.empty_cache()
 
@@ -558,11 +646,18 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
         builds = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
+    hgmma_of = {}
     for source, built in builds.items():
         ptxas = [ln.strip() for ln in built["log"].splitlines()
                  if any(s in ln for s in ("Function properties for", "stack frame", "registers"))]
+        hgmma = sass_count(built["path"], "HGMMA")
+        if source == "estimator_kernel.cu" and hgmma == 0:
+            raise AssertionError("no HGMMA instruction in the estimator library: bf16 GEMMs "
+                                 "are not on wgmma")
+        hgmma_of[source] = "not available" if hgmma is None else hgmma
         emit({"phase": "build", "source": source, "cached": built["cached"],
               "nvcc_seconds": built["seconds"], "ptxas": ptxas,
+              "sass_hgmma": hgmma_of[source],
               "seconds": time.perf_counter() - t0})
 
     # ---- check: kernel against its plain version on the card -------------
@@ -657,6 +752,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     est = estimator_phases()
+    est["sass_hgmma"] = hgmma_of["estimator_kernel.cu"]
 
     emit({"kernels": [{
         "name": "rollout",

@@ -11,7 +11,9 @@ fallback from one to the other.
 Both compute the TPU kernel's function with its roundings: products take
 compute-type operands and accumulate in f32, then round to the compute
 type; bias adds and the residual stream stay in the compute type; LayerNorm
-(eps 1e-6) and softmax are f32; the head sums in f32.
+(eps 1e-6) and softmax are f32; the head sums in f32. The output keeps
+only the state_dim tokens, so past the last layer's attention both run on
+those rows alone (the kernel compacts them to (B*state_dim, H)).
 """
 
 from __future__ import annotations
@@ -35,9 +37,10 @@ kernel_launches = dict.fromkeys(KINDS, 0)
 def pack_weights(module, compute_dtype, device) -> list:
     """The module's weights as the kernel reads them, in this order:
     enc (5,H) = [w_enc, b_enc, ln0_scale, ln0_bias, w_head], pos (F,H), then
-    per layer ln1 (2,H), w_qkv (H,3H), b_qkv (3H,), w_o (H,H), b_o (H,),
-    ln2 (2,H), w1 (H,4H), b1 (4H,), w2 (4H,H), b2 (H,). Matrices are
-    (in, out), row-major."""
+    per layer ln1 (2,H), w_qkv (3H,H), b_qkv (3H,), w_o (H,H), b_o (H,),
+    ln2 (2,H), w1 (4H,H), b1 (4H,), w2 (H,4H), b2 (H,). Matrices are
+    (out, in), row-major, as nn.Linear keeps them: both operands of the
+    kernel's products are then contiguous along the summed axis."""
     sd = {k: v.detach().float() for k, v in module.state_dict().items()}
 
     def put(t):
@@ -52,20 +55,22 @@ def pack_weights(module, compute_dtype, device) -> list:
     for i in range(module.attn_layers):
         p = f"layers.{i}."
         w += [put(torch.stack([sd[p + "norm1.weight"], sd[p + "norm1.bias"]])),
-              put(sd[p + "attention.in_proj_weight"].T),
+              put(sd[p + "attention.in_proj_weight"]),
               put(sd[p + "attention.in_proj_bias"]),
-              put(sd[p + "attention.out_proj.weight"].T),
+              put(sd[p + "attention.out_proj.weight"]),
               put(sd[p + "attention.out_proj.bias"]),
               put(torch.stack([sd[p + "norm2.weight"], sd[p + "norm2.bias"]])),
-              put(sd[p + "ffn.0.weight"].T), put(sd[p + "ffn.0.bias"]),
-              put(sd[p + "ffn.3.weight"].T), put(sd[p + "ffn.3.bias"])]
+              put(sd[p + "ffn.0.weight"]), put(sd[p + "ffn.0.bias"]),
+              put(sd[p + "ffn.3.weight"]), put(sd[p + "ffn.3.bias"])]
     return w
 
 
 # ---- the kernel's stages, each as a plain PyTorch function ---------------
 # forward_plain composes them; chip_smoke.py holds each CUDA kernel alone
 # against its stage (STAGES below). Activations are (B, F, H) in the
-# compute type of the weights.
+# compute type of the weights. The last layer keeps only the state_dim
+# tokens past its attention (the output needs no others): its attention
+# takes n_query=state_dim and the stages after it run on (B, state_dim, H).
 
 def layer_norm_plain(h, ln):
     """LayerNorm of each H row with ln (2, H) = [scale; bias]: f32 mean and
@@ -84,49 +89,78 @@ def encode_plain(x, enc, pos):
 
 
 def gemm_plain(a, w, b, res=None, relu=False):
-    """round(a @ w) with compute-type operands and f32 sums; then res + .,
-    then + b, then relu: the TPU kernel's `mm(a, w) + b` and `h + mm(a, w) + b`."""
+    """round(a @ w^T), w (N, K), with compute-type operands and f32 sums;
+    then res + ., then + b, then relu: the TPU kernel's `mm(a, w) + b` and
+    `h + mm(a, w) + b`. res (B, F, N) may hold more rows per sample than a
+    (B, Fq, K): the first Fq of each sample are added."""
     # compute-type operands are exact in f32: f32 products, f32 sums, one rounding
-    c = (a.float() @ w.float()).to(w.dtype)
+    c = (a.float() @ w.float().T).to(w.dtype)
     if res is not None:
-        c = res + c
+        c = res[..., :a.shape[-2], :] + c
     c = c + b
     return torch.relu(c) if relu else c
 
 
-def attention_plain(qkv, num_heads, scale):
-    """qkv (B, F, 3H) = [q | k | v] -> (B, F, H): per sample and head, f32
-    scores (q k^T) * scale, f32 softmax rounded to the compute type, then
-    the weighted values with f32 sums; heads in head-major columns."""
+def attention_plain(qkv, num_heads, scale, n_query=None):
+    """qkv (B, F, 3H) = [q | k | v] -> (B, n_query, H): per sample and head,
+    the first n_query tokens (all F by default) attend to all F: f32 scores
+    (q k^T) * scale, f32 softmax rounded to the compute type, then the
+    weighted values with f32 sums; heads in head-major columns."""
     B, F, H3 = qkv.shape
     H = H3 // 3
+    Fq = F if n_query is None else n_query
     q, k, v = (a.reshape(B, F, num_heads, H // num_heads).transpose(1, 2)
                for a in qkv.split(H, dim=-1))                     # (B, nh, F, hd)
-    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    s = (q[:, :, :Fq].float() @ k.float().transpose(-1, -2)) * scale
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(qkv.dtype)
-    return (p.float() @ v.float()).to(qkv.dtype).transpose(1, 2).reshape(B, F, H)
+    return (p.float() @ v.float()).to(qkv.dtype).transpose(1, 2).reshape(B, Fq, H)
 
 
 def head_plain(h, w_head, b_out, state_dim):
-    """(B, F, H) -> (B, state_dim) f32: f32 sum of round(h * w_head), + b_out."""
+    """(B, F, H) -> (B, state_dim) f32: f32 sum of round(h * w_head) over the
+    first state_dim rows of each sample, + b_out."""
     return (h[:, :state_dim] * w_head).float().sum(-1) + b_out
 
 
 def forward_plain(w: list, x: torch.Tensor, num_heads: int, state_dim: int,
                   b_out: float) -> torch.Tensor:
     """The kernel's function in PyTorch, in the TPU kernel's op order:
-    x (B, F) f32 -> (B, state_dim) f32, weights as pack_weights gives them."""
+    x (B, F) f32 -> (B, state_dim) f32, weights as pack_weights gives them.
+    Past the last layer's attention only the state_dim rows are computed;
+    every stage is per row (and every query sees all keys), so this equals
+    the forward over all F rows cut to state_dim at the end."""
     H = w[0].shape[1]
     scale = 1.0 / (H // num_heads) ** 0.5
     h = encode_plain(x, w[0], w[1])
     for i in range(2, len(w), 10):
         ln1, w_qkv, b_qkv, w_o, b_o, ln2, w1, b1, w2, b2 = w[i:i + 10]
-        a = attention_plain(gemm_plain(layer_norm_plain(h, ln1), w_qkv, b_qkv), num_heads, scale)
+        n_query = state_dim if i == len(w) - 10 else None
+        a = attention_plain(gemm_plain(layer_norm_plain(h, ln1), w_qkv, b_qkv), num_heads, scale,
+                            n_query)
         h = gemm_plain(a, w_o, b_o, res=h)
         f = gemm_plain(layer_norm_plain(h, ln2), w1, b1, relu=True)
         h = gemm_plain(f, w2, b2, res=h)
     return head_plain(h, w[0][4], b_out, state_dim)
+
+
+def attention_rows(F: int, head_dim: int) -> int:
+    """Token rows of one (sample, head) in the bf16 attention kernel: F
+    padded to a multiple of 16 (the tensor-core tile). That kernel holds a
+    query tile's scores in registers, so it takes F <= 64 (every preset
+    has F <= 51) and head widths that are multiples of 8 up to 128 (padded
+    with zeros to 16, 32, 64 or 128); raises otherwise."""
+    if not 1 <= F <= 64 or head_dim % 8 or not 8 <= head_dim <= 128:
+        raise ValueError(f"bf16 attention kernel takes 1 <= F <= 64 tokens and a head width "
+                         f"that is a multiple of 8 up to 128; got F={F}, head width {head_dim}")
+    return 16 * -(-F // 16)
+
+
+def scratch_rows(B: int, F: int, state_dim: int) -> dict:
+    """Rows of the forward's scratch buffers: h holds the residual stream
+    (B*F rows of H) and after it the last layer's state rows, compacted
+    (B*state_dim); y holds B*F rows of H and big B*F rows of 4H."""
+    return {"h": B * (F + state_dim), "y": B * F, "big": B * F}
 
 
 def make_flash_feature_attention(module, compute_dtype=torch.bfloat16, device="cuda"):
@@ -139,6 +173,8 @@ def make_flash_feature_attention(module, compute_dtype=torch.bfloat16, device="c
     F, Sd = module.state_dim + module.action_dim, module.state_dim
     if H % 8 or H % nh:
         raise ValueError(f"hidden_dim {H} must be a multiple of 8 and of num_heads {nh}")
+    if compute_dtype == torch.bfloat16 and dev.type == "cuda":
+        attention_rows(F, H // nh)
     w = pack_weights(module, compute_dtype, dev)
     ptrs = (ctypes.c_void_p * len(w))(*[t.data_ptr() for t in w])
     b_out = float(module.output_layer.bias.detach().float()[0])
@@ -158,10 +194,10 @@ def make_flash_feature_attention(module, compute_dtype=torch.bfloat16, device="c
         if B == 0:
             return out
         x2 = x2.contiguous()
-        M = B * F
-        h = torch.empty(M * H, dtype=compute_dtype, device=dev)
-        y = torch.empty_like(h)
-        big = torch.empty(M * 4 * H, dtype=compute_dtype, device=dev)
+        rows = scratch_rows(B, F, Sd)
+        h = torch.empty(rows["h"] * H, dtype=compute_dtype, device=dev)
+        y = torch.empty(rows["y"] * H, dtype=compute_dtype, device=dev)
+        big = torch.empty(rows["big"] * 4 * H, dtype=compute_dtype, device=dev)
         lib = _estimator_lib()
         counts = (ctypes.c_int * len(KINDS))()
         rc = lib.hmr_estimator_forward(
@@ -200,8 +236,8 @@ def _estimator_lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     i, f = ctypes.c_int, ctypes.c_float
     stages = {"hmr_estimator_rowwise": [i, i, ptr, ptr, ptr, ptr, ptr, i, i, i, ptr],
-              "hmr_estimator_gemm": [i, ptr, ptr, ptr, ptr, ptr, i, i, i, i, ptr],
-              "hmr_estimator_attention": [i, ptr, ptr, i, i, i, i, f, ptr],
+              "hmr_estimator_gemm": [i, ptr, ptr, ptr, ptr, ptr, i, i, i, i, i, i, ptr],
+              "hmr_estimator_attention": [i, ptr, ptr, i, i, i, i, i, f, ptr],
               "hmr_estimator_head": [i, ptr, ptr, f, ptr, i, i, i, i, ptr]}
     for name, argtypes in stages.items():
         getattr(lib, name).argtypes = argtypes
@@ -247,22 +283,24 @@ def layer_norm_cuda(h, ln):
 
 
 def gemm_cuda(a, w, b, res=None, relu=False):
-    K, N = w.shape
-    M = a.numel() // K
-    out = torch.empty(*a.shape[:-1], N, dtype=w.dtype, device=a.device)
+    N, K = w.shape
+    B, Fq = a.shape[:-1]
+    out = torch.empty(B, Fq, N, dtype=w.dtype, device=a.device)
+    rf = Fq if res is None else res.shape[-2]
     _raise_on(_estimator_lib().hmr_estimator_gemm(
         int(w.dtype == torch.bfloat16), _ptr(a.contiguous()), _ptr(w), _ptr(b),
-        _ptr(None if res is None else res.contiguous()), _ptr(out), M, N, K, int(relu),
-        _stream(a)), "gemm")
+        _ptr(None if res is None else res.contiguous()), _ptr(out), B * Fq, N, K, int(relu),
+        Fq, rf, _stream(a)), "gemm")
     return out
 
 
-def attention_cuda(qkv, num_heads, scale):
+def attention_cuda(qkv, num_heads, scale, n_query=None):
     B, F, H3 = qkv.shape
-    out = torch.empty(B, F, H3 // 3, dtype=qkv.dtype, device=qkv.device)
+    Fq = F if n_query is None else n_query
+    out = torch.empty(B, Fq, H3 // 3, dtype=qkv.dtype, device=qkv.device)
     _raise_on(_estimator_lib().hmr_estimator_attention(
-        int(qkv.dtype == torch.bfloat16), _ptr(qkv.contiguous()), _ptr(out), B, F, H3 // 3,
-        num_heads, scale, _stream(qkv)), "attention")
+        int(qkv.dtype == torch.bfloat16), _ptr(qkv.contiguous()), _ptr(out), B, F, Fq,
+        H3 // 3, num_heads, scale, _stream(qkv)), "attention")
     return out
 
 

@@ -100,3 +100,64 @@ def test_cuda_tensors_never_take_the_plain_estimator_path():
     apply = ek.make_flash_feature_attention(make_model("cartpole_attention"), device="cpu")
     with pytest.raises(ValueError, match="built for cpu"):
         apply(torch.zeros(3, 5, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["quadruped_attention", "humanoid_attention",
+                                    "cartpole_attention"])
+def test_cuda_estimator_last_layer_stages_bit_exact(preset):
+    """The last layer's stages on the state rows alone (the out-projection
+    with its residual read through the row map, attention for the state
+    queries, the head on compacted rows) equal their plain stages bit for
+    bit on exact_stage_cases, at a ragged B."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = exact_stage_cases(make_model(preset), B=13, seed=8)
+    names = ("gemm_out_residual_state_rows", "attention_state_queries", "head_state_rows")
+    for name in names:
+        stage, args, kw = cases[name]
+        kernel, plain = ek.STAGES[stage]
+        assert torch.equal(kernel(*args, **kw), plain(*args, **kw)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset, dtype", [
+    ("quadruped_attention", torch.float32), ("quadruped_attention", torch.bfloat16),
+    ("humanoid_attention", torch.float32), ("cartpole_attention", torch.bfloat16)])
+def test_cuda_estimator_ragged_batch(preset, dtype):
+    """B=61: no tile divides B*F or B*state_dim; the whole forward against
+    the plain version at check_estimator's tolerances. humanoid in bf16 is
+    held by check_estimator alone (seed 1): over its 7 bf16 layers the
+    rounding flips put the median near the bound, and with these weights
+    (seed 9) the previous wmma kernel and this one both exceed it (median
+    |diff| 0.0147 and 0.0157 against 3e-3 * 3.13 = 0.0094)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    module = seeded_weights(make_model(preset), seed=9)
+    apply = ek.make_flash_feature_attention(module, dtype)
+    x = torch.tensor(np.random.default_rng(61).normal(size=(61, module.input_dim)),
+                     dtype=torch.float32, device="cuda")
+    got = apply(x)
+    torch.cuda.synchronize()
+    want = apply.plain(x)
+    assert got.shape == (61, module.state_dim) and torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        e = bf16_errors(got, want)
+        assert e["within"], e
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_apply_refuses_tokens_past_the_attention_tile():
+    """The bf16 attention kernel takes F <= 64: a longer token row is refused
+    when the apply is built, with the reason; f32 takes any F."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    module = make_model("cartpole_attention", state_dim=60, action_dim=5)
+    with pytest.raises(ValueError, match="F=65"):
+        ek.make_flash_feature_attention(module, torch.bfloat16)
+    ek.make_flash_feature_attention(module, torch.float32)

@@ -31,7 +31,7 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
-from chip_smoke import exact_stage_cases
+from chip_smoke import exact_stage_cases, seeded_weights
 from humanoid_mppi_rl_tpu.collect import estimator as jest
 from humanoid_mppi_rl_tpu.dynamics.learned import make_learned_dynamics as jax_learned
 from humanoid_mppi_rl_tpu.learning.torch_import import feature_attention_params
@@ -223,6 +223,79 @@ def test_exact_stage_inputs_make_every_sum_exact(preset):
         up = lambda a: a.float() if isinstance(a, torch.Tensor) else a
         unrounded = plain(*map(up, args), **{k: up(v) for k, v in kw.items()})
         assert not torch.equal(got.float(), unrounded.float()), name
+
+
+def _untrimmed_plain(w, x, num_heads, state_dim, b_out):
+    """forward_plain's stages over all F rows in every layer: the state rows
+    are cut out only by the head."""
+    scale = 1.0 / (w[0].shape[1] // num_heads) ** 0.5
+    h = ek.encode_plain(x, w[0], w[1])
+    for i in range(2, len(w), 10):
+        ln1, w_qkv, b_qkv, w_o, b_o, ln2, w1, b1, w2, b2 = w[i:i + 10]
+        a = ek.attention_plain(ek.gemm_plain(ek.layer_norm_plain(h, ln1), w_qkv, b_qkv),
+                               num_heads, scale)
+        h = ek.gemm_plain(a, w_o, b_o, res=h)
+        f = ek.gemm_plain(ek.layer_norm_plain(h, ln2), w1, b1, relu=True)
+        h = ek.gemm_plain(f, w2, b2, res=h)
+    return ek.head_plain(h, w[0][4], b_out, state_dim)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_trimmed_plain_equals_untrimmed(preset, cd):
+    """forward_plain runs the last layer past its attention on the state
+    rows only; every stage is per row and every state query still sees all
+    keys, so it equals the untrimmed forward bit for bit (B=3 and B=1)."""
+    mod = seeded_weights(make_model(preset, **SMALL[preset]), seed=2)
+    w = ek.pack_weights(mod, getattr(torch, cd), "cpu")
+    b_out = float(mod.output_layer.bias.detach()[0])
+    for B in (3, 1):
+        x = torch.from_numpy(_x(B, mod.input_dim, seed=B))
+        got = ek.forward_plain(w, x, mod.num_heads, mod.state_dim, b_out)
+        want = _untrimmed_plain(w, x, mod.num_heads, mod.state_dim, b_out)
+        assert got.shape == (B, mod.state_dim)
+        assert torch.equal(got, want), (B, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("F, head_dim, rows", [
+    (5, 16, 16), (16, 32, 16), (17, 64, 32), (37, 128, 48), (49, 128, 64), (51, 64, 64),
+    (64, 16, 64), (49, 8, 64), (49, 48, 64)])
+def test_attention_rows_pad_tokens_to_the_tensor_core_tile(F, head_dim, rows):
+    assert ek.attention_rows(F, head_dim) == rows
+
+
+@pytest.mark.parametrize("F, head_dim", [(65, 128), (49, 12), (49, 136), (0, 16)])
+def test_attention_rows_refuses_what_the_bf16_kernel_cannot_take(F, head_dim):
+    with pytest.raises(ValueError, match="bf16 attention kernel"):
+        ek.attention_rows(F, head_dim)
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_scratch_rows_hold_every_stage_output(preset):
+    """The forward's buffers hold what the plain stages make at each row
+    count: h the (B, F, H) stream plus the (B, state_dim, H) compacted rows,
+    y each stage's H-wide output and big its 3H- and 4H-wide ones."""
+    mod = make_model(preset, **SMALL[preset])
+    F, Sd, H = mod.input_dim, mod.state_dim, mod.hidden_dim
+    B = 3
+    rows = ek.scratch_rows(B, F, Sd)
+    assert rows == {"h": B * F + B * Sd, "y": B * F, "big": B * F}
+    w = ek.pack_weights(mod, torch.float32, "cpu")
+    sizes = {"H": [], "3H": [], "4H": []}
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor) and out.dim() == 3 and out.shape[0] == B:
+                for k, n in (("H", H), ("3H", 3 * H), ("4H", 4 * H)):
+                    if out.shape[-1] == n:
+                        sizes[k].append(out.shape[0] * out.shape[1])
+            return out
+
+    with Record():
+        ek.forward_plain(w, torch.from_numpy(_x(B, F)), mod.num_heads, Sd, 0.0)
+    assert max(sizes["H"]) <= rows["y"] and max(sizes["3H"] + sizes["4H"]) <= rows["big"]
+    assert min(sizes["H"]) == B * Sd == rows["h"] - rows["y"]
 
 
 @pytest.mark.parametrize("mode, state_slice, ego_cols", [
