@@ -10,15 +10,24 @@ Phases, one JSON line each (with its own `seconds`):
              HGMMA (wgmma) instructions in its SASS, which must be > 0 for
              the estimator library ("not available" without cuobjdump)
   check   -- the rollout kernel against its plain PyTorch version on the
-             card (humanoid_bench model and cost, K=256, T=4, seeded
-             inputs): f64 to rtol 1e-9; f32 median relative cost error
-             < 1e-3, max < 1e-2
+             card (humanoid_bench model and cost, T=4, seeded inputs, K=256
+             and the ragged K=253): f64 to rtol 1e-9; f32 median relative
+             cost error < 1e-3, max < 1e-2; two launches on the same inputs
+             bit-identical; the launch geometry (lanes per sample, samples
+             per block, shared memory, samples resident per SM); and the
+             kernel body's f32 sin/cos against sinf/cosf bit for bit on
+             every float with |x| < 105615 (profiling build)
   main    -- slice 1 at full width: load_task("humanoid_bench") (K=8192,
              H=64, f32) + make_kernel_mppi, 2 warm-up and 20 timed chained
-             replans; finite outputs, one kernel launch per replan
+             replans; finite outputs, one kernel launch per replan; then
+             one replan under torch.profiler (device busy share, device ms
+             by kernel)
   time    -- the rollout kernel alone at the main path's shapes beside its
              plain version (outputs compared too: f32 cost rel median
-             < 1e-3) and its bound
+             < 1e-3) and its bound; its K sweep (2048 .. 32768), geometry
+             and ptxas registers/stack/spills; the occupancy sweep (one
+             block of S samples per SM) and the time by phase of the step
+             from the profiling build, at K=8192 and with one sample per SM
   check_estimator -- the estimator kernel against its plain version on the
              card, seeded weights with nonzero biases and LayerNorm terms,
              presets quadruped/humanoid/cartpole_attention at B=64 and 61:
@@ -54,6 +63,7 @@ import dataclasses
 import json
 from concurrent.futures import ThreadPoolExecutor
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -68,13 +78,14 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
-CHECK_K, CHECK_T = 256, 4
+CHECK_KS, CHECK_T = (256, 253), 4   # 253: a ragged last block
 WARMUP, TIMED = 2, 20
 EST_WARMUP, EST_TIMED = 2, 10
 EST_PRESETS = ("quadruped_attention", "humanoid_attention", "cartpole_attention")
 EST_CHECK_B = (64, 61)
 EST_TIME_B = (2048, 65536)
 EST_PLAIN_CHUNK = 8192   # the plain forward at B=65536 runs in sample chunks (memory)
+SWEEP_K = (2048, 4096, 8192, 16384, 32768)   # rollout kernel alone, T = the main path's H
 
 
 def emit(obj):
@@ -100,6 +111,29 @@ def sass_count(library, opcode: str):
     sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
     return sum(opcode in ln for ln in sass.splitlines())
+
+
+def ptxas_stats(log: str) -> dict:
+    """{entry function: registers, stack frame, spill stores/loads, static
+    shared memory} from nvcc's `-Xptxas -v` output."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                out[name][key] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -419,6 +453,104 @@ def ops_per_rollout(spec, model, T) -> int:
     return n1 + (T - 1) * (n2 - n1)
 
 
+# the rollout kernel's phases between the HMR_MARKs of csrc/rollout_body.cuh
+ROLLOUT_PHASES = (("inertia, bias acc, tendons, ctrl", 0, 1), ("bias force, contacts, tau", 1, 2),
+                  ("tree accumulation", 2, 3), ("rhs, IC S", 3, 4), ("mass matrix", 4, 5),
+                  ("Cholesky", 5, 6), ("solve L", 6, 7), ("solve L^T", 7, 8),
+                  ("integrate", 8, 9), ("fk frames", 10, 11), ("fk S rows", 11, 12),
+                  ("fk V, W", 12, 13), ("cost", 14, 15))
+
+
+def rollout_launch(lib, ro, x, samples_per_block=None, smem_bytes=None):
+    """One launch of the rollout kernel of library `lib` (the port's, or its
+    profiling build) on inputs x, at the wrapper's geometry unless given."""
+    import ctypes
+    qpos0, qvel0, _, U, noise = x
+    nq, K = qpos0.shape
+    geo = ro.geometry[qpos0.dtype]
+    params = torch.zeros(16, dtype=qpos0.dtype, device="cuda")
+    outs = (torch.empty(K, dtype=qpos0.dtype, device="cuda"), torch.empty_like(qpos0),
+            torch.empty_like(qvel0))
+    fn = lib.hmr_rollout_f64 if qpos0.dtype == torch.float64 else lib.hmr_rollout_f32
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 9 + [cint, cint, ptr, cint, cint]
+    rc = fn(ro.tables[qpos0.dtype].data_ptr(),
+            *[a.data_ptr() for a in (qpos0, qvel0, U, noise, params, *outs)], K, U.shape[0],
+            torch.cuda.current_stream().cuda_stream,
+            samples_per_block or geo["samples_per_block"], smem_bytes or geo["smem_bytes"])
+    if rc:
+        raise RuntimeError(f"rollout launch failed: cudaError {rc}")
+    return outs
+
+
+def sincos_check() -> dict:
+    """The rollout body's f32 sin/cos against the CUDA library's sinf/cosf,
+    bit for bit, on every float with |x| < 105615 (profiling build)."""
+    import ctypes
+    from humanoid_mppi_rl_tpu_torch.ops import _build
+
+    lib = _build.load_library("rollout_profile.cu")
+    lib.hmr_check_sincos.argtypes = [ctypes.c_void_p] * 3
+    tried, bad, first = ctypes.c_uint64(), ctypes.c_uint64(), ctypes.c_uint32()
+    rc = lib.hmr_check_sincos(ctypes.byref(tried), ctypes.byref(bad), ctypes.byref(first))
+    if rc or bad.value:
+        raise AssertionError(f"f32 sin/cos vs sinf/cosf: cudaError {rc}, {bad.value} of "
+                             f"{tried.value} floats differ (first bits {first.value:#010x})")
+    return {"floats": tried.value, "mismatches": 0}
+
+
+def rollout_diagnostics(model, ro, T) -> dict:
+    """(1) Occupancy sweep: one block of S samples per SM (the shared memory
+    request forced to the largest block's), K = SMs * S, so each SM runs S
+    warps: flat times mean each warp's own latency bounds the kernel,
+    times growing with S mean the SM's instruction throughput does. (2) The kernel's
+    time split by phase at the main path's K, from the profiling build."""
+    import ctypes
+    from humanoid_mppi_rl_tpu_torch.ops import _build
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    lib = rk._rollout_lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geo = ro.geometry[torch.float32]
+    top = lib.hmr_rollout_max_samples_per_block(0)
+    smem = max(rk.shared_bytes(model, torch.float32, geo["ws_scalars"], S)
+               for S in range(1, top + 1)
+               if lib.hmr_rollout_occupancy(0, S, rk.shared_bytes(
+                   model, torch.float32, geo["ws_scalars"], S)) > 0)
+    sweep = {}
+    for S in (1, 2, 4, 8, 16, geo["samples_per_block"]):
+        if lib.hmr_rollout_occupancy(0, S, smem) < 1:
+            continue
+        x = seeded_inputs(model, sms * S, T, torch.float32, seed=2)
+        rollout_launch(lib, ro, x, S, smem)
+        sweep[S] = cuda_ms(lambda: rollout_launch(lib, ro, x, S, smem), 3)
+    prof_lib = _build.load_library("rollout_profile.cu")
+    prof_lib.hmr_profile_take.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+
+    def phase_cycles(x, *geometry):
+        u64 = ctypes.c_uint64 * 16
+        sums, counts = u64(), u64()
+        prof_lib.hmr_profile_take(ctypes.byref(sums), ctypes.byref(counts))  # zero
+        rollout_launch(prof_lib, ro, x, *geometry)
+        if prof_lib.hmr_profile_take(ctypes.byref(sums), ctypes.byref(counts)):
+            raise RuntimeError("profiling build: reading the marks failed")
+        cycles = {}
+        for name, a, b in ROLLOUT_PHASES:
+            if counts[a] != counts[b] or not counts[a]:
+                raise AssertionError(f"phase {name}: marks {a}/{b} counted {counts[a]}/{counts[b]}")
+            cycles[name] = ((sums[b] - sums[a]) % 2 ** 64) / counts[a]
+        return cycles
+
+    cycles = phase_cycles(seeded_inputs(model, 8192, T, torch.float32, seed=2))
+    # the same with one sample per SM: each phase's own latency
+    alone = phase_cycles(seeded_inputs(model, sms, T, torch.float32, seed=2), 1, smem)
+    total = sum(cycles.values())
+    return {"one_block_per_sm_ms_by_S": sweep, "sms": sms,
+            "phase_cycles_per_sample_step": cycles,
+            "phase_share": {k: v / total for k, v in cycles.items()},
+            "phase_cycles_one_sample_per_sm": alone}
+
+
 def estimator_phases() -> dict:
     """check_estimator, main_estimator and time_estimator; returns the
     estimator kernel's entry of the `kernels` line."""
@@ -666,13 +798,16 @@ def main() -> int:
     ro = rk.build_rollout_kernel(model, spec.cost_factory, CHECK_T,
                                  cost_kwargs=spec.cost_kwargs)
     errs = {}
-    for dtype in (torch.float64, torch.float32):
-        x = seeded_inputs(model, CHECK_K, CHECK_T, dtype, seed=1)
+    for K, dtype in ((K, dt) for K in CHECK_KS for dt in (torch.float64, torch.float32)):
+        x = seeded_inputs(model, K, CHECK_T, dtype, seed=1)
         n0 = rk.launches
         ck, qk, vk = ro(*x)
         torch.cuda.synchronize()
         if rk.launches != n0 + 1:
             raise AssertionError("rollout kernel launch was not counted")
+        again = ro(*x)
+        if not all(torch.equal(a, b) for a, b in zip((ck, qk, vk), again)):
+            raise AssertionError(f"K={K} {dtype}: two launches on the same inputs differ")
         cp, qp, vp = ro.plain(*x)
         rel = ((ck - cp).abs() / cp.abs()).double()
         e = {"cost_max_abs": float((ck - cp).abs().max()),
@@ -686,12 +821,16 @@ def main() -> int:
             for a, b, name in ((ck, cp, "costs"), (qk, qp, "qpos_T"), (vk, vp, "qvel_T")):
                 torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9, msg=name)
         elif not (e["cost_rel_median"] < 1e-3 and e["cost_rel_max"] < 1e-2):
-            raise AssertionError(f"f32 kernel vs plain: {e}")
-        errs[str(dtype).replace("torch.", "")] = e
-    emit({"phase": "check", "kernel": "rollout", "K": CHECK_K, "T": CHECK_T,
+            raise AssertionError(f"K={K} f32 kernel vs plain: {e}")
+        e["repeat_bit_identical"] = True
+        errs[f"{str(dtype).replace('torch.', '')}/K={K}"] = e
+    trig = sincos_check()
+    emit({"phase": "check", "kernel": "rollout", "K": list(CHECK_KS), "T": CHECK_T,
           "tolerance": {"float64": "rtol=atol=1e-9",
-                        "float32": "cost rel median<1e-3, max<1e-2"},
-          "errors": errs, "seconds": time.perf_counter() - t0})
+                        "float32": "cost rel median<1e-3, max<1e-2",
+                        "repeat": "two launches bit-identical"},
+          "geometry": {str(dt).replace("torch.", ""): geo for dt, geo in ro.geometry.items()},
+          "errors": errs, "sincos_f32": trig, "seconds": time.perf_counter() - t0})
 
     # ---- main path at full width -------------------------------------------
     t0 = time.perf_counter()
@@ -719,13 +858,15 @@ def main() -> int:
         raise AssertionError("unexpected output shapes")
     q1, q3 = np.percentile(times, [25, 75])
     med = statistics.median(times)
+    # one more replan under the profiler, after the launch count was read
+    prof = device_profile(lambda: plan(ms, init))
     emit({"phase": "main", "task": "humanoid_bench", "K": cfg.K, "H": cfg.T,
           "dtype": "float32", "replans": TIMED, "launches": main_launches,
           "replan_ms_median": med, "replan_ms_q1": float(q1), "replan_ms_q3": float(q3),
           "replan_ms_min": min(times), "replan_ms_max": max(times),
           "rollouts_per_s": cfg.K / (med / 1e3),
           "beta": float(diag.beta), "ess": float(diag.ess),
-          "seconds": time.perf_counter() - t0})
+          "profiled_replan": prof, "seconds": time.perf_counter() - t0})
 
     # ---- each kernel alone at the main path's shapes -----------------------
     t0 = time.perf_counter()
@@ -746,9 +887,22 @@ def main() -> int:
     n_bytes = 4 * (cfg.K * (2 * model.nq + 2 * model.nv + 1)
                    + cfg.T * model.nu * (cfg.K + 1) + rk.NP)
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_OPS_PER_S * 1e3
+    del x, out
+    sweep = {}
+    for K in SWEEP_K:
+        xs = seeded_inputs(model, K, cfg.T, torch.float32, seed=2)
+        ro(*xs)
+        sweep[K] = cuda_ms(lambda: ro(*xs), 3)
+        del xs
+    torch.cuda.empty_cache()
+    ptxas = {k: v for k, v in ptxas_stats(builds["rollout_kernel.cu"]["log"]).items()
+             if "rollout" in k}
+    rdiag = rollout_diagnostics(model, ro, cfg.T)
     emit({"phase": "time", "kernel": "rollout", "K": cfg.K, "T": cfg.T,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "ops": n_ops, "bytes": n_bytes,
           "kernel_vs_plain": full, "tolerance": "cost rel median<1e-3",
+          "sweep_ms_by_K": sweep, "geometry": ro.geometry.get(torch.float32), "ptxas": ptxas,
+          "diagnostics": rdiag,
           "seconds": time.perf_counter() - t0})
 
     est = estimator_phases()
@@ -760,9 +914,10 @@ def main() -> int:
         "source": "humanoid_mppi_rl_tpu_torch/ops/csrc/rollout_kernel.cu",
         "replaces": "humanoid_mppi_rl_tpu/ops/rollout_kernel.py:86",
         "launches": main_launches,
-        "max_abs_err": errs["float32"]["cost_max_abs"],
-        "max_abs_err_f64": errs["float64"]["cost_max_abs"],
-        "cost_rel_median_f32": errs["float32"]["cost_rel_median"],
+        "max_abs_err": max(e["cost_max_abs"] for k, e in errs.items() if "float32" in k),
+        "max_abs_err_f64": max(e["cost_max_abs"] for k, e in errs.items() if "float64" in k),
+        "cost_rel_median_f32": max(e["cost_rel_median"] for k, e in errs.items()
+                                   if "float32" in k),
         "full_shape_cost_rel_median_f32": full["cost_rel_median"],
         "full_shape_cost_rel_max_f32": full["cost_rel_max"],
         "ms": kernel_ms,

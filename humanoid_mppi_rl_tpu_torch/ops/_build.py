@@ -22,6 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # each source in csrc/ with the headers of csrc/ it includes
 SOURCES = {"rollout_kernel.cu": ("rollout_body.cuh",),
+           "rollout_profile.cu": ("rollout_kernel.cu", "rollout_body.cuh"),
            "estimator_kernel.cu": ()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -18,6 +18,7 @@ rollout_body.cuh with ctypes) that the kernel loops over.
 from __future__ import annotations
 
 import ctypes
+import functools
 import inspect
 from typing import Callable, Optional
 
@@ -39,11 +40,64 @@ _COST_W = ("tx", "ty", "tz", "tvx", "tvy", "w_orient", "w_goal_xy", "w_height",
 _COST_PARAM_TARGET, _COST_PARAM_GAIT = 1, 2
 _PAIR_SPHERE, _PAIR_CAPSULE = 0, 1
 
+MAXTRI = MAXV * (MAXV + 1) // 2
+MAXCHOL = 1024  # Cholesky updates over all dof levels
+NTOP = 6        # the dof tree's top chain that one lane factors in registers
+SOLIMP = 8      # solimp, then 1/width, 1/midpoint, 1/(1 - midpoint)
+# one sample's workspace arrays (hmr::WsField order) and their lengths
+WS_FIELDS = ("qpos", "qvel", "u", "xpos", "xquat", "V", "S", "W", "IC", "F", "ab",
+             "A", "tau", "gdiag", "rhs", "dinv", "ten_f", "ten_c", "qloc", "cscr",
+             "loc", "hinge")
+_FORWARD = ("qloc", "loc", "hinge")  # forward's scratch, one after the other
+_SHARE_A = ("ab",) + _FORWARD        # arrays that live in the mass matrix's space
+_SHARE_W = ("cscr",)                 # ... and in W's
+
+
+def _further_pairs(model: PhysicsModel) -> list:
+    """Indices, among the kernel's plane pairs, of the pairs after the first
+    on their body: each gets a contact scratch slot."""
+    bodies = [model.geoms[p.geom2].bodyid for p in model.contact_pairs
+              if model.geoms[p.geom1].gtype == GEOM_PLANE]
+    return [i for i, b in enumerate(bodies) if b in bodies[:i]]
+
+
+def workspace_layout(model: PhysicsModel, nten: int) -> tuple[dict, int]:
+    """Offsets (in scalars) of one sample's workspace arrays, sized to the
+    model, and the total rounded up to 4 scalars (16-byte steps in f32).
+    The bias accelerations and forward's scratch (hinge rotations, local
+    poses, hinge anchors and axes, one after the other) share the mass
+    matrix's space (csrc/rollout_body.cuh: live in step phases 1-2 and in
+    forward, the mass matrix in phases 5-8); the contact scratch shares W's
+    (live in phases 2-3, W in forward, phase 1 and phases 4-5)."""
+    nb, nv = model.nbody, model.nv
+    sizes = {"qpos": model.nq, "qvel": nv, "u": model.nu, "xpos": 3 * nb,
+             "xquat": 4 * nb, "V": 6 * nb, "S": 6 * nv, "W": 6 * nv, "IC": 21 * nb,
+             "F": 6 * nb, "ab": 6 * nb, "A": nv * (nv + 1) // 2, "tau": nv,
+             "gdiag": nv, "rhs": nv, "dinv": nv, "ten_f": nten, "ten_c": nten}
+    # the bias accelerations (step phases 1-2) and the hinge rotations
+    # (forward) are dead whenever the mass matrix (phases 5-8) is live
+    nj = len(model.joints)
+    forward = {"qloc": 4 * nj, "loc": 7 * nb, "hinge": 6 * nj}
+    sizes["A"] = max(sizes["A"], sizes.pop("ab"), sum(forward.values()))
+    sizes["W"] = max(sizes["W"], 27 * len(_further_pairs(model)))
+    off, n = {}, 0
+    for name in WS_FIELDS:
+        if name in sizes:
+            off[name] = n
+            n += sizes[name]
+    off["ab"], off["cscr"] = off["A"], off["W"]
+    at = off["A"]
+    for name in _FORWARD:
+        off[name] = at
+        at += forward[name]
+    return off, -(-n // 4) * 4
+
+
 # CUDA kernel launches since import; callers that count reset it to 0
 launches = 0
 
 # hmr::Tables<T> of csrc/rollout_body.cuh, field for field in its order:
-# (name, kind, *shape) with kind i = int32, u = uint32, s = the scalar T
+# (name, kind, *shape) with kind i = int32, u = uint32, h = int16, s = the scalar T
 _FIELDS = (
     ("nbody", "i"), ("nq", "i"), ("nv", "i"), ("nu", "i"), ("npair", "i"),
     ("nten", "i"), ("terminal", "i"), ("clamp_ctrl", "i"), ("cost_flags", "i"),
@@ -56,7 +110,16 @@ _FIELDS = (
     ("pair_body", "i", MAXP), ("pair_type", "i", MAXP), ("ten_nnz", "i", MAXT),
     ("ten_dof", "i", MAXT, MAXTNZ), ("ten_qpos", "i", MAXT, MAXTNZ),
     ("dof_lc", "u", MAXV), ("dof_anc", "u", MAXV),
-    ("h", "s"), ("gravity", "s", 3), ("body_pos", "s", MAXB, 3),
+    ("off", "i", len(WS_FIELDS)), ("ws_size", "i"), ("njnt", "i"), ("nlvl", "i"),
+    ("lvl_adr", "i", MAXB + 1), ("lvl_body", "i", MAXB), ("body_chain", "u", MAXB),
+    ("body_child", "u", MAXB), ("acc_adr", "i", MAXB + 1), ("acc_body", "i", MAXB),
+    ("body_pairs", "u", MAXB), ("nxpair", "i"),
+    ("xpair", "i", MAXP), ("pair_xslot", "i", MAXP), ("dof_jnt", "i", MAXV),
+    ("dof_acts", "u", MAXV), ("ndlvl", "i"), ("ntop", "i"), ("dlvl_adr", "i", MAXV + 1),
+    ("dlvl_dof", "i", MAXV), ("dlvl_mask", "u", MAXV), ("nent", "i"),
+    ("ent", "h", MAXTRI), ("ent_adr", "i", MAXV + 1), ("ten_dofmask", "u"),
+    ("chol_adr", "i", MAXV + 1), ("chol_ent", "h", MAXCHOL),
+    ("h", "s"), ("inv_h", "s"), ("gravity", "s", 3), ("body_pos", "s", MAXB, 3),
     ("body_quat", "s", MAXB, 4), ("body_ipos", "s", MAXB, 3),
     ("body_iquat", "s", MAXB, 4), ("body_mass", "s", MAXB),
     ("body_inertia", "s", MAXB, 3), ("jnt_pos", "s", MAXJ, 3),
@@ -64,7 +127,7 @@ _FIELDS = (
     ("jnt_stiffness", "s", MAXJ), ("jnt_springref", "s", MAXJ),
     ("jnt_range", "s", MAXJ, 2), ("jnt_meff", "s", MAXJ),
     ("jnt_kbase", "s", MAXJ), ("jnt_bref", "s", MAXJ),
-    ("jnt_solimp", "s", MAXJ, 5), ("dof_damping", "s", MAXV),
+    ("jnt_solimp", "s", MAXJ, SOLIMP), ("dof_damping", "s", MAXV),
     ("dof_extra", "s", MAXV), ("act_gear", "s", MAXU), ("act_gain", "s", MAXU),
     ("act_bias", "s", MAXU, 3), ("act_ctrlrange", "s", MAXU, 2),
     ("act_forcerange", "s", MAXU, 2), ("pair_frame", "s", MAXP, 3, 3),
@@ -72,9 +135,9 @@ _FIELDS = (
     ("pair_gquat", "s", MAXP, 4), ("pair_size", "s", MAXP, 2),
     ("pair_mu", "s", MAXP), ("pair_kbase", "s", MAXP), ("pair_bref", "s", MAXP),
     ("pair_meff", "s", MAXP), ("pair_margin", "s", MAXP),
-    ("pair_solimp", "s", MAXP, 5), ("ten_coef", "s", MAXT, MAXTNZ),
+    ("pair_solimp", "s", MAXP, SOLIMP), ("ten_coef", "s", MAXT, MAXTNZ),
     ("ten_range", "s", MAXT, 2), ("ten_meff", "s", MAXT), ("ten_kbase", "s", MAXT),
-    ("ten_bref", "s", MAXT), ("ten_solimp", "s", MAXT, 5),
+    ("ten_bref", "s", MAXT), ("ten_solimp", "s", MAXT, SOLIMP),
     ("ctrl_lo", "s", MAXU), ("ctrl_hi", "s", MAXU), ("cost_w", "s", len(_COST_W)),
 )
 
@@ -87,7 +150,7 @@ def _ctype(base, shape):
 
 def tables_struct(dtype: torch.dtype):
     """ctypes mirror of hmr::Tables<T> (csrc/rollout_body.cuh), same order."""
-    base = {"i": ctypes.c_int32, "u": ctypes.c_uint32,
+    base = {"i": ctypes.c_int32, "u": ctypes.c_uint32, "h": ctypes.c_int16,
             "s": {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}[dtype]}
     fields = [(name, _ctype(base[kind], shape)) for name, kind, *shape in _FIELDS]
     return type(f"Tables_{base['s'].__name__}", (ctypes.Structure,),
@@ -126,6 +189,8 @@ def check_kernel_supported(model: PhysicsModel) -> None:
     for b, js in enumerate(model.body_joints):
         if js and list(js) != list(range(js[0], js[0] + len(js))):
             bad.append("non-contiguous joints of a body")
+        if len(js) > 1 and any(model.joints[j].jtype != HINGE for j in js):
+            bad.append("free joint sharing its body with other joints")
     if bad:
         raise NotImplementedError(
             "rollout kernel does not cover: " + "; ".join(sorted(set(bad))))
@@ -158,6 +223,13 @@ def _cost_constants(cost_factory: Callable, model: PhysicsModel, kw: dict):
     return flags, bodies, [vals[k] for k in _COST_W]
 
 
+def _solimp(si) -> list:
+    """solimp as the kernel reads it: the five values, then the reciprocals
+    of the width, the midpoint and 1 - midpoint."""
+    si = [float(x) for x in si]
+    return si + [1.0 / si[2], 1.0 / si[3], 1.0 / (1.0 - si[3])]
+
+
 def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
                 ctrl_low, ctrl_high, terminal: bool, dtype: torch.dtype) -> bytes:
     """The kernel's model/cost tables as the bytes of hmr::Tables<T>."""
@@ -175,7 +247,7 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
         v["ctrl_hi"][:model.nu] = ctrl_high
     v["cost_body"][:] = cost_bodies
     v["cost_w"][:] = cost_w
-    s.h = h
+    s.h, s.inv_h = h, 1.0 / h
     v["gravity"][:] = model.gravity
     nb = model.nbody
     v["body_parent"][:nb] = model.body_parent
@@ -201,7 +273,7 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
             v["jnt_meff"][j] = hs_meff[jnt.dofadr]
             v["jnt_kbase"][j], v["jnt_bref"][j] = sph._solref_kb_scalar(
                 jnt.solref, jnt.solimp)
-            v["jnt_solimp"][j] = jnt.solimp
+            v["jnt_solimp"][j] = _solimp(jnt.solimp)
     nv = model.nv
     v["dof_body"][:nv] = model.dof_bodyid
     chain = [chain_bits[int(model.dof_bodyid[d])] for d in range(nv)]
@@ -247,7 +319,7 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
         v["pair_kbase"][i], v["pair_bref"][i] = sph._solref_kb_scalar(
             pair.solref, pair.solimp)
         v["pair_meff"][i], v["pair_margin"][i] = pair.m_eff, pair.margin
-        v["pair_solimp"][i] = pair.solimp
+        v["pair_solimp"][i] = _solimp(pair.solimp)
     s.npair = npair
     dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype == HINGE}
     nten = 0
@@ -261,10 +333,80 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
         v["ten_meff"][nten] = model.tendon_limit_meff[t]
         v["ten_kbase"][nten], v["ten_bref"][nten] = sph._solref_kb_scalar(
             model.tendon_limit_solref[t], model.tendon_limit_solimp[t])
-        v["ten_solimp"][nten] = model.tendon_limit_solimp[t]
+        v["ten_solimp"][nten] = _solimp(model.tendon_limit_solimp[t])
         nten += 1
     s.nten = nten
+    _pack_schedule(model, s, v, chain_bits, npair, nten)
     return bytes(s)
+
+
+def _pack_schedule(model: PhysicsModel, s, v: dict, chain_bits: list, npair: int,
+                   nten: int) -> None:
+    """The lane-parallel schedule of the kernel: bodies by tree depth, dofs
+    by chain depth (the mass-matrix entries grouped by their row's level,
+    each level's Cholesky updates), the body/dof sets that fix each sum's
+    order, and the workspace layout."""
+    nb, nv = model.nbody, model.nv
+    s.njnt = len(model.joints)
+    depth = [0] * nb
+    for b in range(1, nb):
+        depth[b] = depth[model.body_parent[b]] + 1
+    levels = [[b for b in range(1, nb) if depth[b] == lv] for lv in range(1, max(depth) + 1)]
+    s.nlvl = len(levels)
+    v["lvl_adr"][:len(levels) + 1] = np.cumsum([0] + [len(lv) for lv in levels])
+    v["lvl_body"][:nb - 1] = [b for lv in levels for b in lv]
+    v["body_chain"][:nb] = chain_bits
+    for b in range(1, nb):
+        v["body_child"][model.body_parent[b]] |= 1 << b
+    for i in range(npair):
+        v["body_pairs"][v["pair_body"][i]] |= 1 << i
+    further = _further_pairs(model)
+    s.nxpair = len(further)
+    v["pair_xslot"][:] = -1
+    for x, i in enumerate(further):
+        v["xpair"][x], v["pair_xslot"][i] = i, x
+    # per level, the bodies whose sums the tree accumulation extends
+    extends = lambda b: v["body_child"][b] or bin(int(v["body_pairs"][b])).count("1") > 1
+    acc = [[b for b in lv if extends(b)] for lv in levels]
+    v["acc_adr"][:len(acc) + 1] = np.cumsum([0] + [len(lv) for lv in acc])
+    v["acc_body"][:sum(map(len, acc))] = [b for lv in acc for b in lv]
+    for j, jnt in enumerate(model.joints):
+        nd = 1 if jnt.jtype == HINGE else 6
+        v["dof_jnt"][jnt.dofadr:jnt.dofadr + nd] = j
+    for i, act in enumerate(model.actuators):
+        v["dof_acts"][act.dofadr] |= 1 << i
+    # dofs by chain depth; the mass-matrix entries by their row's level;
+    # and the entries each level's columns update: rows on the chains above
+    anc = [int(x) for x in v["dof_anc"][:nv]]
+    ddepth = [bin(a).count("1") for a in anc]
+    dlevels = [[d for d in range(nv) if ddepth[d] == lv] for lv in range(max(ddepth) + 1)]
+    s.ndlvl = len(dlevels)
+    # the top block: leading levels of one dof each, dofs 0, 1, ... (NTOP at most)
+    s.ntop = next((i for i, lv in enumerate(dlevels[:NTOP]) if lv != [i]), min(NTOP, len(dlevels)))
+    v["dlvl_adr"][:len(dlevels) + 1] = np.cumsum([0] + [len(lv) for lv in dlevels])
+    v["dlvl_dof"][:nv] = [d for lv in dlevels for d in lv]
+    v["dlvl_mask"][:len(dlevels)] = [sum(1 << d for d in lv) for lv in dlevels]
+    rows = {d: [e for e in range(d) if anc[d] >> e & 1] + [d] for d in range(nv)}
+    ent = [d | e << 8 for lv in dlevels for d in lv for e in rows[d]]
+    v["ent"][:len(ent)] = ent
+    s.nent = len(ent)
+    v["ent_adr"][:len(dlevels) + 1] = np.cumsum(
+        [0] + [sum(len(rows[d]) for d in lv) for lv in dlevels])
+    chol, adr = [], [0]
+    for lv in dlevels:
+        above = 0
+        for p in lv:
+            above |= anc[p]
+        chol += [i | j << 8 for i in range(nv) if above >> i & 1 for j in rows[i]]
+        adr.append(len(chol))
+    if len(chol) > MAXCHOL:
+        raise ValueError(f"model needs {len(chol)} Cholesky updates; the kernel holds {MAXCHOL}")
+    v["chol_adr"][:len(adr)] = adr
+    v["chol_ent"][:len(chol)] = chol
+    s.ten_dofmask = sum(1 << int(d) for t in range(nten)
+                        for d in v["ten_dof"][t, :v["ten_nnz"][t]])
+    off, s.ws_size = workspace_layout(model, nten)
+    v["off"][:] = [off[name] for name in WS_FIELDS]
 
 
 def rollouts_plain(model: PhysicsModel, running_cost: Callable,
@@ -326,11 +468,16 @@ def build_rollout_kernel(
     running_cost, terminal_cost = cost_factory(model, **kw)
     clo = None if ctrl_low is None else [float(x) for x in ctrl_low]
     chi = None if ctrl_high is None else [float(x) for x in ctrl_high]
-    tables = {}
+    tables, geometry = {}, {}
     if dev.type == "cuda":
+        lib = _rollout_lib()
         for dt in (torch.float32, torch.float64):
             raw = pack_tables(model, cost_factory, kw, clo, chi, terminal, dt)
+            if lib.hmr_tables_size(int(dt == torch.float64)) != len(raw):
+                raise RuntimeError("Tables layout differs between Python and CUDA")
             tables[dt] = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
+            geometry[dt] = launch_geometry(lib, model, dt,
+                                           tables_struct(dt).from_buffer_copy(raw).ws_size)
 
     def _params(params, ref):
         if params is None:
@@ -368,17 +515,17 @@ def build_rollout_kernel(
                 f"on {qpos0.device}")
         lib = _rollout_lib()
         tab = tables[qpos0.dtype]
-        if lib.hmr_tables_size(int(qpos0.dtype == torch.float64)) != tab.numel():
-            raise RuntimeError("Tables layout differs between Python and CUDA")
         K = qpos0.shape[-1]
         ins = [x.contiguous() for x in (qpos0, qvel0, U, noise, params)]
         cost = torch.empty(K, dtype=qpos0.dtype, device=dev)
         qpos_f = torch.empty(nq, K, dtype=qpos0.dtype, device=dev)
         qvel_f = torch.empty(nv, K, dtype=qpos0.dtype, device=dev)
         fn = lib.hmr_rollout_f64 if qpos0.dtype == torch.float64 else lib.hmr_rollout_f32
+        geo = geometry[qpos0.dtype]
         rc = fn(tab.data_ptr(), *[x.data_ptr() for x in ins], cost.data_ptr(),
                 qpos_f.data_ptr(), qvel_f.data_ptr(), K, T,
-                torch.cuda.current_stream(dev).cuda_stream)
+                torch.cuda.current_stream(dev).cuda_stream, geo["samples_per_block"],
+                geo["smem_bytes"])
         if rc != 0:
             raise RuntimeError(f"rollout kernel launch failed: cudaError {rc}")
         launches += 1
@@ -392,16 +539,52 @@ def build_rollout_kernel(
         raise ValueError(f"no rollout path for device {qpos0.device}")
 
     rollouts.plain = plain
+    rollouts.geometry = geometry
+    rollouts.tables = tables
     return rollouts
 
 
+def shared_bytes(model: PhysicsModel, dtype: torch.dtype, ws_size: int,
+                 samples_per_block: int) -> int:
+    """Dynamic shared memory of one block (csrc/rollout_kernel.cu): the
+    tables, the runtime parameters, two steps of noise (nu, S) and S
+    workspaces of ws_size scalars."""
+    es = torch.empty((), dtype=dtype).element_size()
+    S = samples_per_block
+    return ctypes.sizeof(tables_struct(dtype)) + es * (NP + 2 * model.nu * S + S * ws_size)
+
+
+def launch_geometry(lib, model: PhysicsModel, dtype: torch.dtype, ws_size: int) -> dict:
+    """Samples per block S (a warp each) that keeps the most samples
+    resident per SM by the card's occupancy query (the smallest S among
+    equals), with its dynamic shared memory."""
+    is_double = int(dtype == torch.float64)
+    best = None
+    for S in range(1, lib.hmr_rollout_max_samples_per_block(is_double) + 1):
+        smem = shared_bytes(model, dtype, ws_size, S)
+        blocks = lib.hmr_rollout_occupancy(is_double, S, smem)
+        if blocks < 0:
+            raise RuntimeError(f"rollout kernel occupancy query failed: cudaError {-blocks}")
+        if blocks and (best is None or blocks * S > best["resident_samples_per_sm"]):
+            best = {"lanes_per_sample": lib.hmr_rollout_lanes(), "samples_per_block": S,
+                    "smem_bytes": smem, "blocks_per_sm": blocks,
+                    "resident_samples_per_sm": blocks * S, "ws_scalars": ws_size}
+    if best is None:
+        raise RuntimeError("rollout kernel: one sample's shared memory does not fit a block")
+    return best
+
+
+@functools.lru_cache(maxsize=None)
 def _rollout_lib() -> ctypes.CDLL:
     lib = _build.load_library("rollout_kernel.cu")
-    ptr = ctypes.c_void_p
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
     for name in ("hmr_rollout_f32", "hmr_rollout_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 9 + [ctypes.c_int, ctypes.c_int, ptr]
-        fn.restype = ctypes.c_int
-    lib.hmr_tables_size.argtypes = [ctypes.c_int]
-    lib.hmr_tables_size.restype = ctypes.c_int
+        fn.argtypes = [ptr] * 9 + [cint, cint, ptr, cint, cint]
+        fn.restype = cint
+    for name, args in (("hmr_tables_size", [cint]), ("hmr_rollout_lanes", []),
+                       ("hmr_rollout_max_samples_per_block", [cint]),
+                       ("hmr_rollout_occupancy", [cint] * 3)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = cint
     return lib
