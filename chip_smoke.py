@@ -28,6 +28,26 @@ Phases, one JSON line each (with its own `seconds`):
              and ptxas registers/stack/spills; the occupancy sweep (one
              block of S samples per SM) and the time by phase of the step
              from the profiling build, at K=8192 and with one sample per SM
+  main_collect -- slice 5 at full width: EpisodeRunner("humanoid_walk",
+             use_kernel=True) (K=8192, H=64, f32) planning with the rollout
+             kernel and stepping the coupled plant (array engine, floor and
+             self contacts, Newton solver; eager PyTorch on the card): the
+             rollout kernel against its plain version with the walk cost and
+             a runtime goal (K=256 and 253, T=4: the gates of `check`); a
+             warm-up run(max_steps=50, chunk=50) and a timed run(max_steps=
+             100, chunk=50) (bench.py::_bench_collect's protocol: steps/s,
+             control step ms); then 20 control steps one at a time, CUDA
+             events around the plan and around the plant step (Newton
+             iterations and constraint rows read after), one plant step
+             under torch.profiler (device launches) and one control step
+             (busy share); one plant step under
+             torch.cuda.set_sync_debug_mode("error") (no host sync);
+             one collect_humanoid episode (max_steps=100, saved into a
+             temporary directory; goal threshold opened to 1e9 so the goal
+             gate saves it). Checks: one rollout launch per control
+             step, every logged row finite, root height qpos[2] >= 0.7 over
+             the 150 steps (scripts/dev_seed_evidence.py's fall rule), CSVs
+             of 57 / 21 / 1 columns
   check_estimator -- the estimator kernel against its plain version on the
              card, seeded weights with nonzero biases and LayerNorm terms,
              presets quadruped/humanoid/cartpole_attention at B=64 and 61:
@@ -68,6 +88,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -86,6 +107,10 @@ EST_CHECK_B = (64, 61)
 EST_TIME_B = (2048, 65536)
 EST_PLAIN_CHUNK = 8192   # the plain forward at B=65536 runs in sample chunks (memory)
 SWEEP_K = (2048, 4096, 8192, 16384, 32768)   # rollout kernel alone, T = the main path's H
+COLLECT_TASK = "humanoid_walk"
+COLLECT_WARMUP, COLLECT_TIMED, COLLECT_CHUNK = 50, 100, 50   # bench.py::_bench_collect
+COLLECT_SPLIT_STEPS = 20
+FALL_Z = 0.7   # scripts/dev_seed_evidence.py:53
 
 
 def emit(obj):
@@ -160,6 +185,29 @@ def seeded_inputs(model, K, T, dtype, seed=0, device="cuda"):
     as_t = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
     return (as_t(qpos), as_t(qvel), torch.zeros(1, K, dtype=dtype, device=device),
             as_t(U), as_t(noise))
+
+
+def plant_state(model, case: str, seed: int = 0):
+    """(qpos, qvel, ctrl) numpy arrays of the humanoid plant from a seed:
+    "free_fall" 0.5 m up, "sunk" 0.2 m into the floor (floor rows active),
+    "self_contact" a mirror-symmetric folded pose in which four self pairs
+    penetrate, two by equal depths (waist pitch, leg and arm joints; no
+    penetrating capsule pair near parallel)."""
+    rng = np.random.default_rng(seed)
+    qpos = model.qpos0 + rng.normal(0, 0.05, model.nq)
+    qpos[3:7] /= np.linalg.norm(qpos[3:7])
+    if case == "free_fall":
+        qpos[2] += 0.5
+    elif case == "sunk":
+        qpos[2] -= 0.2
+    elif case == "self_contact":
+        qpos = model.qpos0.copy()
+        qpos[8] = 0.37
+        qpos[10:16] = qpos[16:22] = (-0.38, -0.13, -1.18, -1.79, 0.16, -0.46)
+        qpos[22:25] = qpos[25:28] = (0.55, 0.71, -1.41)
+    else:
+        raise ValueError(case)
+    return qpos, rng.normal(0, 0.3, model.nv), rng.normal(0, 0.5, model.nu)
 
 
 def device_profile(fn) -> dict:
@@ -483,6 +531,45 @@ def rollout_launch(lib, ro, x, samples_per_block=None, smem_bytes=None):
     return outs
 
 
+def check_rollout(model, cost_factory, cost_kwargs, params=None) -> dict:
+    """The rollout kernel against its plain version at K = CHECK_KS, T =
+    CHECK_T, seeded inputs, f64 to rtol=atol=1e-9, f32 cost relative error
+    median < 1e-3 and max < 1e-2, two launches bit-identical. Returns the
+    errors by dtype and K, and the launch geometry by dtype."""
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    ro = rk.build_rollout_kernel(model, cost_factory, CHECK_T, cost_kwargs=cost_kwargs)
+    errs = {}
+    for K, dtype in ((K, dt) for K in CHECK_KS for dt in (torch.float64, torch.float32)):
+        x = seeded_inputs(model, K, CHECK_T, dtype, seed=1)
+        p = None if params is None else torch.tensor(params, dtype=dtype, device="cuda")
+        n0 = rk.launches
+        ck, qk, vk = ro(*x, params=p)
+        torch.cuda.synchronize()
+        if rk.launches != n0 + 1:
+            raise AssertionError("rollout kernel launch was not counted")
+        again = ro(*x, params=p)
+        if not all(torch.equal(a, b) for a, b in zip((ck, qk, vk), again)):
+            raise AssertionError(f"K={K} {dtype}: two launches on the same inputs differ")
+        cp, qp, vp = ro.plain(*x, params=p)
+        rel = ((ck - cp).abs() / cp.abs()).double()
+        e = {"cost_max_abs": float((ck - cp).abs().max()),
+             "cost_rel_max": float(rel.max()), "cost_rel_median": float(rel.median()),
+             "qpos_max_abs": float((qk - qp).abs().max()),
+             "qvel_max_abs": float((vk - vp).abs().max())}
+        for name, a in (("costs", ck), ("qpos_T", qk), ("qvel_T", vk)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{dtype}: non-finite kernel {name}")
+        if dtype == torch.float64:
+            for a, b, name in ((ck, cp, "costs"), (qk, qp, "qpos_T"), (vk, vp, "qvel_T")):
+                torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9, msg=name)
+        elif not (e["cost_rel_median"] < 1e-3 and e["cost_rel_max"] < 1e-2):
+            raise AssertionError(f"K={K} f32 kernel vs plain: {e}")
+        e["repeat_bit_identical"] = True
+        errs[f"{str(dtype).replace('torch.', '')}/K={K}"] = e
+    return errs, ro.geometry
+
+
 def sincos_check() -> dict:
     """The rollout body's f32 sin/cos against the CUDA library's sinf/cosf,
     bit for bit, on every float with |x| < 105615 (profiling build)."""
@@ -549,6 +636,141 @@ def rollout_diagnostics(model, ro, T) -> dict:
             "phase_cycles_per_sample_step": cycles,
             "phase_share": {k: v / total for k, v in cycles.items()},
             "phase_cycles_one_sample_per_sm": alone}
+
+
+def device_launches(fn) -> dict:
+    """Device work items (kernels, and memcpy/memset apart) of one call of
+    fn, from torch.profiler; None where it traced no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.key.startswith(("Memcpy", "Memset")):
+                copies += ev.count
+            else:
+                kernels += ev.count
+    return {"kernels": kernels or None, "memcpy_memset": copies}
+
+
+def collect_phase() -> dict:
+    """main_collect (see the module docstring). Returns the collect path's
+    numbers for the `kernels` line."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import (
+        EpisodeRunner, _humanoid_state_row, collect_humanoid)
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+    from humanoid_mppi_rl_tpu_torch.utils.trajio import read_csv
+
+    t0 = time.perf_counter()
+    # bench.py::_bench_collect's runner: the walk cost's own target
+    runner = EpisodeRunner(COLLECT_TASK, use_kernel=True)
+    cfg, model = runner.cfg, runner.model
+    # collect_humanoid's planner cost (walk weights, the goal in the runtime
+    # params) through the kernel against its plain version
+    walk_check, _ = check_rollout(model, runner.spec.cost_factory,
+                               dict(runner.spec.cost_kwargs, param_target=True),
+                               params=np.pad([1.5, 0.2, 1.28], (0, 13)))
+    row = _humanoid_state_row(model.body_id("foot_left"), model.body_id("foot_right"))
+
+    rk.launches = 0
+    warm = runner.run(max_steps=COLLECT_WARMUP, chunk=COLLECT_CHUNK, state_row_fn=row)
+    torch.cuda.synchronize()
+    warm_launches = rk.launches
+    t1 = time.perf_counter()
+    timed = runner.run(max_steps=COLLECT_TIMED, chunk=COLLECT_CHUNK, state_row_fn=row)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    timed_launches = rk.launches - warm_launches
+    with tempfile.TemporaryDirectory() as out_dir:
+        episode = collect_humanoid(n_episodes=1, task_name=COLLECT_TASK, use_kernel=True,
+                                   max_steps=COLLECT_TIMED, save=True, out_dir=out_dir,
+                                   goal_threshold=1e9, chunk=COLLECT_CHUNK)
+        torch.cuda.synchronize()
+        path_launches = rk.launches
+        shapes = {}
+        for d, _, files in os.walk(out_dir):
+            for f in files:
+                a = read_csv(os.path.join(d, f))
+                if not np.isfinite(a).all():
+                    raise AssertionError(f"{f}: non-finite CSV values")
+                shapes[f.split("_")[0]] = a.shape[1]
+    # a chunk always runs to its end: the episode's goal at step 1 still ran 50
+    executed = COLLECT_WARMUP + COLLECT_TIMED + COLLECT_CHUNK
+    if (warm_launches, timed_launches, path_launches) != (COLLECT_WARMUP, COLLECT_TIMED, executed):
+        raise AssertionError(f"rollout launches {warm_launches}/{timed_launches}/{path_launches} "
+                             f"for {COLLECT_WARMUP}/{COLLECT_TIMED}/{executed} control steps")
+    heights = []
+    for name, res, n in (("warm-up", warm, COLLECT_WARMUP), ("timed", timed, COLLECT_TIMED)):
+        states, actions, times = res.logger.arrays()
+        if states.shape != (n, 57) or actions.shape != (n, model.nu) or times.shape != (n,):
+            raise AssertionError(f"{name}: logged {states.shape} {actions.shape} {times.shape}")
+        if not (np.isfinite(states).all() and np.isfinite(actions).all()
+                and np.isfinite(times).all() and np.isfinite(res.final_qpos).all()):
+            raise AssertionError(f"{name}: non-finite logged rows")
+        heights.append(states[:, 2])
+    heights = np.concatenate(heights)
+    if heights.min() < FALL_Z:
+        raise AssertionError(f"the humanoid fell: root height {heights.min():.3f} < {FALL_Z}")
+    if not (episode[0]["goal"] and episode[0]["steps_saved"] == 1):
+        raise AssertionError(f"collect_humanoid: {episode}")
+    if shapes != {"states": 57, "actions": 21, "times": 1}:
+        raise AssertionError(f"CSV columns {shapes}")
+
+    # control steps one at a time: plan and plant apart by CUDA events
+    ms = runner.fresh_controller(1)
+    plant = runner.init_state
+    params = torch.zeros(16, dtype=torch.float32, device="cuda")
+    plan_ms, plant_ms, step_ms, iters, active = [], [], [], [], []
+    for _ in range(COLLECT_SPLIT_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        h0 = time.perf_counter()
+        ev[0].record()
+        action, ms, _ = runner.plan(ms, plant, params=params)
+        ev[1].record()
+        info = {}
+        plant = runner.plant_dyn(plant, action, info=info)
+        ev[2].record()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - h0) * 1e3)
+        plan_ms.append(ev[0].elapsed_time(ev[1]))
+        plant_ms.append(ev[1].elapsed_time(ev[2]))
+        iters.append(int(info["iterations"]))
+        active.append(float(info["active_rows"]))
+    launches = device_launches(lambda: runner.plant_dyn(plant, action))
+    prof = device_profile(lambda: runner.control_step(ms, plant, params))
+    # one plant step with any host synchronisation raising
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nxt = runner.plant_dyn(plant, action)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    if not torch.isfinite(nxt.qpos).all():
+        raise AssertionError("non-finite plant step")
+    emit({"phase": "main_collect", "task": COLLECT_TASK, "K": cfg.K, "H": cfg.T,
+          "dtype": "float32", "walk_cost_kernel_vs_plain": walk_check,
+          "steps": COLLECT_WARMUP + COLLECT_TIMED, "timed_steps": COLLECT_TIMED,
+          "steps_per_s": COLLECT_TIMED / wall, "control_step_ms": wall / COLLECT_TIMED * 1e3,
+          "rollout_launches_per_control_step": timed_launches / COLLECT_TIMED,
+          "rollout_launches_on_path": path_launches,
+          "split_steps": COLLECT_SPLIT_STEPS,
+          "plan_ms_median": statistics.median(plan_ms), "plant_ms_median": statistics.median(plant_ms),
+          "control_step_host_ms_median": statistics.median(step_ms),
+          "plan_ms": plan_ms, "plant_ms": plant_ms,
+          "newton_iterations": iters, "newton_iterations_mean": float(np.mean(iters)),
+          "constraint_rows": info["rows"], "active_rows_mean": float(np.mean(active)),
+          "plant_step_device_launches": launches, "profiled_control_step": prof,
+          "plant_step_sync_free": True, "root_height_min": float(heights.min()),
+          "root_height_final": float(timed.final_qpos[2]),
+          "x_travelled_timed": float(timed.final_qpos[0] - runner.init_state.qpos[0]),
+          "collect_episode": episode[0], "csv_columns": shapes,
+          "seconds": time.perf_counter() - t0})
+    return {"launches_collect": path_launches, "collect_control_step_ms": wall / COLLECT_TIMED * 1e3}
 
 
 def estimator_phases() -> dict:
@@ -795,41 +1017,13 @@ def main() -> int:
     # ---- check: kernel against its plain version on the card -------------
     t0 = time.perf_counter()
     spec, model, cfg, _ = load_task("humanoid_bench", dtype=torch.float64)
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, CHECK_T,
-                                 cost_kwargs=spec.cost_kwargs)
-    errs = {}
-    for K, dtype in ((K, dt) for K in CHECK_KS for dt in (torch.float64, torch.float32)):
-        x = seeded_inputs(model, K, CHECK_T, dtype, seed=1)
-        n0 = rk.launches
-        ck, qk, vk = ro(*x)
-        torch.cuda.synchronize()
-        if rk.launches != n0 + 1:
-            raise AssertionError("rollout kernel launch was not counted")
-        again = ro(*x)
-        if not all(torch.equal(a, b) for a, b in zip((ck, qk, vk), again)):
-            raise AssertionError(f"K={K} {dtype}: two launches on the same inputs differ")
-        cp, qp, vp = ro.plain(*x)
-        rel = ((ck - cp).abs() / cp.abs()).double()
-        e = {"cost_max_abs": float((ck - cp).abs().max()),
-             "cost_rel_max": float(rel.max()), "cost_rel_median": float(rel.median()),
-             "qpos_max_abs": float((qk - qp).abs().max()),
-             "qvel_max_abs": float((vk - vp).abs().max())}
-        for name, a in (("costs", ck), ("qpos_T", qk), ("qvel_T", vk)):
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"{dtype}: non-finite kernel {name}")
-        if dtype == torch.float64:
-            for a, b, name in ((ck, cp, "costs"), (qk, qp, "qpos_T"), (vk, vp, "qvel_T")):
-                torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9, msg=name)
-        elif not (e["cost_rel_median"] < 1e-3 and e["cost_rel_max"] < 1e-2):
-            raise AssertionError(f"K={K} f32 kernel vs plain: {e}")
-        e["repeat_bit_identical"] = True
-        errs[f"{str(dtype).replace('torch.', '')}/K={K}"] = e
+    errs, geometry = check_rollout(model, spec.cost_factory, spec.cost_kwargs)
     trig = sincos_check()
     emit({"phase": "check", "kernel": "rollout", "K": list(CHECK_KS), "T": CHECK_T,
           "tolerance": {"float64": "rtol=atol=1e-9",
                         "float32": "cost rel median<1e-3, max<1e-2",
                         "repeat": "two launches bit-identical"},
-          "geometry": {str(dt).replace("torch.", ""): geo for dt, geo in ro.geometry.items()},
+          "geometry": {str(dt).replace("torch.", ""): geo for dt, geo in geometry.items()},
           "errors": errs, "sincos_f32": trig, "seconds": time.perf_counter() - t0})
 
     # ---- main path at full width -------------------------------------------
@@ -905,6 +1099,8 @@ def main() -> int:
           "diagnostics": rdiag,
           "seconds": time.perf_counter() - t0})
 
+    collect = collect_phase()
+
     est = estimator_phases()
     est["sass_hgmma"] = hgmma_of["estimator_kernel.cu"]
 
@@ -914,6 +1110,7 @@ def main() -> int:
         "source": "humanoid_mppi_rl_tpu_torch/ops/csrc/rollout_kernel.cu",
         "replaces": "humanoid_mppi_rl_tpu/ops/rollout_kernel.py:86",
         "launches": main_launches,
+        **collect,
         "max_abs_err": max(e["cost_max_abs"] for k, e in errs.items() if "float32" in k),
         "max_abs_err_f64": max(e["cost_max_abs"] for k, e in errs.items() if "float64" in k),
         "cost_rel_median_f32": max(e["cost_rel_median"] for k, e in errs.items()

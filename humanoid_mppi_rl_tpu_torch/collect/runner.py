@@ -1,0 +1,303 @@
+"""Receding-horizon episode loop and humanoid data collection
+(collect/runner.py counterpart).
+
+- `EpisodeRunner.run()`: plan with the CUDA rollout kernel
+  (solver/kernel_mppi), step the coupled plant (envs/tasks.load_plant), log,
+  check goal and fall. Rows, actions, times and goal/fall flags stay on the
+  device and cross to the host once per chunk.
+- `collect_humanoid()`: the reference's src/Humanoid_datacollection_v2.jl:
+  randomized pose and goal, goal-gated saving, 57-column states with the
+  foot heights, episodes sharded across processes.
+
+Semantics kept from the JAX runner: a control step logs the state before
+it (with its time), plans, steps the plant, then evaluates goal_fn/fall_fn
+on the state after it; a chunk always runs `chunk` steps, logs the rows up
+to and including the first terminating step, and leaves the plant (final
+qpos, sim time) at the chunk's end.
+
+The batched array planner (use_kernel=False, planner_solver) is ROADMAP
+A2/A3; until it exists those options raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time as _time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..envs.tasks import load_plant, load_task
+from ..physics.state import PhysicsState
+from ..solver.kernel_mppi import make_kernel_mppi
+from ..solver.mppi import MPPIState
+from ..utils.metrics import JSONLWriter
+from .logging import TrajectoryLogger
+
+NP = 16  # runtime cost-parameter slots (ops/kernel_costs PARAM_SLOTS)
+
+
+@dataclasses.dataclass
+class EpisodeResult:
+    steps: int
+    goal_reached: bool
+    fell: bool
+    final_qpos: np.ndarray
+    logger: TrajectoryLogger
+    sim_time: float
+    stalled: bool = False  # abandoned by the progress watchdog
+
+
+class EpisodeRunner:
+    """One task, cost and MPPI configuration, reusable across episodes: the
+    kernel planner and the coupled plant on `device` in `dtype`."""
+
+    def __init__(self, task_name: str, seed: int = 0,
+                 cost_kwargs_override: Optional[dict] = None,
+                 mppi_override: Optional[dict] = None,
+                 use_kernel: bool = False,
+                 planner_solver: Optional[str] = None,
+                 device="cuda", dtype=torch.float32):
+        if not use_kernel:
+            raise NotImplementedError(
+                "use_kernel=False plans on the batched array engine, which is not "
+                "ported yet (ROADMAP A2/A3): pass use_kernel=True")
+        if planner_solver not in (None, "penalty"):
+            raise NotImplementedError(
+                f'planner_solver="{planner_solver}" plans on the batched array engine, '
+                "which is not ported yet (ROADMAP A2/A3)")
+        self.device, self.dtype = resolve_device(device), dtype
+        spec, model, cfg, init_state = load_task(task_name, device=self.device, dtype=dtype)
+        kw = dict(spec.cost_kwargs)
+        if cost_kwargs_override:
+            kw.update(cost_kwargs_override)
+        if mppi_override:
+            cfg = dataclasses.replace(cfg, **mppi_override)
+        self.spec, self.model, self.cfg = spec, model, cfg
+        self.init_state = init_state
+        self.seed = seed
+        # environment plant: the coupled tier with body-body contacts; the
+        # planner's rollouts keep the penalty tier of the rollout kernel
+        self.plant_model, self.plant_dyn = load_plant(task_name, init_state, self.device, dtype)
+        self.plan = make_kernel_mppi(model, spec.cost_factory, cfg, cost_kwargs=kw,
+                                     device=self.device)
+
+    def fresh_controller(self, seed: Optional[int] = None) -> MPPIState:
+        return MPPIState.seeded(self.seed if seed is None else seed, self.cfg.T,
+                                self.model.nu, device=self.device, dtype=self.dtype)
+
+    def control_step(self, ms: MPPIState, plant: PhysicsState, params, noise=None):
+        """Plan, then step the plant: (action, ms', plant', diag)."""
+        action, ms, diag = self.plan(ms, plant, params=params, noise=noise)
+        return action, ms, self.plant_dyn(plant, action, 0), diag
+
+    def run(
+        self,
+        max_steps: int = 1000,
+        init_state: Optional[PhysicsState] = None,
+        seed: Optional[int] = None,
+        state_row_fn: Optional[Callable] = None,
+        goal_fn: Optional[Callable] = None,
+        fall_fn: Optional[Callable] = None,
+        logger: Optional[TrajectoryLogger] = None,
+        params=None,
+        chunk: int = 50,
+        plant_update_fn: Optional[Callable] = None,
+        params_update_fn: Optional[Callable] = None,
+        metrics_path: Optional[str] = None,
+        per_chunk_callback: Optional[Callable] = None,
+        stall_steps: Optional[int] = None,
+        stall_min_progress: float = 0.05,
+        noise_fn: Optional[Callable] = None,
+    ) -> EpisodeResult:
+        """state_row_fn(plant) -> row tensor; goal_fn/fall_fn(qpos, params)
+        -> bool tensor, evaluated on the device. `params` (at most 16
+        slots, zero-padded) carries the episode's runtime cost parameters
+        (the goal in params[0:3]). `metrics_path` appends a JSONL event per
+        chunk. `per_chunk_callback(plant)` runs on the host after each
+        chunk. `stall_steps` arms the progress watchdog: the episode is
+        abandoned when the root's xy distance to params[0:2] has not
+        improved by `stall_min_progress` over that many logged steps.
+        `noise_fn(step) -> (T, nu, K)` replaces the planner's noise draw at
+        executed step `step` (the parity tests' matched-noise hook).
+        plant_update_fn(plant, params) and params_update_fn(plant, params)
+        rewrite the plant or the params after each step."""
+        plant = (self.init_state if init_state is None else init_state).to(
+            self.device, self.dtype)
+        ms = self.fresh_controller(seed)
+        params = np.zeros(NP) if params is None else np.asarray(params, dtype=np.float64)
+        if params.shape[0] > NP:
+            raise ValueError(f"params has {params.shape[0]} slots; the kernel cost param "
+                             f"vector is at most {NP} (ops.kernel_costs.PARAM_SLOTS)")
+        params = torch.as_tensor(np.pad(params, (0, NP - params.shape[0])),
+                                 dtype=self.dtype, device=self.device)
+        log = logger if logger is not None else TrajectoryLogger()
+        met = JSONLWriter(metrics_path)
+        nu = self.model.nu
+        goal = fell = stalled = False
+        steps = executed = 0
+        best_dist, steps_since_best = np.inf, 0
+        while steps < max_steps:
+            n = min(chunk, max_steps - steps)
+            t_chunk = _time.perf_counter()
+            packed = []
+            for _ in range(chunk):
+                row = (state_row_fn(plant) if state_row_fn
+                       else torch.cat([plant.qpos, plant.qvel]))
+                noise = noise_fn(executed) if noise_fn is not None else None
+                action, ms, plant2, _ = self.control_step(ms, plant, params, noise)
+                executed += 1
+                if plant_update_fn is not None:
+                    plant2 = plant_update_fn(plant2, params)
+                if params_update_fn is not None:
+                    params = params_update_fn(plant2, params)
+                flag = lambda fn: (fn(plant2.qpos, params) if fn is not None
+                                   else torch.zeros((), dtype=torch.bool, device=row.device))
+                packed.append(torch.cat([row, action, plant.time[None],
+                                         flag(goal_fn).to(row.dtype)[None],
+                                         flag(fall_fn).to(row.dtype)[None]]))
+                plant = plant2
+            packed = torch.stack(packed).cpu().numpy()   # one host fetch per chunk
+            dt_chunk = _time.perf_counter() - t_chunk
+            met.write(kind="chunk", task=self.spec.name, steps=n, wall_s=dt_chunk,
+                      replan_ms=dt_chunk / n * 1e3, steps_per_s=n / dt_chunk,
+                      K=self.cfg.K, T=self.cfg.T)
+            rows = packed[:, :-(nu + 3)]
+            actions = packed[:, -(nu + 3):-3]
+            times = packed[:, -3]
+            goals = packed[:, -2] > 0.5
+            falls = packed[:, -1] > 0.5
+            # the first termination inside the logged part of the chunk
+            stop = n
+            for i in range(n):
+                if falls[i]:
+                    fell, stop = True, i + 1
+                    break
+                if goals[i]:
+                    goal, stop = True, i + 1
+                    break
+            for i in range(stop):
+                log.log(rows[i], actions[i], float(times[i]))
+            steps += stop
+            if per_chunk_callback is not None:
+                per_chunk_callback(plant)
+            if goal or fell:
+                break
+            if stall_steps:
+                qp = plant.qpos.cpu().numpy()
+                pv = params.cpu().numpy()
+                dist = float(np.linalg.norm(qp[0:2] - pv[0:2]))
+                if dist < best_dist - stall_min_progress:
+                    best_dist, steps_since_best = dist, 0
+                else:
+                    steps_since_best += stop
+                if steps_since_best >= stall_steps:
+                    stalled = True
+                    break
+        met.write(kind="episode", task=self.spec.name, steps=steps, goal=bool(goal),
+                  fell=bool(fell), stalled=bool(stalled))
+        met.close()
+        return EpisodeResult(steps=steps, goal_reached=goal, fell=fell,
+                             final_qpos=plant.qpos.cpu().numpy(), logger=log,
+                             sim_time=float(plant.time), stalled=stalled)
+
+
+# ---------------------------------------------------------------------------
+# Humanoid collection (reference src/Humanoid_datacollection_v2.jl)
+# ---------------------------------------------------------------------------
+
+def randomize_humanoid_pose(model, rng: np.random.Generator):
+    """Reference randomize_initial_pose! (:13-36): root xy +-0.2 m, joint
+    angles +-0.05, velocities +-0.05."""
+    qpos = model.qpos0.copy()
+    qpos[0] += (rng.random() - 0.5) * 0.4
+    qpos[1] += (rng.random() - 0.5) * 0.4
+    qpos[7:] += (rng.random(len(qpos) - 7) - 0.5) * 0.1
+    qvel = (rng.random(model.nv) - 0.5) * 0.1
+    return qpos, qvel
+
+
+def random_humanoid_goal(rng: np.random.Generator):
+    """Reference :40-41: x in [0.5, 2.5], y in [-0.5, 0.5], z = 1.28."""
+    return np.array([rng.random() * 2.0 + 0.5, rng.random() - 0.5, 1.28])
+
+
+def _humanoid_state_row(id_l: int, id_r: int):
+    def state_row(st):
+        # 57-column layout (reference src/Humanoid_datacollection_v2.jl:70-81)
+        return torch.cat([st.qpos, st.qvel, st.xpos[id_l, 2:3], st.xpos[id_r, 2:3]])
+    return state_row
+
+
+def _humanoid_goal_fn(goal_threshold: float):
+    def goal_fn(qpos, params):
+        xy = torch.linalg.vector_norm(qpos[0:2] - params[0:2])
+        return (xy < goal_threshold) & (torch.abs(qpos[2] - params[2]) < 0.1)
+    return goal_fn
+
+
+def collect_humanoid(
+    n_episodes: int = 1,
+    out_dir: str = "data",
+    seed: int = 0,
+    max_steps: int = 10000,
+    goal_threshold: float = 0.15,
+    save: bool = True,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    task_name: str = "humanoid_collect",
+    use_kernel: bool = False,
+    mppi_override: Optional[dict] = None,
+    retries: int = 0,
+    metrics_path: Optional[str] = None,
+    stall_steps: Optional[int] = 800,
+    stall_min_progress: float = 0.05,
+    chunk: int = 50,
+    device="cuda",
+    dtype=torch.float32,
+):
+    """Goal-gated humanoid episode collection. Episode i runs on shard
+    i % num_shards. The goal is a runtime kernel parameter (params[0:3],
+    `param_target=True`), so one runner serves every episode. `retries`
+    re-runs an episode that missed its goal with a reseeded noise stream.
+    Only successful episodes are saved (reference :268-275). `chunk` is
+    EpisodeRunner.run's (the JAX function always runs chunks of 50)."""
+    results = []
+    runner = EpisodeRunner(task_name, use_kernel=use_kernel,
+                           cost_kwargs_override={"param_target": True},
+                           mppi_override=mppi_override, device=device, dtype=dtype)
+    model = runner.model
+    state_row = _humanoid_state_row(model.body_id("foot_left"), model.body_id("foot_right"))
+    goal_fn = _humanoid_goal_fn(goal_threshold)
+    engine = runner.plant_dyn.engine
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=runner.device)
+    for ep in range(n_episodes):
+        if ep % num_shards != shard_index:
+            continue
+        rng = np.random.default_rng(seed + ep * 7919)
+        goal = random_humanoid_goal(rng)
+        qpos, qvel = randomize_humanoid_pose(model, rng)
+        init = engine.forward(as_t(qpos), as_t(qvel))
+        steps_executed = attempts = 0
+        for attempt in range(retries + 1):
+            res = runner.run(max_steps=max_steps, init_state=init,
+                             seed=seed + ep + attempt * 65537, state_row_fn=state_row,
+                             goal_fn=goal_fn, params=goal, chunk=chunk,
+                             metrics_path=metrics_path,
+                             stall_steps=stall_steps, stall_min_progress=stall_min_progress)
+            steps_executed += res.steps
+            attempts += 1
+            if res.goal_reached:
+                break
+        if save and res.goal_reached:
+            res.logger.save_split_dirs(out_dir)
+        # steps_executed counts every logged control step across attempts
+        results.append(dict(
+            run=ep, goal=bool(res.goal_reached), steps_saved=int(res.steps),
+            steps_executed=int(steps_executed), attempts=int(attempts),
+            outcome=("goal" if res.goal_reached else
+                     ("fell" if res.fell else ("stalled" if res.stalled else "cap")))))
+    return results

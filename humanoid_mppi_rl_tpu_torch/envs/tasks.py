@@ -1,5 +1,6 @@
 """Task registry: the tasks whose kernel cost is `humanoid`
-(envs/tasks.py counterpart, same constants as envs/tasks.py:69-151).
+(envs/tasks.py counterpart, same constants as envs/tasks.py:69-151), and
+their environment plant (`load_plant`).
 
 The remaining JAX tasks (cartpole, hopper, go1, arm5, humanoid_v1/hard/v2py)
 need kernel features and costs the port does not have yet (ROADMAP.md).
@@ -14,8 +15,9 @@ import torch
 
 from .._device import resolve_device
 from ..ops import kernel_costs
+from ..dynamics.physics import make_physics_dynamics
+from ..physics.engine import Engine
 from ..physics.model import PhysicsModel, load_model
-from ..physics.state import PhysicsState
 from ..solver.mppi import MPPIConfig
 
 # costs/humanoid.py WEIGHTS_WALK: the tuned walking posture base weights
@@ -28,6 +30,7 @@ WEIGHTS_WALK = dict(w_orient=15.0, w_goal_xy=2.5, w_height=20.0,
 class TaskSpec:
     name: str
     model: str                         # assets/<model>.json snapshot
+    plant: str                         # the plant's snapshot (with self pairs)
     mppi: MPPIConfig
     kernel_cost: str                   # ops.kernel_costs.KERNEL_COSTS key
     cost_kwargs: dict = dataclasses.field(default_factory=dict)
@@ -40,7 +43,8 @@ class TaskSpec:
 def _mk(name, K, T, lam, sigma, tail=0.1, cost_kwargs=None):
     cfg = MPPIConfig(n_samples=K, horizon=T, temperature=lam, sigma=sigma,
                      tail_decay=tail)
-    return TaskSpec(name=name, model="humanoid", mppi=cfg, kernel_cost="humanoid",
+    return TaskSpec(name=name, model="humanoid", plant="humanoid_plant", mppi=cfg,
+                    kernel_cost="humanoid",
                     cost_kwargs=dict(cost_kwargs or {}))
 
 
@@ -63,13 +67,23 @@ TASKS = {
 
 
 def load_task(name: str, device="cuda", dtype=torch.float32):
-    """(spec, model, cfg, init_state): init_state is (qpos0, zeros, 0) on
-    `device` in `dtype`, which is all the kernel planner reads."""
+    """(spec, model, cfg, init_state): init_state is the forward state of
+    (qpos0, zeros) at time 0 on `device` in `dtype`."""
     dev = resolve_device(device)
     spec = TASKS[name]
     model: PhysicsModel = load_model(spec.model)
-    init_state = PhysicsState(
-        qpos=torch.as_tensor(model.qpos0, dtype=dtype, device=dev),
-        qvel=torch.zeros(model.nv, dtype=dtype, device=dev),
-        time=torch.zeros((), dtype=dtype, device=dev))
+    init_state = Engine(model, dev, dtype).forward(
+        torch.as_tensor(model.qpos0, dtype=dtype, device=dev),
+        torch.zeros(model.nv, dtype=dtype, device=dev))
     return spec, model, spec.mppi, init_state
+
+
+def load_plant(name: str, init_state=None, device="cuda", dtype=torch.float32):
+    """(plant_model, plant_dynamics): the environment plant of a task, the
+    coupled constraint tier with body-body pairs (the planner's model has
+    floor pairs only). `init_state` is the JAX signature's, for tasks with a
+    state wrapper; the humanoid tasks have none."""
+    spec = TASKS[name]
+    plant_model = load_model(spec.plant)
+    return plant_model, make_physics_dynamics(plant_model, solver="coupled",
+                                              device=device, dtype=dtype)

@@ -32,10 +32,9 @@ from ..physics.model import (
     HINGE,
     PhysicsModel,
 )
-
-# physics/contact.py RESTITUTION_VCAP: the planner tier's cap (m/s) on the
-# separation velocity a contact or limit may push out at
-RESTITUTION_VCAP = 0.5
+# the planner tier's cap (m/s) on the separation velocity a contact or limit
+# may push out at
+from ..physics.contact import RESTITUTION_VCAP
 _VT_EPS = 5e-3
 
 Vec3 = Tuple

@@ -1,0 +1,332 @@
+"""Contact rows of the coupled plant (physics/contact.py counterpart, the
+humanoid subset): a static plane against spheres and capsules, and the
+body-body ("self") pairs of spheres and capsules.
+
+Each plane pair always contributes its points (a sphere one, a capsule its
+two end spheres), gated to inactive when separated. Self pairs go through a
+segment-segment narrowphase over every candidate; the SELF_TOPK deepest are
+kept, ranked by penetration with ties to the lower candidate index (as
+jax.lax.top_k does), so the row count is static.
+
+MuJoCo's soft-constraint reference acceleration per row is
+aref = -b vn + d(r) k pen, with b = 2/(dmax tau), k = d(r)/(dmax^2 tau^2
+zeta^2), (tau, zeta) the pair's solref and d(r) the solimp impedance of the
+penetration; physics/newton.py builds its rows from these.
+
+Box, mesh and cylinder contacts are refused (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import spatial as sp
+from .model import GEOM_CAPSULE, GEOM_CYLINDER, GEOM_PLANE, GEOM_SPHERE, PhysicsModel
+
+# Restitution cap [m/s] of the planner tier: a constraint row may brake an
+# approaching contact without bound but may only push it outward until its
+# separation velocity reaches this value (soft constraints otherwise store
+# deep penetration as spring energy and release it as a catapult)
+RESTITUTION_VCAP = 0.5
+
+# The environment (coupled/Newton) tier's cap: legitimate deep-stance frames
+# need h*aref up to ~0.6 m/s, while 2.0 m/s still bounds a foot-slam bounce
+RESTITUTION_VCAP_ENV = 2.0
+
+# rows kept of the self-contact candidates, ranked by penetration
+SELF_TOPK = 8
+
+
+class Impedance:
+    """MuJoCo's solimp impedance spline d(r) (contact.impedance): a sigmoid
+    from d0 to dmax over `width` of violation, for rows of static solimp
+    (P, 5). Its constants are placed on the device once, so that a step
+    copies nothing from the host; a uniform integer power (the default 2)
+    is applied by multiplies, as the JAX function does."""
+
+    def __init__(self, solimp, device, dtype):
+        si = np.asarray(solimp, dtype=np.float64).reshape(-1, 5)
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        self.width, self.mid = t(si[:, 2]), t(si[:, 3])
+        self.d0, self.span = t(si[:, 0]), t(si[:, 1] - si[:, 0])
+        power = si[:, 4]
+        p0 = float(power[0]) if power.size else 2.0
+        self.int_power = (int(p0) if power.size and (power == p0).all()
+                          and p0 == int(p0) and 1 <= p0 <= 4 else None)
+        self.power = t(power)
+
+    def _pow(self, v):
+        if self.int_power is None:
+            return v ** self.power
+        r = v
+        for _ in range(self.int_power - 1):
+            r = r * v
+        return r
+
+    def __call__(self, pen: torch.Tensor) -> torch.Tensor:
+        x = torch.clamp(pen / self.width, 0.0, 1.0)
+        lo = self.mid * self._pow(x / self.mid)
+        hi = 1.0 - (1.0 - self.mid) * self._pow((1.0 - x) / (1.0 - self.mid))
+        return self.d0 + torch.where(x < self.mid, lo, hi) * self.span
+
+
+def solref_kb(solref, solimp):
+    """Static per-row (k_base, b) numpy arrays from solref/solimp:
+    aref = -b*vn + d(r)*k_base*pen (positive-solref convention only)."""
+    sr = np.asarray(solref, dtype=np.float64).reshape(-1, 2)
+    dmax = np.asarray(solimp, dtype=np.float64).reshape(-1, 5)[:, 1]
+    tau, zeta = sr[:, 0], sr[:, 1]
+    if not (tau > 0).all():
+        raise NotImplementedError("direct (negative) solref is not supported")
+    return 1.0 / (dmax * dmax * tau * tau * zeta * zeta), 2.0 / (dmax * tau)
+
+
+def _self_pair_static(model: PhysicsModel):
+    """Static numpy arrays of every sphere/capsule self pair (spheres are
+    segments of half-length 0), or None when there is none."""
+    ok_types = (GEOM_SPHERE, GEOM_CAPSULE)
+    idx = []
+    for k, pair in enumerate(model.contact_pairs):
+        g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
+        if g1.gtype == GEOM_PLANE or g2.gtype == GEOM_PLANE:
+            continue
+        if g1.gtype not in ok_types or g2.gtype not in ok_types:
+            raise NotImplementedError(
+                f"self pair of geom types {g1.gtype}/{g2.gtype} (ROADMAP A8)")
+        if GEOM_CYLINDER in (g1.gtype_orig, g2.gtype_orig):
+            raise NotImplementedError("cylinder self pairs (ROADMAP A8)")
+        idx.append(k)
+    if not idx:
+        return None
+
+    def geom_arrs(which):
+        gs = [model.geoms[getattr(model.contact_pairs[k], which)] for k in idx]
+        return (np.array([g.bodyid for g in gs]), np.stack([g.pos for g in gs]),
+                np.stack([g.quat for g in gs]), np.array([g.size[0] for g in gs]),
+                np.array([g.size[1] if g.gtype == GEOM_CAPSULE else 0.0 for g in gs]),
+                np.array([g.gtype == GEOM_CAPSULE for g in gs]))
+
+    b1, pos1, quat1, r1, h1, iscap1 = geom_arrs("geom1")
+    b2, pos2, quat2, r2, h2, iscap2 = geom_arrs("geom2")
+    prs = [model.contact_pairs[k] for k in idx]
+    return dict(
+        b1=b1, b2=b2, pos1=pos1, quat1=quat1, r1=r1, h1=h1, iscap1=iscap1,
+        pos2=pos2, quat2=quat2, r2=r2, h2=h2, iscap2=iscap2,
+        mu=np.array([p.mu if p.condim > 1 else 0.0 for p in prs]),
+        invw=np.array([p.invw0 for p in prs]),
+        solref=np.stack([p.solref for p in prs]), solimp=np.stack([p.solimp for p in prs]),
+        capcap=iscap1 & iscap2, margin=np.array([p.margin for p in prs]),
+        condim=np.array([p.condim for p in prs], dtype=np.int64),
+        friction5=np.stack([_friction5(p) for p in prs]))
+
+
+def _friction5(pair) -> np.ndarray:
+    return (np.asarray(pair.friction5, dtype=np.float64) if pair.friction5 is not None
+            else np.array([pair.mu, pair.mu, 0.005, 1e-4, 1e-4]))
+
+
+class ContactTables:
+    """The static half of collect_contact_rows for one model, on the device:
+    the plane rows in the JAX order (pair by pair; a capsule's -axis end
+    first) and the self-pair candidates."""
+
+    def __init__(self, model: PhysicsModel, device, dtype):
+        t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+        ix = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+        rows = []       # (geom2 index, plane geom index, sign, pair)
+        for pair in model.contact_pairs:
+            g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
+            if g1.gtype != GEOM_PLANE:
+                continue
+            if g2.gtype == GEOM_SPHERE:
+                rows.append((pair.geom2, pair.geom1, 0.0, pair))
+            elif g2.gtype == GEOM_CAPSULE and g2.gtype_orig != GEOM_CYLINDER:
+                rows += [(pair.geom2, pair.geom1, s, pair) for s in (-1.0, 1.0)]
+            else:
+                raise NotImplementedError(
+                    f"plane vs geom type {g2.gtype_orig} (ROADMAP A8)")
+        self.n_plane = len(rows)
+        # the geoms whose world frames a step needs, each once
+        geoms = sorted({r[0] for r in rows} | {r[1] for r in rows})
+        slot = {g: i for i, g in enumerate(geoms)}
+        gs = [model.geoms[g] for g in geoms]
+        self.geom_body = ix([g.bodyid for g in gs])
+        self.geom_pos = t([g.pos for g in gs])
+        self.geom_rot = sp.quat_to_mat(t([g.quat for g in gs])) if gs else None
+        if rows:
+            g2s = [model.geoms[r[0]] for r in rows]
+            pairs = [r[3] for r in rows]
+            self.row_geom = ix([slot[r[0]] for r in rows])
+            self.row_plane = ix([slot[r[1]] for r in rows])
+            self.row_shl = t([r[2] * g.size[1] if g.gtype == GEOM_CAPSULE else 0.0
+                              for r, g in zip(rows, g2s)])
+            self.row_radius = t([g.size[0] for g in g2s])
+            self.row_capsule = ix([g.gtype == GEOM_CAPSULE for g in g2s]).bool()
+            bid = np.array([g.bodyid for g in g2s])
+            oid = np.array([model.geoms[r[1]].bodyid for r in rows])
+            self.row_body, self.row_other = ix(bid), ix(oid)
+            self.row_arel = t(model.ancestor_mask[bid] - model.ancestor_mask[oid])
+            self.mu_plane_static = np.array([p.mu if p.condim > 1 else 0.0 for p in pairs])
+            self.condim_plane = np.array([p.condim for p in pairs], dtype=np.int64)
+            kb, br = solref_kb([p.solref for p in pairs], [p.solimp for p in pairs])
+            self.plane = dict(mu=t(self.mu_plane_static), k_base=t(kb), b_ref=t(br),
+                              invw=t([p.invw0 for p in pairs]),
+                              fri5=t(np.stack([_friction5(p) for p in pairs])))
+            self.row_margin = t([p.margin for p in pairs])
+            self.plane_imp = Impedance([p.solimp for p in pairs], device, dtype)
+        else:
+            self.mu_plane_static = np.zeros(0)
+            self.condim_plane = np.zeros(0, dtype=np.int64)
+        self.ex, self.ey, self.ez = t(np.eye(3)[0]), t(np.eye(3)[1]), t(np.eye(3)[2])
+        st = _self_pair_static(model)
+        self.n_self = 0 if st is None else min(SELF_TOPK, st["b1"].shape[0])
+        self.condim_self_max = 1
+        if st is not None:
+            self.condim_self_max = int(st["condim"].max())
+            kb, br = solref_kb(st["solref"], st["solimp"])
+            self.s = {k: t(st[k]) for k in ("pos1", "quat1", "pos2", "quat2", "h1", "h2",
+                                              "r1", "r2", "margin", "mu", "invw",
+                                              "friction5")}
+            self.s.update(b1=ix(st["b1"]), b2=ix(st["b2"]), k_base=t(kb), b_ref=t(br),
+                          rr=t(st["r1"] + st["r2"]),
+                          capcap=torch.as_tensor(st["capcap"], device=device)[:, None])
+            self.self_imp = Impedance(st["solimp"], device, dtype)
+        self.A = t(model.ancestor_mask)
+        self.elliptic = int(model.cone) == 1
+
+
+def _make_frame_tangent(ct: ContactTables, n: torch.Tensor) -> torch.Tensor:
+    """mju_makeFrame tangent: t1 = normalize(n x e_x), e_y when n ~ e_x."""
+    c1 = sp.cross(n, ct.ex)
+    c2 = sp.cross(n, ct.ey)
+    use1 = (torch.linalg.vector_norm(c1, dim=-1) > 1e-8)[..., None]
+    t = torch.where(use1, c1, c2)
+    return t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+
+
+def geom_world(ct: ContactTables, state):
+    """World position (G, 3) and rotation (G, 3, 3) of the tables' geoms."""
+    R_b = sp.quat_to_mat(state.xquat[ct.geom_body])
+    pos = state.xpos[ct.geom_body] + torch.einsum("gij,gj->gi", R_b, ct.geom_pos)
+    return pos, R_b @ ct.geom_rot
+
+
+def _jacobian_rows(ct, S, p, Arel, n, t1, t2, elliptic):
+    """Contact-frame rows of the relative point jacobian at points p."""
+    S_ang, S_lin = S[:, :3], S[:, 3:]
+    Jp = (S_lin[None] + sp.cross(S_ang[None, :, :], p[:, None, :])) * Arel[:, :, None]
+    out = dict(JpN=torch.sum(Jp * n[:, None, :], -1), Jt1=torch.sum(Jp * t1[:, None, :], -1),
+               Jt2=torch.sum(Jp * t2[:, None, :], -1))
+    if elliptic:
+        # angular rows for condim >= 4 torsional/rolling friction
+        Jw = S_ang[None] * Arel[:, :, None]
+        out.update(JwN=torch.sum(Jw * n[:, None, :], -1), Jwt1=torch.sum(Jw * t1[:, None, :], -1),
+                   Jwt2=torch.sum(Jw * t2[:, None, :], -1))
+    return out
+
+
+def _plane_rows(ct: ContactTables, state, S):
+    gpos, gR = geom_world(ct, state)
+    p_pos, n = gpos[ct.row_plane], gR[ct.row_plane][:, :, 2]
+    g_pos, axis = gpos[ct.row_geom], gR[ct.row_geom][:, :, 2]
+    r = ct.row_radius
+    c_end = g_pos + ct.row_shl[:, None] * axis
+    phi = torch.sum(n * (c_end - p_pos), -1) - r
+    # contact position midway between the surfaces (MuJoCo contact.pos)
+    p = c_end - n * (r + 0.5 * phi)[:, None]
+    # capsule frame: t1 = the axis projected onto the plane (makeFrame when
+    # the capsule stands perpendicular); sphere frame: makeFrame
+    mft = _make_frame_tangent(ct, n)
+    proj = axis - torch.sum(axis * n, -1, keepdim=True) * n
+    pn = torch.linalg.vector_norm(proj, dim=-1)
+    t_cap = torch.where((pn > 1e-8)[:, None], proj / torch.clamp(pn, min=1e-30)[:, None], mft)
+    t1 = torch.where(ct.row_capsule[:, None], t_cap, mft)
+    t2 = sp.cross(n, t1)
+    V, Vo = state.body_vel[ct.row_body], state.body_vel[ct.row_other]
+    v_pt = V[:, 3:] + sp.cross(V[:, :3], p) - Vo[:, 3:] - sp.cross(Vo[:, :3], p)
+    pen = torch.clamp(ct.row_margin - phi, min=0.0)
+    rows = dict(pen=pen, active=(phi < ct.row_margin).to(phi.dtype),
+                vn=torch.sum(n * v_pt, -1), vt1=torch.sum(t1 * v_pt, -1),
+                vt2=torch.sum(t2 * v_pt, -1), d_r=ct.plane_imp(pen), **ct.plane)
+    rows.update(_jacobian_rows(ct, S, p, ct.row_arel, n, t1, t2, ct.elliptic))
+    return rows
+
+
+def _self_rows(ct: ContactTables, state, S):
+    """The SELF_TOPK deepest self-contact rows: clamped segment-segment
+    closest points (two refinement passes), contact frame by the MuJoCo
+    conventions (capsule-capsule t1 = normalize(n x axis2), otherwise
+    Gram-Schmidt of world z against n), relative point jacobians."""
+    s = ct.s
+
+    def world(bids, lpos, lquat):
+        xq, xp = state.xquat[bids], state.xpos[bids]
+        q = sp.quat_mul(xq, lquat)
+        return xp + sp.quat_rotate(xq, lpos), sp.quat_rotate(q, ct.ez.expand(bids.shape[0], 3))
+
+    p1, u1 = world(s["b1"], s["pos1"], s["quat1"])
+    p2, u2 = world(s["b2"], s["pos2"], s["quat2"])
+    hh1, hh2 = s["h1"], s["h2"]
+    d12 = p2 - p1
+    bb = torch.sum(u1 * u2, -1)
+    dd = torch.sum(u1 * d12, -1)
+    ee = torch.sum(u2 * d12, -1)
+    den = torch.clamp(1.0 - bb * bb, min=1e-12)
+    sc = torch.clamp((dd - bb * ee) / den, -hh1, hh1)
+    tc = torch.clamp(torch.sum(u2 * (p1 + sc[:, None] * u1 - p2), -1), -hh2, hh2)
+    sc = torch.clamp(torch.sum(u1 * (p2 + tc[:, None] * u2 - p1), -1), -hh1, hh1)
+    tc = torch.clamp(torch.sum(u2 * (p1 + sc[:, None] * u1 - p2), -1), -hh2, hh2)
+    c1 = p1 + sc[:, None] * u1
+    c2 = p2 + tc[:, None] * u2
+    dvec = c2 - c1
+    dist = torch.sqrt(torch.sum(dvec * dvec, -1) + 1e-24)
+    n = dvec / dist[:, None]                                  # geom1 -> geom2
+    phi = dist - s["rr"]
+    pos = c1 + n * (s["r1"] + 0.5 * phi)[:, None]
+    gs_z = ct.ez - n[:, 2:3] * n
+    gs_y = ct.ey - n[:, 1:2] * n
+    gs = torch.where((torch.linalg.vector_norm(gs_z, dim=-1) > 1e-6)[:, None], gs_z, gs_y)
+    gs = gs / torch.linalg.vector_norm(gs, dim=-1, keepdim=True)
+    cx = sp.cross(n, u2)
+    cx = torch.where((torch.linalg.vector_norm(cx, dim=-1) > 1e-8)[:, None], cx, gs)
+    cx = cx / torch.linalg.vector_norm(cx, dim=-1, keepdim=True)
+    t1 = torch.where(s["capcap"], cx, gs)
+    # a row activates when dist < margin; its spring position counts from
+    # the margin surface (mjContact.includemargin with gap 0)
+    marg = s["margin"]
+    pen_all = torch.clamp(marg - phi, min=0.0)
+    d_r_all = ct.self_imp(pen_all)
+    # jax.lax.top_k: the largest first, the lower index first among equals
+    sel = torch.sort(pen_all, descending=True, stable=True).indices[:ct.n_self]
+    n_k, t1_k, pos_k = n[sel], t1[sel], pos[sel]
+    t2_k = sp.cross(n_k, t1_k)
+    bid1, bid2 = s["b1"][sel], s["b2"][sel]
+    V1, V2 = state.body_vel[bid1], state.body_vel[bid2]
+    v_rel = (V2[:, 3:] + sp.cross(V2[:, :3], pos_k) - V1[:, 3:] - sp.cross(V1[:, :3], pos_k))
+    rows = dict(pen=pen_all[sel], active=(phi[sel] < marg[sel]).to(phi.dtype),
+                vn=torch.sum(n_k * v_rel, -1), vt1=torch.sum(t1_k * v_rel, -1),
+                vt2=torch.sum(t2_k * v_rel, -1), d_r=d_r_all[sel],
+                mu=s["mu"][sel], k_base=s["k_base"][sel], b_ref=s["b_ref"][sel],
+                invw=s["invw"][sel], fri5=s["friction5"][sel])
+    Arel = ct.A[bid2] - ct.A[bid1]
+    rows.update(_jacobian_rows(ct, S, pos_k, Arel, n_k, t1_k, t2_k, ct.elliptic))
+    return rows
+
+
+ROW_FIELDS = ("pen", "active", "vn", "vt1", "vt2", "d_r", "mu", "k_base", "b_ref", "invw",
+              "fri5", "JpN", "Jt1", "Jt2", "JwN", "Jwt1", "Jwt2")
+
+
+def collect_contact_rows(ct: ContactTables, state, S: torch.Tensor):
+    """All contact rows of the state, plane rows first, then the SELF_TOPK
+    self rows: a dict of (P, ...) tensors (the fields of ROW_FIELDS that the
+    model's cone needs), or None when the model has no contact pair."""
+    blocks = []
+    if ct.n_plane:
+        blocks.append(_plane_rows(ct, state, S))
+    if ct.n_self:
+        blocks.append(_self_rows(ct, state, S))
+    if not blocks:
+        return None
+    return {k: torch.cat([b[k] for b in blocks], 0) for k in ROW_FIELDS if k in blocks[0]}

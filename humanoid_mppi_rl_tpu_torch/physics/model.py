@@ -6,8 +6,12 @@ by `export_model_arrays`, and committed as a snapshot (assets/*.json) that
 `load_model` reads. A test regenerates the snapshot from the MJCF so it
 cannot go stale.
 
-Only the fields that the scalar step (ops/scalar_physics) and the kernel
-costs read are carried. Features the port does not cover yet (ball joints'
+Two snapshots are kept. assets/humanoid.json, the planner's model, carries
+the fields that the scalar step (ops/scalar_physics) and the kernel costs
+read. assets/humanoid_plant.json, the environment plant (built with the
+body-body pairs, envs/tasks.load_plant), also carries what the array engine,
+its contacts and its Newton solver read (`export_model_arrays(m,
+plant=True)`). Features the port does not cover yet (ball joints'
 springs/limits, spatial tendons, mesh geoms, multi-dof / tendon / site
 actuator transmissions) are refused by the export rather than dropped.
 """
@@ -87,6 +91,10 @@ class ContactPair:
     condim: int
     margin: float
     m_eff: float          # normal effective inertia at qpos0
+    # plant snapshots only: the summed translational invweight0 of the two
+    # bodies (the Newton rows' regularizer base) and mjContact.friction
+    invw0: float = 1.0
+    friction5: np.ndarray = None  # (5,) slide, slide, torsion, roll, roll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +132,21 @@ class PhysicsModel:
     qpos0: np.ndarray                         # (nq,)
     hs_dofadr: np.ndarray                     # (nhs,) single-dof joint dofs
     hs_limit_meff: np.ndarray                 # (nhs,) limit effective inertia
+    # plant snapshots only (None in the planner's): what the array engine,
+    # contacts and Newton solver read beyond the scalar step
+    pred_mask: np.ndarray = None              # (nv, nv) Sdot predecessor mask
+    sdot_zero: np.ndarray = None              # (nv,) 1.0 where Sdot == 0
+    hs_qposadr: np.ndarray = None             # (nhs,) single-dof joint qpos
+    free_qposadr: np.ndarray = None           # (nfree,)
+    free_dofadr: np.ndarray = None            # (nfree,)
+    free_bodyid: np.ndarray = None            # (nfree,)
+    hs_limit_invw0: np.ndarray = None         # (nhs,) mj dof_invweight0
+    tendon_invweight0: np.ndarray = None      # (ntendon,)
+    dof_invweight0: np.ndarray = None         # (nv,)
+    dof_solref: np.ndarray = None             # (nv, 2) friction-row solref
+    dof_solimp: np.ndarray = None             # (nv, 5)
+    cone: int = 0                             # 0 pyramidal, 1 elliptic
+    impratio: float = 1.0
 
     def body_id(self, name: str) -> int:
         return self.body_names.index(name)
@@ -149,6 +172,13 @@ _MODEL_ARRAYS = ("gravity", "body_parent", "body_pos", "body_quat",
                  "tendon_limit_solimp", "tendon_limit_meff", "qpos0",
                  "hs_dofadr", "hs_limit_meff")
 _MODEL_SCALARS = ("nq", "nv", "nu", "nbody", "timestep")
+_PLANT_ARRAYS = ("pred_mask", "sdot_zero", "hs_qposadr", "free_qposadr",
+                 "free_dofadr", "free_bodyid", "hs_limit_invw0",
+                 "tendon_invweight0", "dof_invweight0", "dof_solref",
+                 "dof_solimp")
+_PLANT_PAIR_FIELDS = ("invw0", "friction5")
+_PLANT_SCALARS = ("cone", "impratio")
+_INT_ARRAYS = ("hs_qposadr", "free_qposadr", "free_dofadr", "free_bodyid")
 
 
 def _refuse_unsupported(m) -> None:
@@ -171,19 +201,24 @@ def _refuse_unsupported(m) -> None:
             "the port cannot carry: " + ", ".join(bad))
 
 
-def export_model_arrays(m) -> Dict[str, object]:
+def export_model_arrays(m, plant: bool = False) -> Dict[str, object]:
     """Flatten a PhysicsModel (duck-typed: attributes are read, nothing is
-    imported) into a dict of numpy arrays, ints, floats and name lists."""
+    imported) into a dict of numpy arrays, ints, floats and name lists.
+    plant=True adds the fields of the array engine (_PLANT_*)."""
     _refuse_unsupported(m)
     d: Dict[str, object] = {k: (int(getattr(m, k)) if k != "timestep"
                                 else float(m.timestep)) for k in _MODEL_SCALARS}
-    for k in _MODEL_ARRAYS:
+    arrays = _MODEL_ARRAYS + (_PLANT_ARRAYS if plant else ())
+    for k in arrays:
         d[k] = np.asarray(getattr(m, k))
+    if plant:
+        d["cone"], d["impratio"] = int(m.cone), float(m.impratio)
     d["body_names"] = [str(n) for n in m.body_names]
+    pair_fields = _PAIR_FIELDS + (_PLANT_PAIR_FIELDS if plant else ())
     for prefix, objs, fields in (("jnt_", m.joints, _JOINT_FIELDS),
                                  ("act_", m.actuators, _ACT_FIELDS),
                                  ("geom_", m.geoms, _GEOM_FIELDS),
-                                 ("pair_", m.contact_pairs, _PAIR_FIELDS)):
+                                 ("pair_", m.contact_pairs, pair_fields)):
         for f in fields:
             d[prefix + f] = np.asarray([np.asarray(getattr(o, f)) for o in objs])
     return d
@@ -192,8 +227,10 @@ def export_model_arrays(m) -> Dict[str, object]:
 def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
     """Inverse of export_model_arrays (also accepts the JSON snapshot's
     nested lists)."""
+    scalars = _MODEL_SCALARS + _PLANT_SCALARS
     a = {k: np.asarray(v) for k, v in d.items()
-         if k not in _MODEL_SCALARS and k != "body_names"}
+         if k not in scalars and k != "body_names"}
+    plant = "pred_mask" in d
 
     def objs(cls, prefix, fields, n):
         out = []
@@ -209,12 +246,22 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
     joints = objs(Joint, "jnt_", _JOINT_FIELDS, len(a["jnt_jtype"]))
     acts = objs(Actuator, "act_", _ACT_FIELDS, len(a["act_dofadr"]))
     geoms = objs(Geom, "geom_", _GEOM_FIELDS, len(a["geom_gtype"]))
-    pairs = objs(ContactPair, "pair_", _PAIR_FIELDS, len(a["pair_geom1"]))
+    pairs = objs(ContactPair, "pair_", _PAIR_FIELDS + (_PLANT_PAIR_FIELDS if plant else ()),
+                 len(a["pair_geom1"]))
     body_joints = [[] for _ in range(nbody)]
     for i, j in enumerate(joints):
         body_joints[j.bodyid].append(i)
     nv = int(d["nv"])
     ntendon = a["tendon_coef"].reshape(-1, nv).shape[0]
+    extra = {}
+    if plant:
+        for k in _PLANT_ARRAYS:
+            extra[k] = a[k].astype(np.int64 if k in _INT_ARRAYS else np.float64)
+        extra["pred_mask"] = extra["pred_mask"].reshape(nv, nv)
+        extra["tendon_invweight0"] = extra["tendon_invweight0"].reshape(ntendon)
+        extra["dof_solref"] = extra["dof_solref"].reshape(nv, 2)
+        extra["dof_solimp"] = extra["dof_solimp"].reshape(nv, 5)
+        extra["cone"], extra["impratio"] = int(d["cone"]), float(d["impratio"])
     return PhysicsModel(
         nq=int(d["nq"]), nv=nv, nu=int(d["nu"]), nbody=nbody,
         timestep=float(d["timestep"]),
@@ -247,6 +294,7 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
         qpos0=a["qpos0"].astype(np.float64),
         hs_dofadr=a["hs_dofadr"].astype(np.int64),
         hs_limit_meff=a["hs_limit_meff"].astype(np.float64),
+        **extra,
     )
 
 

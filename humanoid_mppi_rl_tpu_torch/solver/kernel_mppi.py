@@ -45,8 +45,9 @@ def make_kernel_mppi(
     def plan(mppi_state: MPPIState, plant: PhysicsState, params=None, noise=None):
         U = mppi_state.U
         dtype, udev = U.dtype, U.device
-        sigma = torch.tensor(cfg.sigma, dtype=dtype, device=udev)
-        temperature = torch.tensor(cfg.temperature, dtype=dtype, device=udev)
+        # filled on the device: a host tensor copied over would wait for it
+        sigma = torch.full((), cfg.sigma, dtype=dtype, device=udev)
+        temperature = torch.full((), cfg.temperature, dtype=dtype, device=udev)
         if params is not None:
             # runtime solver scales (kernel_costs.PARAM_SLOTS 11/12):
             # zero-padded params leave sigma/temperature at the config values

@@ -1,0 +1,31 @@
+"""Structured metrics: a JSONL event stream (utils/metrics.py counterpart,
+the part the collection loop uses)."""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+
+class JSONLWriter:
+    """Appends one JSON object per `write` to `path`; with path None it
+    writes nothing."""
+
+    def __init__(self, path: Optional[str]):
+        self.path = path
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._f = open(path, "a", buffering=1)
+        else:
+            self._f = None
+
+    def write(self, **event) -> None:
+        event.setdefault("t", time.time())
+        if self._f:
+            self._f.write(json.dumps(event) + "\n")
+
+    def close(self) -> None:
+        if self._f:
+            self._f.close()

@@ -1,5 +1,6 @@
 """PyTorch port: the CUDA kernels (rollout, estimator) against their plain
-PyTorch versions, on the card. Skips without one.
+PyTorch versions, and the coupled plant and collection loop, on the card.
+Skips without one.
 
 The card's machine has no jax, and tests/conftest.py imports it, so run
 this file there without the conftest and without the xdist options:
@@ -12,11 +13,15 @@ import torch
 
 import numpy as np
 
-from chip_smoke import bf16_errors, exact_stage_cases, seeded_inputs, seeded_weights
+from chip_smoke import (bf16_errors, exact_stage_cases, plant_state, seeded_inputs,
+                        seeded_weights)
+from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
 from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
 from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
+from humanoid_mppi_rl_tpu_torch.physics.model import load_model
 
 
 @pytest.mark.cuda
@@ -181,3 +186,39 @@ def test_cuda_bf16_apply_refuses_tokens_past_the_attention_tile():
     with pytest.raises(ValueError, match="F=65"):
         ek.make_flash_feature_attention(module, torch.bfloat16)
     ek.make_flash_feature_attention(module, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["free_fall", "sunk", "self_contact"])
+def test_cuda_plant_step_matches_cpu(case):
+    """One coupled plant step on the card against the same step on the CPU
+    in f64: f64 to 1e-9; f32 at the f32 tolerances of
+    tests/test_torch_port_plant.py (qpos 1e-5, qvel 3e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    model = load_model("humanoid_plant")
+    qpos, qvel, ctrl = plant_state(model, case)
+    ref_eng = Engine(model, device="cpu", dtype=torch.float64)
+    ref = ref_eng.step(ref_eng.forward(torch.tensor(qpos), torch.tensor(qvel)), torch.tensor(ctrl))
+    for dtype, atol_q, atol_v in ((torch.float64, 1e-9, 1e-9), (torch.float32, 1e-5, 3e-3)):
+        eng = Engine(model, device="cuda", dtype=dtype)
+        card = lambda a: torch.tensor(a, dtype=dtype, device="cuda")
+        got = eng.step(eng.forward(card(qpos), card(qvel)), card(ctrl))
+        torch.testing.assert_close(got.qpos.cpu().double(), ref.qpos, rtol=0, atol=atol_q)
+        torch.testing.assert_close(got.qvel.cpu().double(), ref.qvel, rtol=0, atol=atol_v)
+
+
+@pytest.mark.cuda
+def test_cuda_episode_runner_runs():
+    """EpisodeRunner.run(max_steps=4) on the card at a small K: one rollout
+    kernel launch per control step, finite rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    runner = EpisodeRunner("humanoid_walk", use_kernel=True,
+                           mppi_override=dict(n_samples=256, horizon=8))
+    n0 = rk.launches
+    res = runner.run(max_steps=4, chunk=2)
+    states, actions, times = res.logger.arrays()
+    assert rk.launches == n0 + 4 and res.steps == 4
+    assert states.shape == (4, 55) and np.isfinite(states).all() and np.isfinite(actions).all()
+    assert np.isfinite(res.final_qpos).all() and res.sim_time == pytest.approx(0.02)

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from humanoid_mppi_rl_tpu.physics.model import build_from_mjcf
-from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner, collect_humanoid
+from humanoid_mppi_rl_tpu_torch.envs.tasks import load_plant, load_task
 from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 from humanoid_mppi_rl_tpu_torch.ops import kernel_costs
 from humanoid_mppi_rl_tpu_torch.ops.estimator_kernel import make_flash_feature_attention
@@ -78,6 +79,21 @@ st = MPPIState.seeded(0, cfg.T, 12, device="cpu")
 action, st, diag = plan(st, torch.zeros(37))
 assert action.shape == (12,) and bool(torch.isfinite(st.U).all())
 assert bool(torch.isfinite(diag.ess))
+import os, tempfile
+import numpy as np
+from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner, collect_humanoid
+from humanoid_mppi_rl_tpu_torch.utils.trajio import read_csv
+tiny = dict(n_samples=4, horizon=2)
+runner = EpisodeRunner("humanoid_walk", use_kernel=True, mppi_override=tiny, device="cpu")
+res = runner.run(max_steps=2, chunk=2)
+assert res.steps == 2 and np.isfinite(res.final_qpos).all() and len(res.logger) == 2
+out_dir = tempfile.mkdtemp()
+out = collect_humanoid(n_episodes=1, out_dir=out_dir, max_steps=1, goal_threshold=1e9,
+                       task_name="humanoid_walk", use_kernel=True, mppi_override=tiny,
+                       chunk=1, device="cpu")
+assert out[0]["goal"], out
+states = [os.path.join(d, f) for d, _, fs in os.walk(out_dir) for f in fs if "states" in f]
+assert read_csv(states[0]).shape == (1, 57)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
@@ -96,7 +112,8 @@ def test_port_runs_without_jax_mujoco_or_the_jax_package():
 
 @pytest.mark.parametrize("entry", ["load_task", "make_kernel_mppi",
                                    "build_rollout_kernel",
-                                   "make_flash_feature_attention"])
+                                   "make_flash_feature_attention",
+                                   "load_plant", "EpisodeRunner", "collect_humanoid"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -109,6 +126,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
             model, kernel_costs.humanoid, 4),
         "make_flash_feature_attention": lambda: make_flash_feature_attention(
             make_model("cartpole_attention")),
+        "load_plant": lambda: load_plant("humanoid_walk"),
+        "EpisodeRunner": lambda: EpisodeRunner("humanoid_walk", use_kernel=True),
+        "collect_humanoid": lambda: collect_humanoid(task_name="humanoid_walk",
+                                                     use_kernel=True, save=False),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
