@@ -48,6 +48,29 @@ Phases, one JSON line each (with its own `seconds`):
              step, every logged row finite, root height qpos[2] >= 0.7 over
              the 150 steps (scripts/dev_seed_evidence.py's fall rule), CSVs
              of 57 / 21 / 1 columns
+  check_go1 -- slice 6: the rollout kernel against its plain version on the
+             Go1 (go1.json: frictionloss, box corners, exact cylinder rims,
+             140 contact points), both costs -- quadruped (go1_collect's,
+             the goal and GAIT_TUNED in the params, the ctrlrange clamp) and
+             quadruped_jl (go1's, the +-10 clamp) -- on go1_inputs (seven
+             poses that switch on every new term, start times in [0, 24] s)
+             at K=256 and 253, T=4: the gates of `check`
+  main_go1 -- go1_collect at quad_pipeline's operating point (K=4096,
+             H=32, f32, GAIT_TUNED, goal (2, 0)): 2 warm-up and 20 timed
+             chained replans, one launch per replan, one profiled replan;
+             go1 (quadruped_jl) the same with 10 timed; the kernel alone at
+             K=4096 and 8192 (T=32) beside its bound from ops_per_rollout,
+             and the plain version at K=4096
+  main_quad_collect -- EpisodeRunner("go1_collect", use_kernel=True) at
+             K=4096, H=32 with GAIT_TUNED and goal (2, 0) on the Go1 plant
+             (go1_plant.json: 697 candidate pairs): 50 warm-up + 100 timed
+             control steps in chunks of 50; 20 steps split into plan and
+             plant ms (CUDA events, Newton iterations, active rows); the
+             device launches of one plant step; one plant step under
+             set_sync_debug_mode("error"); every logged row finite and the
+             trunk height >= 0.08 (the fall line) over the 150 steps; one
+             collect_quadruped run (goal tolerance opened to 1e9 so that its
+             gate saves) read back: 37 / 12 / 1 columns
   check_estimator -- the estimator kernel against its plain version on the
              card, seeded weights with nonzero biases and LayerNorm terms,
              presets quadruped/humanoid/cartpole_attention at B=64 and 61:
@@ -111,6 +134,13 @@ COLLECT_TASK = "humanoid_walk"
 COLLECT_WARMUP, COLLECT_TIMED, COLLECT_CHUNK = 50, 100, 50   # bench.py::_bench_collect
 COLLECT_SPLIT_STEPS = 20
 FALL_Z = 0.7   # scripts/dev_seed_evidence.py:53
+# the Go1 at scripts/quad_pipeline.py's operating point (collect_quadruped
+# with use_kernel=True, K=4096, H=32, GAIT_TUNED, goals at (2 + i mod 3, 0))
+GO1_K, GO1_H = 4096, 32
+GO1_GOAL = (2.0, 0.0)
+GO1_FALL_Z = 0.08   # collect_quadruped's fall line
+GO1_JL_TIMED = 10   # timed replans of the go1 (quadruped_jl) task
+GO1_TIME_K = (4096, 8192)   # the rollout kernel alone, T = GO1_H
 
 
 def emit(obj):
@@ -187,6 +217,64 @@ def seeded_inputs(model, K, T, dtype, seed=0, device="cuda"):
             as_t(U), as_t(noise))
 
 
+# Go1 poses for the rollout checks, one per sample class (k % 7): (trunk
+# height, roll, pitch, legs as (hip, thigh, calf) for all four or None for
+# the keyframe's). Each puts a new kernel term in play: "stand" the feet
+# 6 mm in; "margin" the feet 0.5 mm out, inside the 1 mm contact margin;
+# "belly" (legs folded) the trunk box corners, the lying trunk cylinders,
+# the capsules and the feet in; "tilted" the same rolled 0.3 and pitched
+# 0.2 rad (tilted cylinders); "pitch90" the trunk cylinders standing
+# clear of the floor, the hips' lying on it; "roll90" the hip cylinders
+# standing on the floor (standing exactly: the cylinder's x-axis branch of
+# the rim direction); "moving" the keyframe with fast leg joints (friction
+# loss).
+GO1_BELLY_LEGS = (0.0, 2.5, -2.8)
+GO1_POSES = (("stand", 0.282, 0.0, 0.0, None), ("margin", 0.2883, 0.0, 0.0, None),
+             ("belly", 0.05, 0.0, 0.0, GO1_BELLY_LEGS),
+             ("tilted", 0.106, 0.3, 0.2, GO1_BELLY_LEGS),
+             ("pitch90", 0.231, 0.0, np.pi / 2, None),
+             ("roll90", 0.129, np.pi / 2, 0.0, GO1_BELLY_LEGS),
+             ("moving", 0.27, 0.0, 0.0, None))
+
+
+def go1_states(model, K: int, seed: int = 0):
+    """qpos (nq, K), qvel (nv, K) numpy arrays: sample k in pose
+    GO1_POSES[k % 7], thigh and calf angles perturbed by N(0, 0.02) (hips
+    and trunk exact, so the standing cylinders stay exactly standing; the
+    "margin" legs exact, so all four feet stay inside the margin), joint
+    velocities N(0, 0.3) (N(0, 2) in "moving")."""
+    rng = np.random.default_rng(seed)
+    home = np.asarray(dict(model.keyframes)["home"], dtype=np.float64)
+    qpos = np.tile(home[:, None], (1, K))
+    qvel = rng.normal(0, 0.3, (model.nv, K))
+    for k in range(K):
+        name, z, roll, pitch, legs = GO1_POSES[k % len(GO1_POSES)]
+        qpos[2, k], qpos[3:7, k] = z, _quat_rp(roll, pitch)
+        if legs is not None:
+            qpos[7:, k] = np.tile(legs, 4)
+        noise = rng.normal(0, 0.02, (4, 2))
+        if name != "margin":
+            for leg in range(4):
+                qpos[8 + 3 * leg:10 + 3 * leg, k] += noise[leg]
+        if name == "moving":
+            qvel[6:, k] = rng.normal(0, 2.0, model.nv - 6)
+    return qpos, qvel
+
+
+def go1_inputs(model, K, T, dtype, seed=0, device="cuda", t_max=24.0):
+    """Rollout inputs on the Go1 poses of go1_states: start times drawn in
+    [0, t_max] s (24 s: a 12,000-step run), a plan near the keyframe's
+    joint targets and sigma-0.3 noise."""
+    qpos, qvel = go1_states(model, K, seed)
+    rng = np.random.default_rng(seed + 1)
+    home = np.asarray(dict(model.keyframes)["home"])[7:]
+    U = home[None, :] + rng.normal(0, 0.1, (T, model.nu))
+    noise = rng.normal(0, 0.3, (T, model.nu, K))
+    t0 = rng.uniform(0, t_max, (1, K))
+    as_t = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    return tuple(as_t(a) for a in (qpos, qvel, t0, U, noise))
+
+
 def plant_state(model, case: str, seed: int = 0):
     """(qpos, qvel, ctrl) numpy arrays of the humanoid plant from a seed:
     "free_fall" 0.5 m up, "sunk" 0.2 m into the floor (floor rows active),
@@ -205,6 +293,38 @@ def plant_state(model, case: str, seed: int = 0):
         qpos[8] = 0.37
         qpos[10:16] = qpos[16:22] = (-0.38, -0.13, -1.18, -1.79, 0.16, -0.46)
         qpos[22:25] = qpos[25:28] = (0.55, 0.71, -1.41)
+    else:
+        raise ValueError(case)
+    return qpos, rng.normal(0, 0.3, model.nv), rng.normal(0, 0.5, model.nu)
+
+
+# Go1 leg angles (FR, FL, RR, RL: hip, thigh, calf) in which three hip
+# cylinders and a calf touch other legs' geoms (no pair near parallel)
+GO1_SELF_CONTACT_LEGS = (0.498, 2.073, -1.852, 0.14, 2.187, -1.086, -0.859, 0.723, -1.821,
+                         0.104, -0.004, -2.818)
+
+
+def _quat_rp(roll: float, pitch: float) -> np.ndarray:
+    """Quaternion of a roll about x, then a pitch about y in the rolled frame."""
+    cr, sr, cp, sp_ = np.cos(roll / 2), np.sin(roll / 2), np.cos(pitch / 2), np.sin(pitch / 2)
+    return np.array([cr * cp, sr * cp, cr * sp_, sr * sp_])
+
+
+def go1_plant_state(model, case: str, seed: int = 0):
+    """(qpos, qvel, ctrl) numpy arrays of the Go1 plant from a seed, near
+    its `home` keyframe: "free_fall" 0.3 m up; "sunk" the trunk at 0.08 m,
+    rolled 0.3 and pitched 0.2 rad (trunk box corners, hip cylinder rims
+    and feet on the floor); "self_contact" the legs folded into
+    GO1_SELF_CONTACT_LEGS, 0.45 m up (cylinder self pairs penetrate)."""
+    rng = np.random.default_rng(seed)
+    qpos = np.asarray(dict(model.keyframes)["home"], dtype=np.float64).copy()
+    qpos[7:] += rng.normal(0, 0.05, 12)
+    if case == "free_fall":
+        qpos[2] += 0.3
+    elif case == "sunk":
+        qpos[2], qpos[3:7] = 0.08, _quat_rp(0.3, 0.2)
+    elif case == "self_contact":
+        qpos[2], qpos[7:] = 0.45, GO1_SELF_CONTACT_LEGS
     else:
         raise ValueError(case)
     return qpos, rng.normal(0, 0.3, model.nv), rng.normal(0, 0.5, model.nu)
@@ -465,12 +585,15 @@ def library_forward(module):
     return forward
 
 
-def ops_per_rollout(spec, model, T) -> int:
+def ops_per_rollout(model, cost_factory, cost_kwargs, T, inputs=None, ctrl_bounds=(None, None),
+                    params=None) -> int:
     """Scalar operations one sample's rollout needs: the plain version's
     arithmetic ops (0/1 constants already folded away), counted on the CPU
-    at T=1 and T=2 and extended linearly to T."""
+    at T=1 and T=2 on `inputs(model, K, T, dtype, device=...)` (default
+    seeded_inputs) and extended linearly to T."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    inputs = inputs or seeded_inputs
     not_arith = {"select", "view", "expand", "stack", "clone", "copy_", "_to_copy",
                  "zeros_like", "zeros", "empty", "slice", "unsqueeze", "alias",
                  "detach", "lift_fresh", "cat", "squeeze", "unbind", "full",
@@ -489,12 +612,14 @@ def ops_per_rollout(spec, model, T) -> int:
 
     def count(t):
         from humanoid_mppi_rl_tpu_torch.ops.rollout_kernel import build_rollout_kernel
-        ro = build_rollout_kernel(model, spec.cost_factory, t,
-                                  cost_kwargs=spec.cost_kwargs, device="cpu")
-        x = seeded_inputs(model, k, t, torch.float64, device="cpu")
+        ro = build_rollout_kernel(model, cost_factory, t, ctrl_low=ctrl_bounds[0],
+                                  ctrl_high=ctrl_bounds[1], cost_kwargs=cost_kwargs,
+                                  device="cpu")
+        x = inputs(model, k, t, torch.float64, device="cpu")
+        p = None if params is None else torch.tensor(params, dtype=torch.float64)
         Count.n = 0
         with Count():
-            ro(*x)
+            ro(*x, params=p)
         return Count.n
 
     n1, n2 = count(1), count(2)
@@ -513,7 +638,7 @@ def rollout_launch(lib, ro, x, samples_per_block=None, smem_bytes=None):
     """One launch of the rollout kernel of library `lib` (the port's, or its
     profiling build) on inputs x, at the wrapper's geometry unless given."""
     import ctypes
-    qpos0, qvel0, _, U, noise = x
+    qpos0, qvel0, time0, U, noise = x
     nq, K = qpos0.shape
     geo = ro.geometry[qpos0.dtype]
     params = torch.zeros(16, dtype=qpos0.dtype, device="cuda")
@@ -521,9 +646,10 @@ def rollout_launch(lib, ro, x, samples_per_block=None, smem_bytes=None):
             torch.empty_like(qvel0))
     fn = lib.hmr_rollout_f64 if qpos0.dtype == torch.float64 else lib.hmr_rollout_f32
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 9 + [cint, cint, ptr, cint, cint]
+    fn.argtypes = [ptr] * 10 + [cint, cint, ptr, cint, cint]
     rc = fn(ro.tables[qpos0.dtype].data_ptr(),
-            *[a.data_ptr() for a in (qpos0, qvel0, U, noise, params, *outs)], K, U.shape[0],
+            *[a.data_ptr() for a in (qpos0, qvel0, time0, U, noise, params, *outs)], K,
+            U.shape[0],
             torch.cuda.current_stream().cuda_stream,
             samples_per_block or geo["samples_per_block"], smem_bytes or geo["smem_bytes"])
     if rc:
@@ -531,17 +657,21 @@ def rollout_launch(lib, ro, x, samples_per_block=None, smem_bytes=None):
     return outs
 
 
-def check_rollout(model, cost_factory, cost_kwargs, params=None) -> dict:
+def check_rollout(model, cost_factory, cost_kwargs, params=None, inputs=None,
+                  ctrl_bounds=(None, None)) -> dict:
     """The rollout kernel against its plain version at K = CHECK_KS, T =
-    CHECK_T, seeded inputs, f64 to rtol=atol=1e-9, f32 cost relative error
-    median < 1e-3 and max < 1e-2, two launches bit-identical. Returns the
-    errors by dtype and K, and the launch geometry by dtype."""
+    CHECK_T, on `inputs(model, K, T, dtype, seed)` (default seeded_inputs),
+    f64 to rtol=atol=1e-9, f32 cost relative error median < 1e-3 and max
+    < 1e-2, two launches bit-identical. Returns the errors by dtype and K,
+    and the launch geometry by dtype."""
     from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
 
-    ro = rk.build_rollout_kernel(model, cost_factory, CHECK_T, cost_kwargs=cost_kwargs)
+    inputs = inputs or seeded_inputs
+    ro = rk.build_rollout_kernel(model, cost_factory, CHECK_T, ctrl_low=ctrl_bounds[0],
+                                 ctrl_high=ctrl_bounds[1], cost_kwargs=cost_kwargs)
     errs = {}
     for K, dtype in ((K, dt) for K in CHECK_KS for dt in (torch.float64, torch.float32)):
-        x = seeded_inputs(model, K, CHECK_T, dtype, seed=1)
+        x = inputs(model, K, CHECK_T, dtype, seed=1)
         p = None if params is None else torch.tensor(params, dtype=dtype, device="cuda")
         n0 = rk.launches
         ck, qk, vk = ro(*x, params=p)
@@ -770,7 +900,270 @@ def collect_phase() -> dict:
           "x_travelled_timed": float(timed.final_qpos[0] - runner.init_state.qpos[0]),
           "collect_episode": episode[0], "csv_columns": shapes,
           "seconds": time.perf_counter() - t0})
-    return {"launches_collect": path_launches, "collect_control_step_ms": wall / COLLECT_TIMED * 1e3}
+    return {"launches_collect": path_launches, "control_steps": executed,
+            "collect_control_step_ms": wall / COLLECT_TIMED * 1e3}
+
+
+def go1_replans(task: str, K: int, H: int, params, warmup: int, timed: int,
+                cost_kwargs=None) -> dict:
+    """`warmup` + `timed` chained replans of load_task(task) at K, H, f32
+    through make_kernel_mppi, from the task's initial state; one rollout
+    launch per replan asserted; then one replan under torch.profiler."""
+    from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+    from humanoid_mppi_rl_tpu_torch.solver.kernel_mppi import make_kernel_mppi
+    from humanoid_mppi_rl_tpu_torch.solver.mppi import MPPIState
+
+    spec, model, cfg, init = load_task(task)
+    cfg = dataclasses.replace(cfg, n_samples=K, horizon=H)
+    kw = dict(spec.cost_kwargs, **(cost_kwargs or {}))
+    plan = make_kernel_mppi(model, spec.cost_factory, cfg, kw)
+    p = None if params is None else torch.tensor(params, dtype=torch.float32, device="cuda")
+    ms = MPPIState.seeded(0, cfg.T, model.nu)
+    rk.launches = 0
+    times = []
+    for i in range(warmup + timed):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        action, ms, diag = plan(ms, init, params=p)
+        b.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(a.elapsed_time(b))
+    launches = rk.launches
+    if launches != warmup + timed:
+        raise AssertionError(f"{task}: {launches} kernel launches for {warmup + timed} replans")
+    for name, v in {"action": action, "U": ms.U, **dataclasses.asdict(diag)}.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{task}: non-finite {name}")
+    lo, hi = (torch.tensor(b, device="cuda") for b in (cfg.ctrl_low, cfg.ctrl_high))
+    if tuple(ms.U.shape) != (H, model.nu) or not ((action >= lo) & (action <= hi)).all():
+        raise AssertionError(f"{task}: plan shape {tuple(ms.U.shape)} or action out of bounds")
+    q1, q3 = np.percentile(times, [25, 75])
+    med = statistics.median(times)
+    prof = device_profile(lambda: plan(ms, init, params=p))
+    return {"task": task, "cost": spec.kernel_cost, "K": K, "H": H, "dtype": "float32",
+            "replans": timed, "launches": launches, "replan_ms_median": med,
+            "replan_ms_q1": float(q1), "replan_ms_q3": float(q3),
+            "replan_ms_min": min(times), "replan_ms_max": max(times),
+            "rollouts_per_s": K / (med / 1e3), "beta": float(diag.beta),
+            "ess": float(diag.ess), "profiled_replan": prof,
+            "plan": plan, "spec": spec, "model": model, "cfg": cfg, "cost_kwargs": kw}
+
+
+def go1_phases() -> dict:
+    """check_go1, main_go1 and main_quad_collect (see the module
+    docstring). Returns the Go1 numbers of the rollout kernel's entry of the
+    `kernels` line."""
+    from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
+    from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    params = np.zeros(16)
+    params[0:2] = GO1_GOAL
+    params[4:13] = GAIT_TUNED
+
+    # ---- check_go1: the kernel against its plain version, both costs -------
+    t0 = time.perf_counter()
+    errs = {}
+    for task, kw in (("go1_collect", dict(param_goal=True, param_gait=True)), ("go1", {})):
+        spec, model, cfg, _ = load_task(task, dtype=torch.float64)
+        e, geometry = check_rollout(model, spec.cost_factory, dict(spec.cost_kwargs, **kw),
+                                    params=params if kw else None, inputs=go1_inputs,
+                                    ctrl_bounds=(cfg.ctrl_low, cfg.ctrl_high))
+        errs[spec.kernel_cost] = e
+    emit({"phase": "check_go1", "kernel": "rollout", "K": list(CHECK_KS), "T": CHECK_T,
+          "tasks": {"quadruped": "go1_collect, param_goal + param_gait (GAIT_TUNED, goal "
+                                 f"{GO1_GOAL}), actuator ctrlrange clamp",
+                    "quadruped_jl": "go1, +-10 clamp"},
+          "inputs": "go1_inputs: poses " + ", ".join(p[0] for p in GO1_POSES)
+                    + "; t0 ~ U[0, 24] s",
+          "tolerance": {"float64": "rtol=atol=1e-9",
+                        "float32": "cost rel median<1e-3, max<1e-2",
+                        "repeat": "two launches bit-identical"},
+          "geometry": {str(dt).replace("torch.", ""): geo for dt, geo in geometry.items()},
+          "errors": errs, "seconds": time.perf_counter() - t0})
+
+    # ---- main_go1: the Go1 replans at quad_pipeline's operating point -------
+    t0 = time.perf_counter()
+    main = go1_replans("go1_collect", GO1_K, GO1_H, params, WARMUP, TIMED,
+                       cost_kwargs=dict(param_goal=True, param_gait=True))
+    jl = go1_replans("go1", GO1_K, GO1_H, None, WARMUP, GO1_JL_TIMED)
+    ro, model, spec, cfg = main["plan"].rollouts, main["model"], main["spec"], main["cfg"]
+    kw = main["cost_kwargs"]
+    # the kernel alone at the main path's shapes and at K=8192, beside its
+    # plain version and its bound (operations from ops_per_rollout)
+    p = torch.tensor(params, dtype=torch.float32, device="cuda")
+    timing = {}
+    n_rollout_ops = ops_per_rollout(model, spec.cost_factory, kw, GO1_H, inputs=go1_inputs,
+                                    ctrl_bounds=(cfg.ctrl_low, cfg.ctrl_high), params=params)
+    for K in GO1_TIME_K:
+        x = go1_inputs(model, K, GO1_H, torch.float32, seed=2)
+        ro(*x, params=p)
+        kernel_ms = cuda_ms(lambda: ro(*x, params=p), 5)
+        n_ops = K * n_rollout_ops
+        n_bytes = 4 * (K * (2 * model.nq + 2 * model.nv + 1)
+                       + GO1_H * model.nu * (K + 1) + rk.NP)
+        t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_OPS_PER_S * 1e3
+        timing[K] = {"kernel_ms": kernel_ms, "ops": n_ops, "bytes": n_bytes,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+        if K == GO1_K:
+            out = {}
+            timing[K]["plain_ms"] = cuda_ms(
+                lambda: out.setdefault("plain", ro.plain(*x, params=p)), 1)
+            ck, cp = ro(*x, params=p)[0].double(), out["plain"][0].double()
+            rel = (ck - cp).abs() / cp.abs()
+            timing[K]["kernel_vs_plain"] = {"cost_rel_median": float(rel.median()),
+                                            "cost_rel_max": float(rel.max()),
+                                            "cost_max_abs": float((ck - cp).abs().max())}
+            if not (torch.isfinite(ck).all() and float(rel.median()) < 1e-3):
+                raise AssertionError(f"go1 full-shape f32 kernel vs plain: {timing[K]}")
+        del x
+    torch.cuda.empty_cache()
+    strip = lambda r: {k: v for k, v in r.items()
+                       if k not in ("plan", "spec", "model", "cfg", "cost_kwargs")}
+    emit({"phase": "main_go1", "replan": strip(main), "replan_go1_jl": strip(jl),
+          "params": params.tolist(), "kernel_alone_T": GO1_H, "kernel_alone": timing,
+          "geometry": ro.geometry.get(torch.float32), "ops_per_rollout": n_rollout_ops,
+          "seconds": time.perf_counter() - t0})
+
+    collect = quad_collect_phase(params)
+    t = timing[GO1_K]
+    return {"ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "at": {"K": GO1_K, "T": GO1_H},
+            "ms_K8192": timing[8192]["kernel_ms"], "bound_ms_K8192": timing[8192]["bound_ms"],
+            "max_abs_err": max(e["cost_max_abs"] for c in errs.values()
+                               for k, e in c.items() if "float32" in k),
+            "max_abs_err_f64": max(e["cost_max_abs"] for c in errs.values()
+                                   for k, e in c.items() if "float64" in k),
+            "cost_rel_median_f32": max(e["cost_rel_median"] for c in errs.values()
+                                       for k, e in c.items() if "float32" in k),
+            "paths": {"go1_collect replan": {"launches": main["launches"],
+                                             "replans": WARMUP + TIMED},
+                      "go1 replan": {"launches": jl["launches"],
+                                     "replans": WARMUP + GO1_JL_TIMED},
+                      **collect}}
+
+
+def quad_collect_phase(params) -> dict:
+    """main_quad_collect (see the module docstring). Returns the launch
+    counts of the Go1 collection path."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner, collect_quadruped
+    from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+    from humanoid_mppi_rl_tpu_torch.utils.trajio import read_csv
+
+    t0 = time.perf_counter()
+    tiny = dict(n_samples=GO1_K, horizon=GO1_H)
+    runner = EpisodeRunner("go1_collect", use_kernel=True, mppi_override=tiny,
+                           cost_kwargs_override=dict(param_goal=True, param_gait=True))
+    cfg, model = runner.cfg, runner.model
+    rk.launches = 0
+    warm = runner.run(max_steps=COLLECT_WARMUP, chunk=COLLECT_CHUNK, params=params)
+    torch.cuda.synchronize()
+    warm_launches = rk.launches
+    t1 = time.perf_counter()
+    timed = runner.run(max_steps=COLLECT_TIMED, chunk=COLLECT_CHUNK, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    timed_launches = rk.launches - warm_launches
+    if (warm_launches, timed_launches) != (COLLECT_WARMUP, COLLECT_TIMED):
+        raise AssertionError(f"go1 rollout launches {warm_launches}/{timed_launches} for "
+                             f"{COLLECT_WARMUP}/{COLLECT_TIMED} control steps")
+    heights = []
+    for name, res, n in (("warm-up", warm, COLLECT_WARMUP), ("timed", timed, COLLECT_TIMED)):
+        states, actions, times = res.logger.arrays()
+        if states.shape != (n, 37) or actions.shape != (n, model.nu) or times.shape != (n,):
+            raise AssertionError(f"go1 {name}: logged {states.shape} {actions.shape} {times.shape}")
+        if not (np.isfinite(states).all() and np.isfinite(actions).all()
+                and np.isfinite(times).all() and np.isfinite(res.final_qpos).all()):
+            raise AssertionError(f"go1 {name}: non-finite logged rows")
+        heights.append(states[:, 2])
+    heights = np.concatenate(heights)
+    if heights.min() < GO1_FALL_Z:
+        raise AssertionError(f"the Go1 fell: trunk height {heights.min():.3f} < {GO1_FALL_Z}")
+
+    # control steps one at a time: plan and plant apart by CUDA events
+    ms = runner.fresh_controller(1)
+    plant = runner.init_state
+    p = torch.tensor(params, dtype=torch.float32, device="cuda")
+    plan_ms, plant_ms, step_ms, iters, active = [], [], [], [], []
+    for _ in range(COLLECT_SPLIT_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        h0 = time.perf_counter()
+        ev[0].record()
+        action, ms, _ = runner.plan(ms, plant, params=p)
+        ev[1].record()
+        info = {}
+        plant = runner.plant_dyn(plant, action, info=info)
+        ev[2].record()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - h0) * 1e3)
+        plan_ms.append(ev[0].elapsed_time(ev[1]))
+        plant_ms.append(ev[1].elapsed_time(ev[2]))
+        iters.append(int(info["iterations"]))
+        active.append(float(info["active_rows"]))
+    launches = device_launches(lambda: runner.plant_dyn(plant, action))
+    prof = device_profile(lambda: runner.control_step(ms, plant, p))
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nxt = runner.plant_dyn(plant, action)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    if not torch.isfinite(nxt.qpos).all():
+        raise AssertionError("non-finite Go1 plant step")
+
+    # one collect_quadruped run; the goal tolerance opened so that its gate saves
+    n0 = rk.launches
+    with tempfile.TemporaryDirectory() as out_base:
+        episode = collect_quadruped(n_runs=1, out_base=out_base, use_kernel=True,
+                                    mppi_override=tiny, max_steps=COLLECT_TIMED,
+                                    goal_tolerance=1e9, chunk=COLLECT_CHUNK,
+                                    gait_params=np.asarray(GAIT_TUNED, np.float32),
+                                    goal_for_run=lambda i: GO1_GOAL)
+        torch.cuda.synchronize()
+        shapes = {}
+        for f in sorted(os.listdir(os.path.join(out_base, "run_000"))):
+            a = read_csv(os.path.join(out_base, "run_000", f))
+            if not np.isfinite(a).all():
+                raise AssertionError(f"{f}: non-finite CSV values")
+            shapes[f.split(".")[0]] = a.reshape(a.shape[0], -1).shape[1]
+    collect_launches = rk.launches - n0
+    ep = episode[0]
+    if not (ep["goal"] and ep["steps_saved"] == 1 and ep["outcome"] == "goal"):
+        raise AssertionError(f"collect_quadruped: {episode}")
+    if shapes != {"states": 37, "actions": 12, "times": 1}:
+        raise AssertionError(f"go1 CSV columns {shapes}")
+    # a chunk always runs to its end: the goal at step 1 still ran COLLECT_CHUNK
+    if collect_launches != COLLECT_CHUNK:
+        raise AssertionError(f"collect_quadruped: {collect_launches} rollout launches "
+                             f"for {COLLECT_CHUNK} control steps")
+    emit({"phase": "main_quad_collect", "task": "go1_collect", "K": cfg.K, "H": cfg.T,
+          "dtype": "float32", "params": params.tolist(),
+          "steps": COLLECT_WARMUP + COLLECT_TIMED, "timed_steps": COLLECT_TIMED,
+          "steps_per_s": COLLECT_TIMED / wall, "control_step_ms": wall / COLLECT_TIMED * 1e3,
+          "rollout_launches_per_control_step": timed_launches / COLLECT_TIMED,
+          "split_steps": COLLECT_SPLIT_STEPS,
+          "plan_ms_median": statistics.median(plan_ms),
+          "plan_ms_q1_q3": [float(x) for x in np.percentile(plan_ms, [25, 75])],
+          "plant_ms_median": statistics.median(plant_ms),
+          "plant_ms_q1_q3": [float(x) for x in np.percentile(plant_ms, [25, 75])],
+          "control_step_host_ms_median": statistics.median(step_ms),
+          "plan_ms": plan_ms, "plant_ms": plant_ms,
+          "newton_iterations": iters, "newton_iterations_mean": float(np.mean(iters)),
+          "constraint_rows": info["rows"], "active_rows_mean": float(np.mean(active)),
+          "plant_step_device_launches": launches, "profiled_control_step": prof,
+          "plant_step_sync_free": True, "trunk_height_min": float(heights.min()),
+          "trunk_height_final": float(timed.final_qpos[2]),
+          "x_travelled_timed": float(timed.final_qpos[0] - runner.init_state.qpos[0]),
+          "collect_episode": episode[0], "csv_columns": shapes,
+          "seconds": time.perf_counter() - t0})
+    return {"go1_collect EpisodeRunner.run": {"launches": warm_launches + timed_launches,
+                                               "control_steps": COLLECT_WARMUP + COLLECT_TIMED},
+            "collect_quadruped": {"launches": collect_launches, "control_steps": COLLECT_CHUNK}}
 
 
 def estimator_phases() -> dict:
@@ -1077,7 +1470,7 @@ def main() -> int:
             "cost_max_abs": float((ck - cp).abs().max())}
     if not (torch.isfinite(ck).all() and full["cost_rel_median"] < 1e-3):
         raise AssertionError(f"full-shape f32 kernel vs plain: {full}")
-    n_ops = cfg.K * ops_per_rollout(spec, model, cfg.T)
+    n_ops = cfg.K * ops_per_rollout(model, spec.cost_factory, spec.cost_kwargs, cfg.T)
     n_bytes = 4 * (cfg.K * (2 * model.nq + 2 * model.nv + 1)
                    + cfg.T * model.nu * (cfg.K + 1) + rk.NP)
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_OPS_PER_S * 1e3
@@ -1100,6 +1493,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     collect = collect_phase()
+    go1 = go1_phases()
 
     est = estimator_phases()
     est["sass_hgmma"] = hgmma_of["estimator_kernel.cu"]
@@ -1110,7 +1504,14 @@ def main() -> int:
         "source": "humanoid_mppi_rl_tpu_torch/ops/csrc/rollout_kernel.cu",
         "replaces": "humanoid_mppi_rl_tpu/ops/rollout_kernel.py:86",
         "launches": main_launches,
-        **collect,
+        "robots": {"humanoid": ["humanoid"], "go1": ["quadruped", "quadruped_jl"]},
+        "paths": {"humanoid_bench replan": {"launches": main_launches,
+                                            "replans": WARMUP + TIMED},
+                  "humanoid_walk collect": {"launches": collect["launches_collect"],
+                                            "control_steps": collect["control_steps"]},
+                  **go1.pop("paths")},
+        "collect_control_step_ms": collect["collect_control_step_ms"],
+        "go1": go1,
         "max_abs_err": max(e["cost_max_abs"] for k, e in errs.items() if "float32" in k),
         "max_abs_err_f64": max(e["cost_max_abs"] for k, e in errs.items() if "float64" in k),
         "cost_rel_median_f32": max(e["cost_rel_median"] for k, e in errs.items()

@@ -1,4 +1,4 @@
-"""Receding-horizon episode loop and humanoid data collection
+"""Receding-horizon episode loop, humanoid and Go1 data collection
 (collect/runner.py counterpart).
 
 - `EpisodeRunner.run()`: plan with the CUDA rollout kernel
@@ -8,6 +8,9 @@
 - `collect_humanoid()`: the reference's src/Humanoid_datacollection_v2.jl:
   randomized pose and goal, goal-gated saving, 57-column states with the
   foot heights, episodes sharded across processes.
+- `collect_quadruped()`: the reference's src/quadruped_datacollection.py:
+  the Go1 goal ladder, fall abort, per-run save dirs of 37-column
+  [qpos; qvel] rows, only reached goals kept.
 
 Semantics kept from the JAX runner: a control step logs the state before
 it (with its time), plans, steps the plant, then evaluates goal_fn/fall_fn
@@ -300,4 +303,96 @@ def collect_humanoid(
             steps_executed=int(steps_executed), attempts=int(attempts),
             outcome=("goal" if res.goal_reached else
                      ("fell" if res.fell else ("stalled" if res.stalled else "cap")))))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Quadruped collection (reference src/quadruped_datacollection.py:207-260)
+# ---------------------------------------------------------------------------
+
+def _quad_goal_fn(goal_tolerance: float):
+    def goal_fn(qpos, params):
+        dist = torch.linalg.vector_norm(qpos[0:2] - params[0:2])
+        return (dist < goal_tolerance) | (qpos[0] >= params[0])
+    return goal_fn
+
+
+def _quad_fall_fn(fall_z: float):
+    def fall_fn(qpos, params):
+        return qpos[2] < fall_z
+    return fall_fn
+
+
+def collect_quadruped(
+    n_runs: int = 100,
+    out_base: str = "quad_data_goal",
+    seed: int = 0,
+    max_steps: int = 5000,
+    goal_tolerance: float = 0.5,
+    fall_z: float = 0.08,
+    save: bool = True,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    use_kernel: bool = False,
+    mppi_override: Optional[dict] = None,
+    metrics_path: Optional[str] = None,
+    chunk: int = 50,
+    stall_steps: Optional[int] = 1500,
+    stall_min_progress: float = 0.05,
+    gait_params: Optional[np.ndarray] = None,
+    goal_for_run: Optional[Callable] = None,
+    retries: int = 0,
+    device="cuda",
+    dtype=torch.float32,
+    noise_fn: Optional[Callable] = None,
+):
+    """Multi-goal Go1 collection: run i's goal at (i + 2, 0) (or
+    goal_for_run(i)), a fall below trunk z = fall_z ends the attempt, a
+    missed goal is retried `retries` times with a reseeded noise stream
+    (seed + i + attempt * 65537), and only reached goals are saved, each in
+    <out_base>/run_<i>/{states,actions,times}.csv. Run i goes to shard
+    i % num_shards. The goal rides in the runtime cost params (slots 0-1,
+    `param_goal=True`), so one runner serves every run; `gait_params`
+    (kernel_costs.quadruped's slots 4..12, e.g. costs.quadruped.GAIT_TUNED)
+    adds the gait deltas (`param_gait=True`). `chunk` and `noise_fn` are
+    EpisodeRunner.run's. Returns one dict per run: goal, steps_saved,
+    steps_executed (every logged step of every attempt), attempts and the
+    outcome ("goal", "fell", "stalled" or "cap")."""
+    results = []
+    kw = {"param_goal": True}
+    if gait_params is not None:
+        kw["param_gait"] = True
+    runner = None
+    for i in range(n_runs):
+        if i % num_shards != shard_index:
+            continue
+        goal_xy = (i + 2.0, 0.0) if goal_for_run is None else goal_for_run(i)
+        if runner is None:
+            runner = EpisodeRunner("go1_collect", cost_kwargs_override=kw,
+                                   use_kernel=use_kernel, mppi_override=mppi_override,
+                                   device=device, dtype=dtype)
+        params = np.asarray(goal_xy, np.float32)
+        if gait_params is not None:
+            params = np.concatenate([params, np.zeros(2, np.float32),
+                                     np.asarray(gait_params, np.float32)])
+        steps_executed = attempts = 0
+        fell = stalled = False
+        for attempt in range(retries + 1):
+            res = runner.run(max_steps=max_steps, seed=seed + i + attempt * 65537,
+                             goal_fn=_quad_goal_fn(goal_tolerance),
+                             fall_fn=_quad_fall_fn(fall_z), params=params, chunk=chunk,
+                             metrics_path=metrics_path, stall_steps=stall_steps,
+                             stall_min_progress=stall_min_progress, noise_fn=noise_fn)
+            steps_executed += res.steps
+            attempts += 1
+            fell, stalled = res.fell, res.stalled
+            if res.goal_reached:
+                break
+        if save and res.goal_reached:
+            res.logger.save_run_dir(os.path.join(out_base, f"run_{i:03d}"))
+        results.append(dict(
+            run=i, goal=bool(res.goal_reached), steps_saved=int(res.steps),
+            steps_executed=int(steps_executed), attempts=int(attempts),
+            outcome=("goal" if res.goal_reached else
+                     ("fell" if fell else ("stalled" if stalled else "cap")))))
     return results

@@ -1,8 +1,10 @@
-"""Task registry: the tasks whose kernel cost is `humanoid`
-(envs/tasks.py counterpart, same constants as envs/tasks.py:69-151), and
-their environment plant (`load_plant`).
+"""Task registry (envs/tasks.py counterpart): the tasks whose kernel cost
+the port carries -- the humanoid tasks (`humanoid`) and the Go1 tasks
+(`quadruped`, `quadruped_jl`) -- with the same constants as the JAX
+registry (envs/tasks.py:69-151), and their environment plant
+(`load_plant`).
 
-The remaining JAX tasks (cartpole, hopper, go1, arm5, humanoid_v1/hard/v2py)
+The remaining JAX tasks (cartpole, hopper, arm5, humanoid v1/hard/v2py)
 need kernel features and costs the port does not have yet (ROADMAP.md).
 """
 
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -34,18 +37,21 @@ class TaskSpec:
     mppi: MPPIConfig
     kernel_cost: str                   # ops.kernel_costs.KERNEL_COSTS key
     cost_kwargs: dict = dataclasses.field(default_factory=dict)
+    init_keyframe: Optional[str] = None     # None -> the model's qpos0
+    clamp_ctrl_to_range: bool = False       # clip to the actuator ctrlrange
+    ctrl_clamp_abs: Optional[float] = None  # clip to +-c (src/mppi.jl:93)
 
     @property
     def cost_factory(self):
         return kernel_costs.KERNEL_COSTS[self.kernel_cost]
 
 
-def _mk(name, K, T, lam, sigma, tail=0.1, cost_kwargs=None):
+def _mk(name, K, T, lam, sigma, tail=0.1, cost_kwargs=None, robot="humanoid",
+        kernel_cost="humanoid", **kw):
     cfg = MPPIConfig(n_samples=K, horizon=T, temperature=lam, sigma=sigma,
                      tail_decay=tail)
-    return TaskSpec(name=name, model="humanoid", plant="humanoid_plant", mppi=cfg,
-                    kernel_cost="humanoid",
-                    cost_kwargs=dict(cost_kwargs or {}))
+    return TaskSpec(name=name, model=robot, plant=f"{robot}_plant", mppi=cfg,
+                    kernel_cost=kernel_cost, cost_kwargs=dict(cost_kwargs or {}), **kw)
 
 
 TASKS = {
@@ -62,27 +68,45 @@ TASKS = {
                              w_swing_vel=0.20, target_vel=(0.5, 0.0))),
         # the benchmark scale of humanoid_collect (bench.py _bench_primary)
         _mk("humanoid_bench", K=8192, T=64, lam=1.0, sigma=0.5),
+        # reference src/mppi.jl:10-13 and src/quadruped_datacollection.py:24-27
+        _mk("go1", K=50, T=30, lam=0.2, sigma=0.3, tail=0.0, robot="go1",
+            kernel_cost="quadruped_jl", init_keyframe="home", ctrl_clamp_abs=10.0),
+        _mk("go1_collect", K=50, T=30, lam=0.2, sigma=0.3, tail=0.0, robot="go1",
+            kernel_cost="quadruped", init_keyframe="home", clamp_ctrl_to_range=True),
     ]
 }
 
 
 def load_task(name: str, device="cuda", dtype=torch.float32):
-    """(spec, model, cfg, init_state): init_state is the forward state of
-    (qpos0, zeros) at time 0 on `device` in `dtype`."""
+    """(spec, model, cfg, init_state): cfg carries the task's control bounds
+    (the actuator ctrlrange or +-ctrl_clamp_abs, each with clamp_plan, as
+    JAX load_task); init_state is the forward state of (the task's keyframe
+    or qpos0, zeros) at time 0 on `device` in `dtype`."""
     dev = resolve_device(device)
     spec = TASKS[name]
     model: PhysicsModel = load_model(spec.model)
+    cfg = spec.mppi
+    if spec.clamp_ctrl_to_range:
+        lo, hi = model.ctrl_range()
+        cfg = dataclasses.replace(cfg, ctrl_low=tuple(float(x) for x in lo),
+                                  ctrl_high=tuple(float(x) for x in hi), clamp_plan=True)
+    elif spec.ctrl_clamp_abs is not None:
+        c = float(spec.ctrl_clamp_abs)
+        cfg = dataclasses.replace(cfg, ctrl_low=(-c,) * model.nu, ctrl_high=(c,) * model.nu,
+                                  clamp_plan=True)
+    qpos0 = (model.qpos0 if spec.init_keyframe is None
+             else dict(model.keyframes)[spec.init_keyframe])
     init_state = Engine(model, dev, dtype).forward(
-        torch.as_tensor(model.qpos0, dtype=dtype, device=dev),
+        torch.as_tensor(qpos0, dtype=dtype, device=dev),
         torch.zeros(model.nv, dtype=dtype, device=dev))
-    return spec, model, spec.mppi, init_state
+    return spec, model, cfg, init_state
 
 
 def load_plant(name: str, init_state=None, device="cuda", dtype=torch.float32):
     """(plant_model, plant_dynamics): the environment plant of a task, the
     coupled constraint tier with body-body pairs (the planner's model has
     floor pairs only). `init_state` is the JAX signature's, for tasks with a
-    state wrapper; the humanoid tasks have none."""
+    state wrapper; the ported tasks have none."""
     spec = TASKS[name]
     plant_model = load_model(spec.plant)
     return plant_model, make_physics_dynamics(plant_model, solver="coupled",

@@ -13,7 +13,8 @@ int hmr_tables_size(int is_double) {
 }
 
 void hmr_rollout_host_f64(const void* tab, const double* qpos0, const double* qvel0,
-                          const double* U, const double* noise, const double* params,
+                          const double* time0, const double* U, const double* noise,
+                          const double* params,
                           double* cost, double* qpos_out, double* qvel_out, int K,
                           int horizon) {
   const auto& m = *static_cast<const hmr::Tables<double>*>(tab);
@@ -23,13 +24,13 @@ void hmr_rollout_host_f64(const void* tab, const double* qpos0, const double* qv
     double* w = ws.data();
     for (int i = 0; i < m.nq; ++i) w[m.off[hmr::WS_QPOS] + i] = qpos0[(size_t)i * K + k];
     for (int i = 0; i < m.nv; ++i) w[m.off[hmr::WS_QVEL] + i] = qvel0[(size_t)i * K + k];
+    w[m.off[hmr::WS_TIME]] = time0[k];
     hmr::begin(g, m, w);
-    double c = 0;
     for (int t = 0; t < horizon; ++t)
-      hmr::advance(g, m, w, U + (size_t)t * m.nu, noise + (size_t)t * m.nu * K + k, K,
-                   params, c);
-    hmr::terminal(g, m, w, params, c);
-    cost[k] = c;
+      hmr::advance(g, m, w, t, U + (size_t)t * m.nu, noise + (size_t)t * m.nu * K + k, K,
+                   params);
+    hmr::terminal(g, m, w, params);
+    cost[k] = w[m.off[hmr::WS_COST]];
     for (int i = 0; i < m.nq; ++i) qpos_out[(size_t)i * K + k] = w[m.off[hmr::WS_QPOS] + i];
     for (int i = 0; i < m.nv; ++i) qvel_out[(size_t)i * K + k] = w[m.off[hmr::WS_QVEL] + i];
   }

@@ -3,9 +3,12 @@
 // Replaces the TPU kernel ops/rollout_kernel.py::build_rollout_kernel of the
 // JAX package (the Pallas `kernel` launched by pl.pallas_call): every sample
 // runs all T horizon steps -- ctrl = clip(U[t] + noise[t]), the penalty-tier
-// physics step, FK, the running cost -- and then the terminal cost, with the
-// state kept on chip. Device memory sees only the initial state, the noise
-// stream, U, the 16 runtime parameters, and the outputs.
+// physics step, FK, the running cost at the step's end time -- and then the
+// terminal cost, with the state kept on chip. Device memory sees only the
+// initial state and start time, the noise stream, U, the 16 runtime
+// parameters, and the outputs. It carries the humanoid (humanoid cost) and
+// the Go1 (quadruped and quadruped_jl costs: frictionloss, box corners and
+// exact cylinder rims, a clock-driven trot phase).
 //
 // What bounds it: the work, not the bytes. The humanoid step is ~24k scalar
 // operations, so a replan at K=8192, T=64 is ~1.2e10 (0.185 ms at the f32
@@ -77,7 +80,7 @@ __device__ __forceinline__ void stage_noise(T* buf, const T* __restrict__ noise,
 template <typename T, int G>
 __global__ void __launch_bounds__(Bounds<T>::threads)
 rollout_kernel(const hmr::Tables<T>* __restrict__ tab, const T* __restrict__ qpos0,
-               const T* __restrict__ qvel0, const T* __restrict__ U,
+               const T* __restrict__ qvel0, const T* __restrict__ time0, const T* __restrict__ U,
                const T* __restrict__ noise, const T* __restrict__ params,
                T* __restrict__ cost, T* __restrict__ qpos_out,
                T* __restrict__ qvel_out, int K, int horizon) {
@@ -95,46 +98,54 @@ rollout_kernel(const hmr::Tables<T>* __restrict__ tab, const T* __restrict__ qpo
 
   static_assert(G == 32, "hmr::Lanes syncs a whole warp per sample");
   const int S = blockDim.x / G, k0 = blockIdx.x * S;
-  const int nq = m.nq, nv = m.nv, nu = m.nu, wsz = m.ws_size;
-  const int oq = m.off[hmr::WS_QPOS], ov = m.off[hmr::WS_QVEL];
+  const int nu = m.nu;
   T* nz = prm + hmr::NPARAM;
   T* ws = nz + 2 * nu * S;
   const int s = threadIdx.x / G;
   const hmr::Lanes<G> g{static_cast<int>(threadIdx.x % G)};
-  T* w = ws + s * wsz;
+  T* w = ws + s * m.ws_size;
 
-  // state in, row by row; samples past K run on sample K-1's and write nothing
-  for (int i = threadIdx.x; i < (nq + nv) * S; i += blockDim.x) {
-    const int r = i / S, j = i - r * S;
-    const int k = min(k0 + j, K - 1);
-    ws[j * wsz + (r < nq ? oq + r : ov + r - nq)] =
-        r < nq ? qpos0[(size_t)r * K + k] : qvel0[(size_t)(r - nq) * K + k];
+  // state and start time in, row by row; samples past K run on sample
+  // K-1's and write nothing
+  {
+    const int nq = m.nq, nv = m.nv, wsz = m.ws_size;
+    const int oq = m.off[hmr::WS_QPOS], ov = m.off[hmr::WS_QVEL], ot = m.off[hmr::WS_TIME];
+    for (int i = threadIdx.x; i < (nq + nv + 1) * S; i += blockDim.x) {
+      const int r = i / S, j = i - r * S;
+      const int k = min(k0 + j, K - 1);
+      ws[j * wsz + (r < nq ? oq + r : r < nq + nv ? ov + r - nq : ot)] =
+          r < nq ? qpos0[(size_t)r * K + k]
+                 : r < nq + nv ? qvel0[(size_t)(r - nq) * K + k] : time0[k];
+    }
   }
   stage_noise(nz, noise, 0, nu, S, k0, K);
   cp_async_wait_all();
   __syncthreads();
 
   hmr::begin(g, m, w);
-  T c = 0;
   for (int t = 0; t < horizon; ++t) {
     T* cur = nz + (t & 1) * nu * S;
     if (t + 1 < horizon) stage_noise(nz + ((t + 1) & 1) * nu * S, noise, t + 1, nu, S, k0, K);
-    hmr::advance(g, m, w, U + (size_t)t * nu, cur + s, S, prm, c);
+    hmr::advance(g, m, w, t, U + (size_t)t * nu, cur + s, S, prm);
     cp_async_wait_all();
     __syncthreads();
   }
-  hmr::terminal(g, m, w, prm, c);
+  hmr::terminal(g, m, w, prm);
 
-  // outputs, row by row
-  if (g.lane == 0) nz[s] = c;
+  // outputs, row by row; the sizes and offsets read afresh from the tables
+  // (held in registers across the rollout, they would spill)
   __syncthreads();
-  for (int j = threadIdx.x; j < S; j += blockDim.x)
-    if (k0 + j < K) cost[k0 + j] = nz[j];
-  for (int i = threadIdx.x; i < (nq + nv) * S; i += blockDim.x) {
-    const int r = i / S, j = i - r * S;
-    if (k0 + j >= K) continue;
-    if (r < nq) qpos_out[(size_t)r * K + k0 + j] = ws[j * wsz + oq + r];
-    else qvel_out[(size_t)(r - nq) * K + k0 + j] = ws[j * wsz + ov + r - nq];
+  {
+    const int nq = m.nq, nv = m.nv, wsz = m.ws_size;
+    const int oq = m.off[hmr::WS_QPOS], ov = m.off[hmr::WS_QVEL], oc = m.off[hmr::WS_COST];
+    for (int j = threadIdx.x; j < S; j += blockDim.x)
+      if (k0 + j < K) cost[k0 + j] = ws[j * wsz + oc];
+    for (int i = threadIdx.x; i < (nq + nv) * S; i += blockDim.x) {
+      const int r = i / S, j = i - r * S;
+      if (k0 + j >= K) continue;
+      if (r < nq) qpos_out[(size_t)r * K + k0 + j] = ws[j * wsz + oq + r];
+      else qvel_out[(size_t)(r - nq) * K + k0 + j] = ws[j * wsz + ov + r - nq];
+    }
   }
 }
 
@@ -155,10 +166,10 @@ cudaError_t allow_shared() {
 }
 
 template <typename T, int G = kLanes>
-int launch(const void* tab, const void* qpos0, const void* qvel0, const void* U,
-           const void* noise, const void* params, void* cost, void* qpos_out,
-           void* qvel_out, int K, int horizon, void* stream, int samples_per_block,
-           int smem_bytes) {
+int launch(const void* tab, const void* qpos0, const void* qvel0, const void* time0,
+           const void* U, const void* noise, const void* params, void* cost,
+           void* qpos_out, void* qvel_out, int K, int horizon, void* stream,
+           int samples_per_block, int smem_bytes) {
   const cudaError_t e = allow_shared<T, G>();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (samples_per_block < 1 || samples_per_block * G > Bounds<T>::threads)
@@ -167,7 +178,7 @@ int launch(const void* tab, const void* qpos0, const void* qvel0, const void* U,
   rollout_kernel<T, G><<<blocks, samples_per_block * G, smem_bytes,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const hmr::Tables<T>*>(tab), static_cast<const T*>(qpos0),
-      static_cast<const T*>(qvel0), static_cast<const T*>(U),
+      static_cast<const T*>(qvel0), static_cast<const T*>(time0), static_cast<const T*>(U),
       static_cast<const T*>(noise), static_cast<const T*>(params),
       static_cast<T*>(cost), static_cast<T*>(qpos_out), static_cast<T*>(qvel_out),
       K, horizon);
@@ -210,18 +221,20 @@ int hmr_rollout_occupancy(int is_double, int samples_per_block, int smem_bytes) 
 // block holds samples_per_block samples; smem_bytes is its dynamic shared
 // memory: the tables, NPARAM + 2 nu S scalars, and S workspaces.
 int hmr_rollout_f32(const void* tab, const void* qpos0, const void* qvel0,
-                    const void* U, const void* noise, const void* params,
-                    void* cost, void* qpos_out, void* qvel_out, int K,
-                    int horizon, void* stream, int samples_per_block, int smem_bytes) {
-  return launch<float>(tab, qpos0, qvel0, U, noise, params, cost, qpos_out,
+                    const void* time0, const void* U, const void* noise,
+                    const void* params, void* cost, void* qpos_out, void* qvel_out,
+                    int K, int horizon, void* stream, int samples_per_block,
+                    int smem_bytes) {
+  return launch<float>(tab, qpos0, qvel0, time0, U, noise, params, cost, qpos_out,
                        qvel_out, K, horizon, stream, samples_per_block, smem_bytes);
 }
 
 int hmr_rollout_f64(const void* tab, const void* qpos0, const void* qvel0,
-                    const void* U, const void* noise, const void* params,
-                    void* cost, void* qpos_out, void* qvel_out, int K,
-                    int horizon, void* stream, int samples_per_block, int smem_bytes) {
-  return launch<double>(tab, qpos0, qvel0, U, noise, params, cost, qpos_out,
+                    const void* time0, const void* U, const void* noise,
+                    const void* params, void* cost, void* qpos_out, void* qvel_out,
+                    int K, int horizon, void* stream, int samples_per_block,
+                    int smem_bytes) {
+  return launch<double>(tab, qpos0, qvel0, time0, U, noise, params, cost, qpos_out,
                         qvel_out, K, horizon, stream, samples_per_block, smem_bytes);
 }
 

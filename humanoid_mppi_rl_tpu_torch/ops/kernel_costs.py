@@ -2,12 +2,15 @@
 counterpart). Each factory returns (running(ctx, t) -> (K,),
 terminal(ctx) -> (K,)) over StepContext views, with ctrl read from ctx.
 
-Only `humanoid`, the main path's cost, is ported so far; the CUDA kernel
-carries the same formula as a device function (csrc/rollout_body.cuh).
+Ported: `humanoid` (the humanoid tasks), `quadruped` and `quadruped_jl`
+(the Go1 tasks); the CUDA kernel carries the same formulas as device
+functions (csrc/rollout_body.cuh). The other costs of the JAX registry
+(cartpole, humanoid_v1, humanoid_hard, hopper, arm5) are ROADMAP B1.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..physics.model import PhysicsModel
@@ -144,6 +147,99 @@ def humanoid(model: PhysicsModel, target=(2.0, 0.0, 1.28), target_vel=(0.3, 0.0)
     return running, terminal
 
 
+def _fmod(x: torch.Tensor, m: float):
+    """x % m with the sign of m (jnp.remainder: fmod, then + m where the
+    signs differ), exact where x >= 0."""
+    r = torch.fmod(x, m)
+    return torch.where((r != 0) & ((r < 0) != (m < 0)), r + m, r)
+
+
+def quadruped(model: PhysicsModel, goal_xy=(2.0, 0.0), param_goal: bool = False,
+              param_gait: bool = False):
+    """Go1 trot cost (reference src/quadruped_datacollection.py:57-138)
+    verbatim, with its indexing quirks: q[2], q[5], q[8], q[11] as the
+    "calf" angles, q[6:8] as the "knee" posture and q[0:12] regularized.
+
+    param_goal=True reads the goal from ctx.params[0:2]; param_gait=True
+    reads the deltas of slots 4..10: target-velocity and -height offsets,
+    log-scales of the height, velocity, trot and goal weights, and the
+    weight of a posture term on the true leg joints qpos[7:19] toward the
+    `home` keyframe (zero deltas reproduce the reference cost)."""
+    home12 = [float(x) for x in np.asarray(dict(model.keyframes)["home"])[7:19]]
+    gx0, gy0 = [float(v) for v in goal_xy]
+
+    def running(ctx: StepContext, t):
+        gx, gy = (ctx.params[0], ctx.params[1]) if param_goal else (gx0, gy0)
+        q, v, u = ctx.qpos, ctx.qvel, ctx.ctrl
+        if param_gait:
+            p = ctx.params
+            d_vel, d_h = p[4], p[5]
+            w_h = 500.0 * torch.exp(p[6])
+            w_v = 30000.0 * torch.exp(p[7])
+            w_tr = 34000.0 * torch.exp(p[8])
+            w_g = 3000.0 * torch.exp(p[9])
+            w_home = p[10]
+        else:
+            d_vel = d_h = 0.0
+            w_h, w_v, w_tr, w_g = 500.0, 30000.0, 34000.0, 3000.0
+            w_home = 0.0
+        phase = _fmod(ctx.time, 0.5) / 0.5 * 2 * np.pi
+        trot = torch.sin(phase)
+        target_vel_x = 0.9 + d_vel + 0.1 * torch.sin(phase)
+
+        FL_calf, FR_calf, RL_calf, RR_calf = q[2], q[5], q[8], q[11]
+        cost = w_h * (q[2] - (0.4 + d_h)) ** 2
+        cost = cost + w_v * (v[0] - target_vel_x) ** 2
+        cost = cost + 500.0 * (q[6] ** 2 + q[7] ** 2)
+        cost = cost + 20.0 * _sumsq(v[6:9])
+        cost = cost + 50000.0 * (q[1] ** 2 + v[1] ** 2)
+        cost = cost + 0.01 * _sumsq(u)
+        cost = cost + w_g * ((q[0] - gx) ** 2 + (q[1] - gy) ** 2)
+        f1 = (FL_calf - RR_calf) * trot
+        f2 = (FR_calf - RL_calf) * (-trot)
+        cost = cost + w_tr * (f1 * f1 + f2 * f2)
+        cost = cost - 4400.0 * (u[1] ** 2 + u[4] ** 2)
+        cost = cost + 4400.0 * (u[2] ** 2 + u[5] ** 2)
+        cost = cost - 10000.0 * (u[7] ** 2 + u[10] ** 2)
+        cost = cost + 10000.0 * (u[8] ** 2 + u[11] ** 2)
+        nk = 0.5
+        cost = cost + 2000.0 * ((FL_calf - nk) ** 2 + (FR_calf - nk) ** 2
+                                + (RL_calf - nk) ** 2 + (RR_calf - nk) ** 2)
+        cost = cost + 5.0 * _sumsq(q[0:12])
+        if param_gait:
+            ck = 0.0
+            for k in range(12):
+                ck = ck + (q[7 + k] - home12[k]) ** 2
+            cost = cost + w_home * ck
+        return cost
+
+    def terminal(ctx):
+        return torch.zeros_like(ctx.qpos[0])
+
+    return running, terminal
+
+
+def quadruped_jl(model: PhysicsModel, target_vel_x=0.5):
+    """Go1 cost of reference src/mppi.jl:18-62: forward velocity, upright
+    (roll/pitch), joint velocities and controls regularized."""
+
+    def running(ctx: StepContext, t):
+        q, v, u = ctx.qpos, ctx.qvel, ctx.ctrl
+        cost = 1.0 * (v[0] - target_vel_x) ** 2 + 2.0 * v[1] ** 2
+        roll, pitch, _ = _rpy((q[3], q[4], q[5], q[6]))
+        cost = cost + 2.0 * (roll * roll + pitch * pitch)
+        cost = cost + 0.1 * _sumsq(v[6:])
+        cost = cost + 0.01 * _sumsq(u)
+        return cost
+
+    def terminal(ctx):
+        return torch.zeros_like(ctx.qpos[0])
+
+    return running, terminal
+
+
 KERNEL_COSTS = {
     "humanoid": humanoid,
+    "quadruped": quadruped,
+    "quadruped_jl": quadruped_jl,
 }

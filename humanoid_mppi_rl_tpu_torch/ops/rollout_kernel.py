@@ -12,7 +12,10 @@ fallback from one to the other.
 
 The kernel is table-driven: the model and the cost constants are packed
 once into a flat struct (`pack_tables`, mirrored field for field from
-rollout_body.cuh with ctypes) that the kernel loops over.
+rollout_body.cuh with ctypes) that the kernel loops over. It carries the
+costs of `KERNEL_COSTS` (humanoid, quadruped, quadruped_jl) by a cost id
+and each cost's constants; a model or cost it cannot carry raises
+NotImplementedError naming its ROADMAP item (B1).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..physics.model import GEOM_PLANE, GEOM_SPHERE, HINGE, PhysicsModel
+from ..physics.model import (GEOM_BOX, GEOM_CYLINDER, GEOM_PLANE, GEOM_SPHERE,
+                             HINGE, PhysicsModel)
 from . import _build
 from . import kernel_costs
 from . import scalar_physics as sph
@@ -34,20 +38,24 @@ from . import scalar_physics as sph
 NP = 16  # runtime cost-parameter slots (kernel_costs.PARAM_SLOTS)
 
 # capacities of csrc/rollout_body.cuh
-MAXB, MAXJ, MAXV, MAXQ, MAXU, MAXP, MAXT, MAXTNZ = 32, 32, 32, 40, 32, 32, 4, 8
+MAXB, MAXJ, MAXV, MAXQ, MAXU, MAXP, MAXT, MAXTNZ = 32, 32, 32, 40, 32, 64, 4, 8
+NCOSTW = 16  # cost constants
+# the humanoid cost's constants, in hmr::CostW order
 _COST_W = ("tx", "ty", "tz", "tvx", "tvy", "w_orient", "w_goal_xy", "w_height",
            "w_swing_x", "w_swing_vel", "w_knee_x", "w_clearance", "w_foot_lift")
 _COST_PARAM_TARGET, _COST_PARAM_GAIT = 1, 2
-_PAIR_SPHERE, _PAIR_CAPSULE = 0, 1
+# hmr::COST_* ids of the costs the kernel carries
+_COST_ID = {kernel_costs.humanoid: 0, kernel_costs.quadruped: 1, kernel_costs.quadruped_jl: 2}
+_PAIR_SPHERE, _PAIR_CAPSULE, _PAIR_CYLINDER, _PAIR_BOX = 0, 1, 2, 3
 
 MAXTRI = MAXV * (MAXV + 1) // 2
 MAXCHOL = 1024  # Cholesky updates over all dof levels
 NTOP = 6        # the dof tree's top chain that one lane factors in registers
 SOLIMP = 8      # solimp, then 1/width, 1/midpoint, 1/(1 - midpoint)
 # one sample's workspace arrays (hmr::WsField order) and their lengths
-WS_FIELDS = ("qpos", "qvel", "u", "xpos", "xquat", "V", "S", "W", "IC", "F", "ab",
-             "A", "tau", "gdiag", "rhs", "dinv", "ten_f", "ten_c", "qloc", "cscr",
-             "loc", "hinge")
+WS_FIELDS = ("qpos", "qvel", "u", "time", "cost", "xpos", "xquat", "V", "S", "W", "IC",
+             "F", "ab", "A", "tau", "gdiag", "rhs", "dinv", "ten_f", "ten_c", "qloc",
+             "cscr", "loc", "hinge")
 _FORWARD = ("qloc", "loc", "hinge")  # forward's scratch, one after the other
 _SHARE_A = ("ab",) + _FORWARD        # arrays that live in the mass matrix's space
 _SHARE_W = ("cscr",)                 # ... and in W's
@@ -70,8 +78,8 @@ def workspace_layout(model: PhysicsModel, nten: int) -> tuple[dict, int]:
     forward, the mass matrix in phases 5-8); the contact scratch shares W's
     (live in phases 2-3, W in forward, phase 1 and phases 4-5)."""
     nb, nv = model.nbody, model.nv
-    sizes = {"qpos": model.nq, "qvel": nv, "u": model.nu, "xpos": 3 * nb,
-             "xquat": 4 * nb, "V": 6 * nb, "S": 6 * nv, "W": 6 * nv, "IC": 21 * nb,
+    sizes = {"qpos": model.nq, "qvel": nv, "u": model.nu, "time": 1, "cost": 1,
+             "xpos": 3 * nb, "xquat": 4 * nb, "V": 6 * nb, "S": 6 * nv, "W": 6 * nv, "IC": 21 * nb,
              "F": 6 * nb, "ab": 6 * nb, "A": nv * (nv + 1) // 2, "tau": nv,
              "gdiag": nv, "rhs": nv, "dinv": nv, "ten_f": nten, "ten_c": nten}
     # the bias accelerations (step phases 1-2) and the hinge rotations
@@ -100,7 +108,8 @@ launches = 0
 # (name, kind, *shape) with kind i = int32, u = uint32, h = int16, s = the scalar T
 _FIELDS = (
     ("nbody", "i"), ("nq", "i"), ("nv", "i"), ("nu", "i"), ("npair", "i"),
-    ("nten", "i"), ("terminal", "i"), ("clamp_ctrl", "i"), ("cost_flags", "i"),
+    ("nten", "i"), ("terminal", "i"), ("clamp_ctrl", "i"), ("cost_id", "i"),
+    ("cost_flags", "i"),
     ("cost_body", "i", 4), ("body_parent", "i", MAXB),
     ("body_jnt_adr", "i", MAXB), ("body_jnt_num", "i", MAXB),
     ("jnt_type", "i", MAXJ), ("jnt_qposadr", "i", MAXJ),
@@ -113,8 +122,8 @@ _FIELDS = (
     ("off", "i", len(WS_FIELDS)), ("ws_size", "i"), ("njnt", "i"), ("nlvl", "i"),
     ("lvl_adr", "i", MAXB + 1), ("lvl_body", "i", MAXB), ("body_chain", "u", MAXB),
     ("body_child", "u", MAXB), ("acc_adr", "i", MAXB + 1), ("acc_body", "i", MAXB),
-    ("body_pairs", "u", MAXB), ("nxpair", "i"),
-    ("xpair", "i", MAXP), ("pair_xslot", "i", MAXP), ("dof_jnt", "i", MAXV),
+    ("body_pair0", "i", MAXB), ("nxpair", "i"), ("xpair", "i", MAXP),
+    ("body_xadr", "i", MAXB + 1), ("dof_jnt", "i", MAXV),
     ("dof_acts", "u", MAXV), ("ndlvl", "i"), ("ntop", "i"), ("dlvl_adr", "i", MAXV + 1),
     ("dlvl_dof", "i", MAXV), ("dlvl_mask", "u", MAXV), ("nent", "i"),
     ("ent", "h", MAXTRI), ("ent_adr", "i", MAXV + 1), ("ten_dofmask", "u"),
@@ -128,17 +137,18 @@ _FIELDS = (
     ("jnt_range", "s", MAXJ, 2), ("jnt_meff", "s", MAXJ),
     ("jnt_kbase", "s", MAXJ), ("jnt_bref", "s", MAXJ),
     ("jnt_solimp", "s", MAXJ, SOLIMP), ("dof_damping", "s", MAXV),
-    ("dof_extra", "s", MAXV), ("act_gear", "s", MAXU), ("act_gain", "s", MAXU),
+    ("dof_extra", "s", MAXV), ("dof_frictionloss", "s", MAXV),
+    ("dof_fl_gain", "s", MAXV), ("act_gear", "s", MAXU), ("act_gain", "s", MAXU),
     ("act_bias", "s", MAXU, 3), ("act_ctrlrange", "s", MAXU, 2),
     ("act_forcerange", "s", MAXU, 2), ("pair_frame", "s", MAXP, 3, 3),
     ("pair_p0n", "s", MAXP), ("pair_gpos", "s", MAXP, 3),
-    ("pair_gquat", "s", MAXP, 4), ("pair_size", "s", MAXP, 2),
+    ("pair_gquat", "s", MAXP, 4), ("pair_size", "s", MAXP, 3),
     ("pair_mu", "s", MAXP), ("pair_kbase", "s", MAXP), ("pair_bref", "s", MAXP),
     ("pair_meff", "s", MAXP), ("pair_margin", "s", MAXP),
     ("pair_solimp", "s", MAXP, SOLIMP), ("ten_coef", "s", MAXT, MAXTNZ),
     ("ten_range", "s", MAXT, 2), ("ten_meff", "s", MAXT), ("ten_kbase", "s", MAXT),
     ("ten_bref", "s", MAXT), ("ten_solimp", "s", MAXT, SOLIMP),
-    ("ctrl_lo", "s", MAXU), ("ctrl_hi", "s", MAXU), ("cost_w", "s", len(_COST_W)),
+    ("ctrl_lo", "s", MAXU), ("ctrl_hi", "s", MAXU), ("cost_w", "s", NCOSTW),
 )
 
 
@@ -205,22 +215,40 @@ def check_kernel_supported(model: PhysicsModel) -> None:
 
 
 def _cost_constants(cost_factory: Callable, model: PhysicsModel, kw: dict):
-    """(flags, body ids, weights) of the humanoid cost for the kernel."""
-    if cost_factory is not kernel_costs.humanoid:
+    """(cost id, flags, body ids, constants) of the cost for the kernel."""
+    if cost_factory not in _COST_ID:
         raise NotImplementedError(
-            f"the CUDA rollout kernel carries only kernel_costs.humanoid, "
-            f"not {getattr(cost_factory, '__name__', cost_factory)}")
+            f"the CUDA rollout kernel carries {sorted(f.__name__ for f in _COST_ID)}, "
+            f"not {getattr(cost_factory, '__name__', cost_factory)} (ROADMAP B1)")
     a = inspect.signature(cost_factory).bind(model, **kw)
     a.apply_defaults()
     c = a.arguments
-    flags = (_COST_PARAM_TARGET * bool(c["param_target"])
-             | _COST_PARAM_GAIT * bool(c["param_gait"]))
-    bodies = [model.body_id(n) for n in
-              ("shin_left", "shin_right", "foot_left", "foot_right")]
-    vals = dict(zip(("tx", "ty", "tz"), [float(v) for v in c["target"]]))
-    vals.update(zip(("tvx", "tvy"), [float(v) for v in c["target_vel"]]))
-    vals.update({k: float(c[k]) for k in _COST_W if k.startswith("w_")})
-    return flags, bodies, [vals[k] for k in _COST_W]
+    bodies, vals = [0] * 4, []
+    if cost_factory is kernel_costs.humanoid:
+        flags = (_COST_PARAM_TARGET * bool(c["param_target"])
+                 | _COST_PARAM_GAIT * bool(c["param_gait"]))
+        bodies = [model.body_id(n) for n in
+                  ("shin_left", "shin_right", "foot_left", "foot_right")]
+        w = dict(zip(("tx", "ty", "tz"), [float(v) for v in c["target"]]))
+        w.update(zip(("tvx", "tvy"), [float(v) for v in c["target_vel"]]))
+        w.update({k: float(c[k]) for k in _COST_W if k.startswith("w_")})
+        vals = [w[k] for k in _COST_W]
+    elif cost_factory is kernel_costs.quadruped:
+        flags = (_COST_PARAM_TARGET * bool(c["param_goal"])
+                 | _COST_PARAM_GAIT * bool(c["param_gait"]))
+        home = np.asarray(dict(model.keyframes)["home"])[7:19]
+        vals = [float(v) for v in c["goal_xy"]] + [float(x) for x in home]
+    else:
+        flags, vals = 0, [float(c["target_vel_x"])]
+    return _COST_ID[cost_factory], flags, bodies, vals + [0.0] * (NCOSTW - len(vals))
+
+
+def _pair_kind(geom) -> int:
+    if geom.gtype == GEOM_SPHERE:
+        return _PAIR_SPHERE
+    if geom.gtype == GEOM_BOX:
+        return _PAIR_BOX
+    return _PAIR_CYLINDER if geom.gtype_orig == GEOM_CYLINDER else _PAIR_CAPSULE
 
 
 def _solimp(si) -> list:
@@ -234,13 +262,13 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
                 ctrl_low, ctrl_high, terminal: bool, dtype: torch.dtype) -> bytes:
     """The kernel's model/cost tables as the bytes of hmr::Tables<T>."""
     check_kernel_supported(model)
-    flags, cost_bodies, cost_w = _cost_constants(cost_factory, model, cost_kwargs)
+    cost_id, flags, cost_bodies, cost_w = _cost_constants(cost_factory, model, cost_kwargs)
     s = tables_struct(dtype)()
     v = {name: np.ctypeslib.as_array(getattr(s, name))
          for name, _, *shape in _FIELDS if shape}
     h = float(model.timestep)
     s.nbody, s.nq, s.nv, s.nu = model.nbody, model.nq, model.nv, model.nu
-    s.terminal, s.cost_flags = int(terminal), flags
+    s.terminal, s.cost_id, s.cost_flags = int(terminal), cost_id, flags
     s.clamp_ctrl = int(ctrl_low is not None)
     if ctrl_low is not None:
         v["ctrl_lo"][:model.nu] = ctrl_low
@@ -283,6 +311,8 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
     v["dof_damping"][:nv] = model.dof_damping
     v["dof_extra"][:nv] = [float(model.dof_armature[d]) + h * float(model.dof_damping[d])
                            for d in range(nv)]
+    v["dof_frictionloss"][:nv] = model.dof_frictionloss
+    v["dof_fl_gain"][:nv] = np.asarray(model.dof_frictionloss, dtype=np.float64) / 0.05
     for i, act in enumerate(model.actuators):
         v["act_dof"][i], v["act_qpos"][i] = act.dofadr, act.qposadr
         v["act_ctrllimited"][i] = int(act.ctrllimited)
@@ -312,9 +342,9 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
         v["pair_frame"][i] = np.stack([t1, t2, n])
         v["pair_p0n"][i] = float(np.dot(np.asarray(g1.pos), n))
         v["pair_body"][i] = g2.bodyid
-        v["pair_type"][i] = _PAIR_SPHERE if g2.gtype == GEOM_SPHERE else _PAIR_CAPSULE
+        v["pair_type"][i] = _pair_kind(g2)
         v["pair_gpos"][i], v["pair_gquat"][i] = g2.pos, g2.quat
-        v["pair_size"][i] = g2.size[:2]
+        v["pair_size"][i] = g2.size[:3]
         v["pair_mu"][i] = pair.mu if pair.condim > 1 else 0.0
         v["pair_kbase"][i], v["pair_bref"][i] = sph._solref_kb_scalar(
             pair.solref, pair.solimp)
@@ -358,15 +388,19 @@ def _pack_schedule(model: PhysicsModel, s, v: dict, chain_bits: list, npair: int
     v["body_chain"][:nb] = chain_bits
     for b in range(1, nb):
         v["body_child"][model.body_parent[b]] |= 1 << b
-    for i in range(npair):
-        v["body_pairs"][v["pair_body"][i]] |= 1 << i
-    further = _further_pairs(model)
+    # each body's first contact pair, and its further pairs' scratch slots,
+    # grouped by body and in pair order within it
+    pair_body = [int(b) for b in v["pair_body"][:npair]]
+    v["body_pair0"][:] = -1
+    for i in reversed(range(npair)):
+        v["body_pair0"][pair_body[i]] = i
+    further = sorted(_further_pairs(model), key=lambda i: (pair_body[i], i))
     s.nxpair = len(further)
-    v["pair_xslot"][:] = -1
-    for x, i in enumerate(further):
-        v["xpair"][x], v["pair_xslot"][i] = i, x
+    v["xpair"][:len(further)] = further
+    v["body_xadr"][:nb + 1] = np.cumsum(
+        [0] + [sum(pair_body[i] == b for i in further) for b in range(nb)])
     # per level, the bodies whose sums the tree accumulation extends
-    extends = lambda b: v["body_child"][b] or bin(int(v["body_pairs"][b])).count("1") > 1
+    extends = lambda b: v["body_child"][b] or v["body_xadr"][b + 1] > v["body_xadr"][b]
     acc = [[b for b in lv if extends(b)] for lv in levels]
     v["acc_adr"][:len(acc) + 1] = np.cumsum([0] + [len(lv) for lv in acc])
     v["acc_body"][:sum(map(len, acc))] = [b for lv in acc for b in lv]
@@ -419,6 +453,7 @@ def rollouts_plain(model: PhysicsModel, running_cost: Callable,
     qpos = [qpos0[i] for i in range(nq)]
     qvel = [qvel0[i] for i in range(nv)]
     t0 = time0[0]
+    np_dtype = np.float32 if t0.dtype == torch.float32 else np.float64
     prm = [params[i] for i in range(NP)]
     fwd = sph.scalar_forward(model, qpos, qvel)
     cost = torch.zeros_like(qpos[0])
@@ -435,7 +470,8 @@ def rollouts_plain(model: PhysicsModel, running_cost: Callable,
             if ctrl_low is not None:
                 ui = torch.clamp(ui, float(ctrl_low[i]), float(ctrl_high[i]))
             u.append(ui)
-        time = t0 + t * h
+        # the step's start time in the rollout's dtype: t0 + dtype(t) * h
+        time = t0 + float(np_dtype(t) * np_dtype(h))
         qpos, qvel, _ = sph.scalar_step(model, qpos, qvel, u, time, fwd=fwd)
         fwd = sph.scalar_forward(model, qpos, qvel)
         cost = cost + running_cost(make_ctx(fwd, qpos, qvel, u, time + h), t)
@@ -505,7 +541,6 @@ def build_rollout_kernel(
                               terminal)
 
     def launch(qpos0, qvel0, time0, U, noise, params=None):
-        # time0 is checked but not read: the humanoid cost ignores the clock
         global launches
         _check(qpos0, qvel0, time0, U, noise)
         params = _params(params, qpos0)
@@ -516,7 +551,7 @@ def build_rollout_kernel(
         lib = _rollout_lib()
         tab = tables[qpos0.dtype]
         K = qpos0.shape[-1]
-        ins = [x.contiguous() for x in (qpos0, qvel0, U, noise, params)]
+        ins = [x.contiguous() for x in (qpos0, qvel0, time0, U, noise, params)]
         cost = torch.empty(K, dtype=qpos0.dtype, device=dev)
         qpos_f = torch.empty(nq, K, dtype=qpos0.dtype, device=dev)
         qvel_f = torch.empty(nv, K, dtype=qpos0.dtype, device=dev)
@@ -580,7 +615,7 @@ def _rollout_lib() -> ctypes.CDLL:
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     for name in ("hmr_rollout_f32", "hmr_rollout_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 9 + [cint, cint, ptr, cint, cint]
+        fn.argtypes = [ptr] * 10 + [cint, cint, ptr, cint, cint]
         fn.restype = cint
     for name, args in (("hmr_tables_size", [cint]), ("hmr_rollout_lanes", []),
                        ("hmr_rollout_max_samples_per_block", [cint]),

@@ -9,11 +9,12 @@ results agree with the JAX step to rounding. This is the reference the CUDA
 kernel (csrc/rollout_body.cuh) is held against; it runs one small tensor op
 per equation and is no yardstick of speed.
 
-Covered: free and hinge joints, single-dof motors, dof damping, joint
-springs and limits, limited fixed tendons, and plane-vs-sphere/capsule
-penalty contacts -- the humanoid's feature set. `unsupported_features`
-names what a model needs beyond that; those branches raise
-NotImplementedError here and in ops/rollout_kernel (ROADMAP.md queue A).
+Covered: free and hinge joints, single-dof motors, dof damping and
+frictionloss, joint springs and limits, limited fixed tendons, and
+plane-vs-sphere/capsule/box/exact-cylinder penalty contacts -- the humanoid's
+and the Go1's feature sets. `unsupported_features` names what a model needs
+beyond that (slide and ball joints, meshes, moving planes); those branches
+raise NotImplementedError here and in ops/rollout_kernel (ROADMAP.md B1).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from ..physics.model import (
     FREE,
+    GEOM_BOX,
     GEOM_CAPSULE,
     GEOM_CYLINDER,
     GEOM_PLANE,
@@ -36,6 +38,8 @@ from ..physics.model import (
 # may push out at
 from ..physics.contact import RESTITUTION_VCAP
 _VT_EPS = 5e-3
+# (cos, sin) of the exact cylinder's three rim points per cap
+_RIM = ((1.0, 0.0), (-0.5, 0.8660254037844386), (-0.5, -0.8660254037844386))
 
 Vec3 = Tuple
 Quat = Tuple
@@ -47,17 +51,13 @@ def unsupported_features(model: PhysicsModel) -> List[str]:
     for j in model.joints:
         if j.jtype not in (FREE, HINGE):
             bad.append(f"joint type {j.jtype} (only free and hinge)")
-    if np.any(np.asarray(model.dof_frictionloss) != 0):
-        bad.append("dof frictionloss")
     for pair in model.contact_pairs:
         g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
         if g1.gtype != GEOM_PLANE:
             continue
         if g1.bodyid != 0:
             bad.append("moving planes")
-        if g2.gtype == GEOM_SPHERE:
-            continue
-        if g2.gtype == GEOM_CAPSULE and g2.gtype_orig != GEOM_CYLINDER:
+        if g2.gtype in (GEOM_SPHERE, GEOM_CAPSULE, GEOM_BOX):
             continue
         bad.append(f"plane-vs-geom type {g2.gtype} (orig {g2.gtype_orig})")
     return sorted(set(bad))
@@ -519,8 +519,12 @@ def scalar_step(
         dmp = float(model.dof_damping[d])
         if dmp:
             tau[d] = fsub(tau[d], fmul(dmp, qvel[d]))
-        if float(model.dof_frictionloss[d]):
-            raise NotImplementedError("dof frictionloss")
+        fl = float(model.dof_frictionloss[d])
+        if fl:
+            w_fl = 0.05
+            th = torch.tanh(qvel[d] / w_fl)
+            tau[d] = fsub(tau[d], fmul(fl, th))
+            g_diag[d] = fadd(g_diag[d], fmul(fl / w_fl, 1.0 - th * th))
     hs_meff = {int(d): float(me)
                for d, me in zip(model.hs_dofadr, model.hs_limit_meff)}
     for jnt in model.joints:
@@ -555,7 +559,7 @@ def scalar_step(
             tau[d] = fadd(tau[d], fmul(float(coef[d]), f_t))
         tendon_G.append((coef, c_t))
 
-    # --- contacts: plane vs sphere/capsule ----------------------------------
+    # --- contacts: plane vs sphere/capsule/cylinder/box -----------------------
     for pair in model.contact_pairs:
         g1 = model.geoms[pair.geom1]
         g2 = model.geoms[pair.geom2]
@@ -584,7 +588,28 @@ def scalar_step(
             r = float(g2.size[0])
             phi = dot3(n_c, gp) - p0_dot_n - r
             pts.append((sub3(gp, scl3(n_c, r + 0.5 * phi)), phi))
-        elif g2.gtype == GEOM_CAPSULE and g2.gtype_orig != GEOM_CYLINDER:
+        elif g2.gtype == GEOM_CAPSULE and g2.gtype_orig == GEOM_CYLINDER:
+            # exact cylinder: three rim points per cap, the downhill extreme
+            # and two at +-120 deg; near standing the downhill direction
+            # falls back to the cylinder's own x-axis
+            r, hl = float(g2.size[0]), float(g2.size[1])
+            Rg = getR(b) if gq_l == (1.0, 0.0, 0.0, 0.0) else qmat(gq)
+            axis = (Rg[0][2], Rg[1][2], Rg[2][2])
+            adn = dot3(axis, n_c)
+            d_cap = tuple(-(n_c[i] - adn * axis[i]) for i in range(3))
+            dn = torch.sqrt(dot3(d_cap, d_cap) + 1e-30)
+            ok = dn > 1e-6
+            xax = (Rg[0][0], Rg[1][0], Rg[2][0])
+            dhat = tuple(torch.where(ok, d_cap[i] / dn, xax[i]) for i in range(3))
+            dhat = scl3(dhat, torch.rsqrt(dot3(dhat, dhat)))
+            perp = cross(axis, dhat)
+            for sgn in (-1.0, 1.0):
+                ce = add3(gp, scl3(axis, sgn * hl))
+                for ca, sa in _RIM:
+                    p_rim = add3(ce, add3(scl3(dhat, r * ca), scl3(perp, r * sa)))
+                    phi = dot3(n_c, p_rim) - p0_dot_n
+                    pts.append((sub3(p_rim, scl3(n_c, 0.5 * phi)), phi))
+        elif g2.gtype == GEOM_CAPSULE:
             r, hl = float(g2.size[0]), float(g2.size[1])
             Rg = getR(b) if gq_l == (1.0, 0.0, 0.0, 0.0) else qmat(gq)
             axis = (Rg[0][2], Rg[1][2], Rg[2][2])
@@ -592,6 +617,17 @@ def scalar_step(
                 ce = add3(gp, scl3(axis, sgn * hl))
                 phi = dot3(n_c, ce) - p0_dot_n - r
                 pts.append((sub3(ce, scl3(n_c, r + 0.5 * phi)), phi))
+        elif g2.gtype == GEOM_BOX:
+            sx, sy, sz = [float(x) for x in g2.size]
+            Rg = getR(b) if gq_l == (1.0, 0.0, 0.0, 0.0) else qmat(gq)
+            for cx in (-sx, sx):
+                for cy in (-sy, sy):
+                    for cz in (-sz, sz):
+                        corner = add3(gp, tuple(
+                            Rg[i][0] * cx + Rg[i][1] * cy + Rg[i][2] * cz
+                            for i in range(3)))
+                        phi = dot3(n_c, corner) - p0_dot_n
+                        pts.append((sub3(corner, scl3(n_c, 0.5 * phi)), phi))
         else:
             raise NotImplementedError(
                 f"plane-vs-geom type {g2.gtype} (orig {g2.gtype_orig})")

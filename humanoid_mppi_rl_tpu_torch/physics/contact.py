@@ -1,19 +1,22 @@
 """Contact rows of the coupled plant (physics/contact.py counterpart, the
-humanoid subset): a static plane against spheres and capsules, and the
-body-body ("self") pairs of spheres and capsules.
+humanoid and Go1 subset): a static plane against spheres, capsules, boxes
+and exact cylinders, and the body-body ("self") pairs of spheres, capsules
+and cylinders (as inscribed capsules; box self pairs are skipped, as in
+the JAX engine).
 
 Each plane pair always contributes its points (a sphere one, a capsule its
-two end spheres), gated to inactive when separated. Self pairs go through a
-segment-segment narrowphase over every candidate; the SELF_TOPK deepest are
-kept, ranked by penetration with ties to the lower candidate index (as
-jax.lax.top_k does), so the row count is static.
+two end spheres, a box its 8 corners, a cylinder three rim points per cap),
+gated to inactive when separated. Self pairs go through a segment-segment
+narrowphase over every candidate; the SELF_TOPK deepest are kept, ranked by
+penetration with ties to the lower candidate index (as jax.lax.top_k does),
+so the row count is static.
 
 MuJoCo's soft-constraint reference acceleration per row is
 aref = -b vn + d(r) k pen, with b = 2/(dmax tau), k = d(r)/(dmax^2 tau^2
 zeta^2), (tau, zeta) the pair's solref and d(r) the solimp impedance of the
 penetration; physics/newton.py builds its rows from these.
 
-Box, mesh and cylinder contacts are refused (ROADMAP A8).
+Mesh contacts are refused (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import numpy as np
 import torch
 
 from . import spatial as sp
-from .model import GEOM_CAPSULE, GEOM_CYLINDER, GEOM_PLANE, GEOM_SPHERE, PhysicsModel
+from .model import (GEOM_BOX, GEOM_CAPSULE, GEOM_CYLINDER, GEOM_MESH, GEOM_PLANE,
+                    GEOM_SPHERE, PhysicsModel)
 
 # Restitution cap [m/s] of the planner tier: a constraint row may brake an
 # approaching contact without bound but may only push it outward until its
@@ -36,6 +40,11 @@ RESTITUTION_VCAP_ENV = 2.0
 
 # rows kept of the self-contact candidates, ranked by penetration
 SELF_TOPK = 8
+
+# plane-row kinds, and the (cos, sin) of an exact cylinder's three rim
+# points per cap (the downhill extreme and two at +-120 deg)
+_SPHERE, _CAPSULE, _BOX, _CYLINDER = 0, 1, 2, 3
+_RIM = ((1.0, 0.0), (-0.5, 0.8660254037844386), (-0.5, -0.8660254037844386))
 
 
 class Impedance:
@@ -83,28 +92,38 @@ def solref_kb(solref, solimp):
 
 
 def _self_pair_static(model: PhysicsModel):
-    """Static numpy arrays of every sphere/capsule self pair (spheres are
-    segments of half-length 0), or None when there is none."""
+    """Static numpy arrays of every sphere/capsule/cylinder self pair
+    (spheres are segments of half-length 0, cylinders inscribed capsules),
+    or None when there is none. Pairs with a box are skipped, as the JAX
+    engine skips them; a mesh is refused."""
     ok_types = (GEOM_SPHERE, GEOM_CAPSULE)
     idx = []
     for k, pair in enumerate(model.contact_pairs):
         g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
         if g1.gtype == GEOM_PLANE or g2.gtype == GEOM_PLANE:
             continue
+        if GEOM_MESH in (g1.gtype, g2.gtype):
+            raise NotImplementedError("mesh self pairs (ROADMAP A8)")
         if g1.gtype not in ok_types or g2.gtype not in ok_types:
-            raise NotImplementedError(
-                f"self pair of geom types {g1.gtype}/{g2.gtype} (ROADMAP A8)")
-        if GEOM_CYLINDER in (g1.gtype_orig, g2.gtype_orig):
-            raise NotImplementedError("cylinder self pairs (ROADMAP A8)")
+            continue
         idx.append(k)
     if not idx:
         return None
+
+    def half_len(g):
+        """Segment half-length: a capsule's own; a cylinder's inscribed
+        (minus its radius), so that the round caps stay inside its faces."""
+        if g.gtype != GEOM_CAPSULE:
+            return 0.0
+        if g.gtype_orig == GEOM_CYLINDER:
+            return max(float(g.size[1]) - float(g.size[0]), 0.0)
+        return float(g.size[1])
 
     def geom_arrs(which):
         gs = [model.geoms[getattr(model.contact_pairs[k], which)] for k in idx]
         return (np.array([g.bodyid for g in gs]), np.stack([g.pos for g in gs]),
                 np.stack([g.quat for g in gs]), np.array([g.size[0] for g in gs]),
-                np.array([g.size[1] if g.gtype == GEOM_CAPSULE else 0.0 for g in gs]),
+                np.array([half_len(g) for g in gs]),
                 np.array([g.gtype == GEOM_CAPSULE for g in gs]))
 
     b1, pos1, quat1, r1, h1, iscap1 = geom_arrs("geom1")
@@ -134,15 +153,31 @@ class ContactTables:
     def __init__(self, model: PhysicsModel, device, dtype):
         t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
         ix = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
-        rows = []       # (geom2 index, plane geom index, sign, pair)
+        # (geom2 index, plane geom index, point offset in the geom frame,
+        # radius, kind, rim (cos, sin), pair)
+        rows = []
         for pair in model.contact_pairs:
             g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
             if g1.gtype != GEOM_PLANE:
                 continue
+            r = float(g2.size[0])
+            row = lambda off, rad, kind, rim=(0.0, 0.0): rows.append(
+                (pair.geom2, pair.geom1, off, rad, kind, rim, pair))
             if g2.gtype == GEOM_SPHERE:
-                rows.append((pair.geom2, pair.geom1, 0.0, pair))
-            elif g2.gtype == GEOM_CAPSULE and g2.gtype_orig != GEOM_CYLINDER:
-                rows += [(pair.geom2, pair.geom1, s, pair) for s in (-1.0, 1.0)]
+                row((0.0, 0.0, 0.0), r, _SPHERE)
+            elif g2.gtype == GEOM_CAPSULE and g2.gtype_orig == GEOM_CYLINDER:
+                for s in (-1.0, 1.0):
+                    for rim in _RIM:
+                        row((0.0, 0.0, s * float(g2.size[1])), 0.0, _CYLINDER, rim)
+            elif g2.gtype == GEOM_CAPSULE:
+                for s in (-1.0, 1.0):
+                    row((0.0, 0.0, s * float(g2.size[1])), r, _CAPSULE)
+            elif g2.gtype == GEOM_BOX:
+                sx, sy, sz = [float(x) for x in g2.size]
+                for cx in (-sx, sx):
+                    for cy in (-sy, sy):
+                        for cz in (-sz, sz):
+                            row((cx, cy, cz), 0.0, _BOX)
             else:
                 raise NotImplementedError(
                     f"plane vs geom type {g2.gtype_orig} (ROADMAP A8)")
@@ -156,13 +191,18 @@ class ContactTables:
         self.geom_rot = sp.quat_to_mat(t([g.quat for g in gs])) if gs else None
         if rows:
             g2s = [model.geoms[r[0]] for r in rows]
-            pairs = [r[3] for r in rows]
+            pairs = [r[6] for r in rows]
+            self.row_kind = kind = np.array([r[4] for r in rows])
             self.row_geom = ix([slot[r[0]] for r in rows])
             self.row_plane = ix([slot[r[1]] for r in rows])
-            self.row_shl = t([r[2] * g.size[1] if g.gtype == GEOM_CAPSULE else 0.0
-                              for r, g in zip(rows, g2s)])
-            self.row_radius = t([g.size[0] for g in g2s])
-            self.row_capsule = ix([g.gtype == GEOM_CAPSULE for g in g2s]).bool()
+            self.row_off = t([r[2] for r in rows])
+            self.row_radius = t([r[3] for r in rows])
+            self.row_capsule = ix(kind == _CAPSULE).bool()
+            # exact cylinder rims: r cos, r sin of each rim point
+            self.has_cylinder = bool(np.any(kind == _CYLINDER))
+            rad = np.array([float(g.size[0]) for g in g2s])
+            self.row_rim = t([(rc * c, rc * sn) for rc, (c, sn) in
+                              zip(rad * (kind == _CYLINDER), [r[5] for r in rows])])
             bid = np.array([g.bodyid for g in g2s])
             oid = np.array([model.geoms[r[1]].bodyid for r in rows])
             self.row_body, self.row_other = ix(bid), ix(oid)
@@ -229,14 +269,26 @@ def _jacobian_rows(ct, S, p, Arel, n, t1, t2, elliptic):
 def _plane_rows(ct: ContactTables, state, S):
     gpos, gR = geom_world(ct, state)
     p_pos, n = gpos[ct.row_plane], gR[ct.row_plane][:, :, 2]
-    g_pos, axis = gpos[ct.row_geom], gR[ct.row_geom][:, :, 2]
+    g_pos, gRr = gpos[ct.row_geom], gR[ct.row_geom]
+    axis = gRr[:, :, 2]
     r = ct.row_radius
-    c_end = g_pos + ct.row_shl[:, None] * axis
+    # the point's centre: a sphere's centre, a capsule's end, a box corner,
+    # a cylinder's cap centre
+    c_end = g_pos + torch.einsum("pij,pj->pi", gRr, ct.row_off)
+    if ct.has_cylinder:
+        # rim points: the cap's downhill direction d = -(n - (a.n) a), or the
+        # cylinder's x-axis where |d| <= 1e-6 (standing), and its normal
+        d = -(n - torch.sum(axis * n, -1, keepdim=True) * axis)
+        dn = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+        dhat = torch.where(dn > 1e-6, d / torch.clamp(dn, min=1e-30), gRr[:, :, 0])
+        dhat = dhat / torch.linalg.vector_norm(dhat, dim=-1, keepdim=True)
+        perp = sp.cross(axis, dhat)
+        c_end = c_end + (ct.row_rim[:, 0:1] * dhat + ct.row_rim[:, 1:2] * perp)
     phi = torch.sum(n * (c_end - p_pos), -1) - r
     # contact position midway between the surfaces (MuJoCo contact.pos)
     p = c_end - n * (r + 0.5 * phi)[:, None]
     # capsule frame: t1 = the axis projected onto the plane (makeFrame when
-    # the capsule stands perpendicular); sphere frame: makeFrame
+    # the capsule stands perpendicular); the other kinds: makeFrame
     mft = _make_frame_tangent(ct, n)
     proj = axis - torch.sum(axis * n, -1, keepdim=True) * n
     pn = torch.linalg.vector_norm(proj, dim=-1)

@@ -20,7 +20,8 @@ built once. A step copies nothing from the host and reads nothing back: the
 only decisions on the host are the static ones the JAX engine also takes on
 numpy model fields. Covered: free and hinge joints, single-dof joint
 actuators, damping, springs, frictionloss, joint and fixed-tendon limits,
-plane-vs-sphere/capsule and sphere/capsule self contacts. The rest raises
+plane-vs-sphere/capsule/box/cylinder and sphere/capsule/cylinder self
+contacts (the humanoid's and the Go1's). The rest raises
 NotImplementedError naming its ROADMAP item.
 """
 

@@ -6,14 +6,15 @@ by `export_model_arrays`, and committed as a snapshot (assets/*.json) that
 `load_model` reads. A test regenerates the snapshot from the MJCF so it
 cannot go stale.
 
-Two snapshots are kept. assets/humanoid.json, the planner's model, carries
-the fields that the scalar step (ops/scalar_physics) and the kernel costs
-read. assets/humanoid_plant.json, the environment plant (built with the
-body-body pairs, envs/tasks.load_plant), also carries what the array engine,
-its contacts and its Newton solver read (`export_model_arrays(m,
-plant=True)`). Features the port does not cover yet (ball joints'
-springs/limits, spatial tendons, mesh geoms, multi-dof / tendon / site
-actuator transmissions) are refused by the export rather than dropped.
+Two snapshots are kept per robot. assets/<robot>.json, the planner's model
+(humanoid, go1), carries the fields that the scalar step (ops/scalar_physics)
+and the kernel costs read, keyframes included (go1 starts from `home`).
+assets/<robot>_plant.json, the environment plant (built with the body-body
+pairs, envs/tasks.load_plant), also carries what the array engine, its
+contacts and its Newton solver read (`export_model_arrays(m, plant=True)`).
+Features the port does not cover yet (ball joints' springs/limits, spatial
+tendons, mesh geoms, multi-dof / tendon / site actuator transmissions) are
+refused by the export rather than dropped.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ GEOM_PLANE = 0
 GEOM_SPHERE = 2
 GEOM_CAPSULE = 3
 GEOM_CYLINDER = 5
+GEOM_BOX = 6
+GEOM_MESH = 7
 
 ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "assets")
 
@@ -147,9 +150,16 @@ class PhysicsModel:
     dof_solimp: np.ndarray = None             # (nv, 5)
     cone: int = 0                             # 0 pyramidal, 1 elliptic
     impratio: float = 1.0
+    keyframes: Tuple[Tuple[str, np.ndarray], ...] = ()  # (name, qpos (nq,))
 
     def body_id(self, name: str) -> int:
         return self.body_names.index(name)
+
+    def ctrl_range(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-actuator control bounds (-inf/inf where not ctrllimited)."""
+        lo = np.array([a.ctrlrange[0] if a.ctrllimited else -np.inf for a in self.actuators])
+        hi = np.array([a.ctrlrange[1] if a.ctrllimited else np.inf for a in self.actuators])
+        return lo, hi
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +224,8 @@ def export_model_arrays(m, plant: bool = False) -> Dict[str, object]:
     if plant:
         d["cone"], d["impratio"] = int(m.cone), float(m.impratio)
     d["body_names"] = [str(n) for n in m.body_names]
+    d["key_names"] = [str(name) for name, _ in m.keyframes]
+    d["key_qpos"] = np.asarray([np.asarray(q) for _, q in m.keyframes]).reshape(-1, m.nq)
     pair_fields = _PAIR_FIELDS + (_PLANT_PAIR_FIELDS if plant else ())
     for prefix, objs, fields in (("jnt_", m.joints, _JOINT_FIELDS),
                                  ("act_", m.actuators, _ACT_FIELDS),
@@ -229,7 +241,7 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
     nested lists)."""
     scalars = _MODEL_SCALARS + _PLANT_SCALARS
     a = {k: np.asarray(v) for k, v in d.items()
-         if k not in scalars and k != "body_names"}
+         if k not in scalars and k not in ("body_names", "key_names")}
     plant = "pred_mask" in d
 
     def objs(cls, prefix, fields, n):
@@ -294,6 +306,8 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
         qpos0=a["qpos0"].astype(np.float64),
         hs_dofadr=a["hs_dofadr"].astype(np.int64),
         hs_limit_meff=a["hs_limit_meff"].astype(np.float64),
+        keyframes=tuple((str(name), q.astype(np.float64)) for name, q in zip(
+            d["key_names"], a["key_qpos"].reshape(-1, int(d["nq"])))),
         **extra,
     )
 

@@ -256,11 +256,47 @@ def build_rows(rt: RowTables, state, S: torch.Tensor) -> _Rows:
     active = torch.cat([cat(act_i), torch.ones(n_fric, dtype=dtype, device=dev), cat(act_b)])
     out_blocks, off = [], n_ineq + n_fric
     for b in blocks:
-        out_blocks.append(dict(start=off, **b))
+        blk = dict(start=off, **b)
+        blk["const"] = _block_constants(blk, R, active, rt.imp_ratio)
+        out_blocks.append(blk)
         off += b["nb"] * b["dim"]
     fl = rt.fl if rt.n_fl else cat([])
     return _Rows(J=J, aref=aref, R=R, active=active, D=active / R, n_ineq=n_ineq,
                  n_fric=n_fric, fl=fl, blocks=tuple(out_blocks))
+
+
+def _block_constants(blk, R, active, imp_ratio: float) -> dict:
+    """The terms of one elliptic block class that depend on its rows only
+    (not on u), formed once per solve."""
+    nb, dim, start = blk["nb"], blk["dim"], blk["start"]
+    sb = slice(start, start + nb * dim)
+    Rb, ab, mu = R[sb].reshape(nb, dim), active[sb].reshape(nb, dim)[:, 0], blk["mu1"]
+    return dict(ab=ab, scale=blk["mu"] / mu[:, None], Db=ab[:, None] / Rb,
+                Rm=Rb[:, 0] * (1.0 + mu * mu / imp_ratio))
+
+
+def _block_zone(blk, u: torch.Tensor, imp_ratio: float):
+    """One elliptic block class at u: its zone masks and the terms its
+    gradient and curvature share."""
+    nb, dim, start = blk["nb"], blk["dim"], blk["start"]
+    z = dict(blk["const"], ub=u[start:start + nb * dim].reshape(nb, dim), mu=blk["mu1"])
+    mu = z["mu"]
+    N = z["ub"][:, 0]
+    z["up"] = z["ub"][:, 1:] * z["scale"]
+    z["T"] = T = torch.sqrt(torch.sum(z["up"] * z["up"], -1) + 1e-24)
+    z["top"] = N >= mu * T
+    z["bottom"] = T * imp_ratio <= -mu * N
+    z["wv"] = mu * T - N
+    return z
+
+
+def _block_grad(z, zero):
+    g_bot = z["ub"] * z["Db"]
+    mu, wv, Rm, T = z["mu"], z["wv"], z["Rm"], z["T"]
+    g_mid_N = -wv / Rm
+    g_mid_t = (mu * wv / (Rm * T))[:, None] * z["up"] * z["scale"]
+    g_mid = torch.cat([g_mid_N[:, None], g_mid_t], 1) * z["ab"][:, None]
+    return torch.where(z["top"][:, None], zero, torch.where(z["bottom"][:, None], g_bot, g_mid))
 
 
 def _sgrad(rows: _Rows, u: torch.Tensor, imp_ratio: float, want_hess: bool):
@@ -281,38 +317,18 @@ def _sgrad(rows: _Rows, u: torch.Tensor, imp_ratio: float, want_hess: bool):
         gs.append(torch.clamp(Df * uf, -rows.fl, rows.fl))
         if want_hess:
             ws.append(Df * (torch.abs(Df * uf) < rows.fl).to(dtype))
+    zero = torch.zeros((), dtype=dtype, device=u.device) if rows.blocks else None
     for blk in rows.blocks:
-        nb, dim, start = blk["nb"], blk["dim"], blk["start"]
-        sb = slice(start, start + nb * dim)
-        ub = u[sb].reshape(nb, dim)
-        Rb = rows.R[sb].reshape(nb, dim)
-        ab = rows.active[sb].reshape(nb, dim)[:, 0]
-        mu = blk["mu1"]
-        scale = blk["mu"] / mu[:, None]
-        N = ub[:, 0]
-        up = ub[:, 1:] * scale
-        T = torch.sqrt(torch.sum(up * up, -1) + 1e-24)
-        R_N = Rb[:, 0]
-        top = N >= mu * T
-        bottom = T * imp_ratio <= -mu * N
-        Db = ab[:, None] / Rb
-        g_bot = ub * Db
-        Rm = R_N * (1.0 + mu * mu / imp_ratio)
-        wv = mu * T - N
-        uhat = up / T[:, None]
-        g_mid_N = -wv / Rm
-        g_mid_t = (mu * wv / (Rm * T))[:, None] * up * scale
-        g_mid = torch.cat([g_mid_N[:, None], g_mid_t], 1) * ab[:, None]
-        zero = torch.zeros((), dtype=dtype, device=u.device)
-        g_blk = torch.where(top[:, None], zero, torch.where(bottom[:, None], g_bot, g_mid))
-        gs.append(g_blk.reshape(-1))
+        nb, dim = blk["nb"], blk["dim"]
+        z = _block_zone(blk, u, imp_ratio)
+        gs.append(_block_grad(z, zero).reshape(-1))
         if want_hess:
+            mu, wv, Rm, T, sc = z["mu"], z["wv"], z["Rm"], z["T"], z["scale"]
             ws.append(torch.zeros(nb * dim, dtype=dtype, device=u.device))
             eye_t = torch.eye(dim - 1, dtype=dtype, device=u.device)
-            sc = scale
-            H_bot = torch.diag_embed(Db)
+            H_bot = torch.diag_embed(z["Db"])
             c = 1.0 / Rm
-            us = uhat * sc
+            us = z["up"] / T[:, None] * sc
             H_Nt = -(mu * c)[:, None] * us
             outer = us[:, :, None] * us[:, None, :]
             H_tt = ((mu * mu * c)[:, None, None] * outer
@@ -323,9 +339,9 @@ def _sgrad(rows: _Rows, u: torch.Tensor, imp_ratio: float, want_hess: bool):
             H_mid[:, 0, 1:] = H_Nt
             H_mid[:, 1:, 0] = H_Nt
             H_mid[:, 1:, 1:] = H_tt
-            H_blk = torch.where(top[:, None, None], zero,
-                                torch.where(bottom[:, None, None], H_bot, H_mid))
-            Hblks.append(H_blk * ab[:, None, None])
+            H_blk = torch.where(z["top"][:, None, None], zero,
+                                torch.where(z["bottom"][:, None, None], H_bot, H_mid))
+            Hblks.append(H_blk * z["ab"][:, None, None])
     cat = lambda parts: parts[0] if len(parts) == 1 else torch.cat(parts)
     if want_hess:
         return cat(gs), cat(ws), Hblks
@@ -334,15 +350,39 @@ def _sgrad(rows: _Rows, u: torch.Tensor, imp_ratio: float, want_hess: bool):
 
 def _phi_deriv(rows: _Rows, u0, du, alpha, mMdx, c_lin, imp_ratio):
     """phi'(alpha) and phi''(alpha) along the search direction
-    (c_lin = dx.M.(x-a0), mMdx = dx.M.dx, du = J dx)."""
+    (c_lin = dx.M.(x-a0), mMdx = dx.M.dx, du = J dx). A block's curvature
+    du.H.du is taken in closed form, without forming H: c (dN - mu us.dt)^2
+    + k (|sc dt|^2 - (us.dt)^2) in the middle zone (c = 1/Rm, k = mu wv /
+    (Rm T), us the unit tangent force direction times sc), sum Db du^2 at
+    the bottom, 0 on top."""
     u = u0 + alpha * du
-    g, w, Hblks = _sgrad(rows, u, imp_ratio, True)
-    d1 = c_lin + alpha * mMdx + torch.sum(g * du)
-    d2 = mMdx + torch.sum(w * du * du)
-    for blk, Hb in zip(rows.blocks, Hblks):
+    dtype = u.dtype
+    ni, nf = rows.n_ineq, rows.n_fric
+    D = rows.D
+    # rows of one class only (the humanoid's): no slicing
+    Di, ui, dui = (D, u, du) if ni == D.shape[0] else (D[:ni], u[:ni], du[:ni])
+    neg = (ui < 0).to(dtype)
+    d1 = c_lin + alpha * mMdx + torch.sum(Di * ui * neg * dui)
+    d2 = mMdx + torch.sum(Di * neg * dui * dui)
+    if nf:
+        Df, uf, duf = D[ni:ni + nf], u[ni:ni + nf], du[ni:ni + nf]
+        d1 = d1 + torch.sum(torch.clamp(Df * uf, -rows.fl, rows.fl) * duf)
+        d2 = d2 + torch.sum(Df * (torch.abs(Df * uf) < rows.fl).to(dtype) * duf * duf)
+    zero = torch.zeros((), dtype=dtype, device=u.device) if rows.blocks else None
+    for blk in rows.blocks:
         nb, dim, start = blk["nb"], blk["dim"], blk["start"]
+        z = _block_zone(blk, u, imp_ratio)
         dub = du[start:start + nb * dim].reshape(nb, dim)
-        d2 = d2 + torch.einsum("bi,bij,bj->", dub, Hb, dub)
+        d1 = d1 + torch.sum(_block_grad(z, zero) * dub)
+        mu, wv, Rm, T, sc = z["mu"], z["wv"], z["Rm"], z["T"], z["scale"]
+        us = z["up"] / T[:, None] * sc
+        dN, dt = dub[:, 0], dub[:, 1:]
+        ust = torch.sum(us * dt, -1)
+        mid = ((dN - mu * ust) ** 2 / Rm
+               + mu * wv / (Rm * T) * (torch.sum(sc * sc * dt * dt, -1) - ust * ust))
+        bot = torch.sum(z["Db"] * dub * dub, -1)
+        q = torch.where(z["top"], zero, torch.where(z["bottom"], bot, mid * z["ab"]))
+        d2 = d2 + torch.sum(q)
     return d1, d2
 
 

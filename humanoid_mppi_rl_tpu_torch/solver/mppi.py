@@ -20,6 +20,7 @@ numbers from one seed, so parity tests inject the same noise into both.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -83,11 +84,19 @@ class MPPIDiagnostics:
     update_norm: torch.Tensor
 
 
+@functools.lru_cache(maxsize=None)
+def _ctrl_bounds(lo: tuple, hi: tuple, dtype, device):
+    """Control bounds as tensors on the device, made once per (bounds,
+    dtype, device): copied from the host at every call, they would make the
+    host wait for the device at every replan."""
+    return (torch.as_tensor(lo, dtype=dtype, device=device),
+            torch.as_tensor(hi, dtype=dtype, device=device))
+
+
 def _clip_ctrl(u: torch.Tensor, cfg: MPPIConfig) -> torch.Tensor:
     if cfg.ctrl_low is not None and cfg.ctrl_high is not None:
-        lo = torch.as_tensor(cfg.ctrl_low, dtype=u.dtype, device=u.device)
-        hi = torch.as_tensor(cfg.ctrl_high, dtype=u.dtype, device=u.device)
-        return torch.clamp(u, lo, hi)
+        return torch.clamp(u, *_ctrl_bounds(tuple(cfg.ctrl_low), tuple(cfg.ctrl_high),
+                                            u.dtype, u.device))
     return u
 
 

@@ -13,9 +13,10 @@ import torch
 
 import numpy as np
 
-from chip_smoke import (bf16_errors, exact_stage_cases, plant_state, seeded_inputs,
-                        seeded_weights)
+from chip_smoke import (bf16_errors, exact_stage_cases, go1_inputs, go1_plant_state,
+                        plant_state, seeded_inputs, seeded_weights)
 from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
+from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
 from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
@@ -222,3 +223,58 @@ def test_cuda_episode_runner_runs():
     assert rk.launches == n0 + 4 and res.steps == 4
     assert states.shape == (4, 55) and np.isfinite(states).all() and np.isfinite(actions).all()
     assert np.isfinite(res.final_qpos).all() and res.sim_time == pytest.approx(0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["go1_collect", "go1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_go1_kernel_matches_plain_rollout(dtype, task):
+    """The Go1 through the kernel (frictionloss, box corners, exact cylinder
+    rims, the clock) against the plain rollout on go1_inputs (the seven
+    poses, start times in [0, 24] s) at a ragged K=61, T=4, with the task's
+    clamp; go1_collect with the goal and GAIT_TUNED in the params. Gates of
+    chip_smoke.check_rollout; two launches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    spec, model, cfg, _ = load_task(task, dtype=dtype)
+    kw = dict(spec.cost_kwargs, **(dict(param_goal=True, param_gait=True)
+                                   if task == "go1_collect" else {}))
+    p = np.zeros(16)
+    if task == "go1_collect":
+        p[0:2], p[4:13] = (2.0, 0.0), GAIT_TUNED
+    T = 4
+    ro = rk.build_rollout_kernel(model, spec.cost_factory, T, ctrl_low=cfg.ctrl_low,
+                                 ctrl_high=cfg.ctrl_high, cost_kwargs=kw)
+    x = go1_inputs(model, 61, T, dtype, seed=9)
+    params = torch.tensor(p, dtype=dtype, device="cuda")
+    n0 = rk.launches
+    got, again = ro(*x, params=params), ro(*x, params=params)
+    torch.cuda.synchronize()
+    assert rk.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ro.plain(*x, params=params)
+    if dtype == torch.float64:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+    else:
+        rel = ((got[0] - want[0]).abs() / want[0].abs()).double()
+        assert float(rel.median()) < 1e-3 and float(rel.max()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["free_fall", "sunk", "self_contact"])
+def test_cuda_go1_plant_step_matches_cpu(case):
+    """One Go1 coupled plant step on the card (box corners, cylinder rims
+    and self pairs, elliptic blocks, frictionloss rows) against the same
+    step on the CPU, f64 to 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    model = load_model("go1_plant")
+    qpos, qvel, ctrl = go1_plant_state(model, case)
+    ref_eng = Engine(model, device="cpu", dtype=torch.float64)
+    ref = ref_eng.step(ref_eng.forward(torch.tensor(qpos), torch.tensor(qvel)), torch.tensor(ctrl))
+    eng = Engine(model, device="cuda", dtype=torch.float64)
+    card = lambda a: torch.tensor(a, dtype=torch.float64, device="cuda")
+    got = eng.step(eng.forward(card(qpos), card(qvel)), card(ctrl))
+    torch.testing.assert_close(got.qpos.cpu(), ref.qpos, rtol=0, atol=1e-9)
+    torch.testing.assert_close(got.qvel.cpu(), ref.qvel, rtol=0, atol=1e-9)

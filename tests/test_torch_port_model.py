@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from humanoid_mppi_rl_tpu.physics.model import build_from_mjcf
-from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner, collect_humanoid
+from humanoid_mppi_rl_tpu_torch.collect.runner import (EpisodeRunner, collect_humanoid,
+                                                       collect_quadruped)
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_plant, load_task
 from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 from humanoid_mppi_rl_tpu_torch.ops import kernel_costs
@@ -94,6 +95,20 @@ out = collect_humanoid(n_episodes=1, out_dir=out_dir, max_steps=1, goal_threshol
 assert out[0]["goal"], out
 states = [os.path.join(d, f) for d, _, fs in os.walk(out_dir) for f in fs if "states" in f]
 assert read_csv(states[0]).shape == (1, 57)
+from humanoid_mppi_rl_tpu_torch.collect.runner import collect_quadruped
+from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
+for task in ("go1", "go1_collect"):
+    spec, model, cfg, init = load_task(task, device="cpu")
+    cfg = dataclasses.replace(cfg, n_samples=4, horizon=2)
+    plan = make_kernel_mppi(model, spec.cost_factory, cfg, spec.cost_kwargs, device="cpu")
+    action, st, diag = plan(MPPIState.seeded(0, cfg.T, model.nu, device="cpu"), init)
+    assert action.shape == (12,) and bool(torch.isfinite(st.U).all())
+quad_dir = tempfile.mkdtemp()
+out = collect_quadruped(n_runs=1, out_base=quad_dir, max_steps=1, goal_tolerance=1e9,
+                        use_kernel=True, mppi_override=tiny, chunk=1, device="cpu",
+                        gait_params=GAIT_TUNED)
+assert out[0]["goal"], out
+assert read_csv(os.path.join(quad_dir, "run_000", "states.csv")).shape == (1, 37)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
@@ -113,7 +128,8 @@ def test_port_runs_without_jax_mujoco_or_the_jax_package():
 @pytest.mark.parametrize("entry", ["load_task", "make_kernel_mppi",
                                    "build_rollout_kernel",
                                    "make_flash_feature_attention",
-                                   "load_plant", "EpisodeRunner", "collect_humanoid"])
+                                   "load_plant", "EpisodeRunner", "collect_humanoid",
+                                   "collect_quadruped"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -130,6 +146,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
         "EpisodeRunner": lambda: EpisodeRunner("humanoid_walk", use_kernel=True),
         "collect_humanoid": lambda: collect_humanoid(task_name="humanoid_walk",
                                                      use_kernel=True, save=False),
+        "collect_quadruped": lambda: collect_quadruped(n_runs=1, use_kernel=True,
+                                                       save=False),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

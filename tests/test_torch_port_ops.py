@@ -144,6 +144,11 @@ def test_features_outside_the_port_are_refused(models):
     qpos, qvel, ctrl = _state(pm, 0.0)
     with pytest.raises(NotImplementedError):
         tsph.scalar_forward(slid, _t(qpos), _t(qvel))
-    fl = dataclasses.replace(pm, dof_frictionloss=np.full(pm.nv, 0.1))
-    with pytest.raises(NotImplementedError, match="frictionloss"):
-        check_kernel_supported(fl)
+    # a mesh geom on a floor pair stays unported (frictionloss, boxes and
+    # cylinders are the Go1's, ported)
+    floor = next(p.geom2 for p in pm.contact_pairs if pm.geoms[p.geom1].gtype == 0)
+    meshed = dataclasses.replace(pm, geoms=tuple(
+        dataclasses.replace(g, gtype=7, gtype_orig=7) if i == floor else g
+        for i, g in enumerate(pm.geoms)))
+    with pytest.raises(NotImplementedError, match="plane-vs-geom type 7"):
+        check_kernel_supported(meshed)

@@ -268,8 +268,9 @@ def test_unported_solvers_and_features_raise(port_model):
     planner = load_model("humanoid")      # no plant fields
     with pytest.raises(ValueError, match="plant snapshot"):
         peng.Engine(planner, device="cpu", dtype=torch.float64).step(st, torch.zeros(21))
-    boxed = dataclasses.replace(port_model, geoms=tuple(
-        dataclasses.replace(g, gtype=6, gtype_orig=6) if i == 3 else g
+    # a mesh geom stays unported (boxes and cylinders are the Go1's, ported)
+    meshed = dataclasses.replace(port_model, geoms=tuple(
+        dataclasses.replace(g, gtype=7, gtype_orig=7) if i == 3 else g
         for i, g in enumerate(port_model.geoms)))
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        _engine(boxed)
+        _engine(meshed)

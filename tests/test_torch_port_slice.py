@@ -154,7 +154,7 @@ def host_lib(tmp_path_factory):
     subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(out),
                     str(CSRC / "host_rollout.cpp")], check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
-    lib.hmr_rollout_host_f64.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+    lib.hmr_rollout_host_f64.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
     lib.hmr_rollout_host_f64.restype = None
     lib.hmr_tables_size.argtypes = [ctypes.c_int]
     lib.hmr_tables_size.restype = ctypes.c_int
@@ -197,7 +197,8 @@ def test_kernel_body_on_host_matches_plain_rollout(host_lib, case, K):
     tables = rk.pack_tables(model, spec.cost_factory, kw, None, None, True, torch.float64)
     assert host_lib.hmr_tables_size(1) == len(tables)
     buf = ctypes.create_string_buffer(tables, len(tables))
-    ins = [np.ascontiguousarray(a, dtype=np.float64) for a in (qpos, qvel, U, noise, p)]
+    ins = [np.ascontiguousarray(a, dtype=np.float64) for a in (qpos, qvel, np.zeros((1, K)), U,
+                                                              noise, p)]
     outs = [np.zeros(K), np.zeros((model.nq, K)), np.zeros((model.nv, K))]
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
     host_lib.hmr_rollout_host_f64(ctypes.cast(buf, ctypes.c_void_p),
@@ -278,7 +279,8 @@ def test_workspace_layout_fits_its_byte_count(dtype):
     off, size = rk.workspace_layout(model, t.nten)
     assert t.ws_size == size and list(t.off) == [off[f] for f in rk.WS_FIELDS]
     nb, nv, nq, nu, nj = model.nbody, model.nv, model.nq, model.nu, len(model.joints)
-    lengths = {"qpos": nq, "qvel": nv, "u": nu, "xpos": 3 * nb, "xquat": 4 * nb,
+    lengths = {"qpos": nq, "qvel": nv, "u": nu, "time": 1, "cost": 1, "xpos": 3 * nb,
+               "xquat": 4 * nb,
                "V": 6 * nb, "S": 6 * nv, "W": 6 * nv, "IC": 21 * nb, "F": 6 * nb,
                "ab": 6 * nb, "A": nv * (nv + 1) // 2, "tau": nv, "gdiag": nv, "rhs": nv,
                "dinv": nv, "ten_f": t.nten, "ten_c": t.nten, "qloc": 4 * nj,
