@@ -64,13 +64,13 @@ Phases, one JSON line each (with its own `seconds`):
   main_quad_collect -- EpisodeRunner("go1_collect", use_kernel=True) at
              K=4096, H=32 with GAIT_TUNED and goal (2, 0) on the Go1 plant
              (go1_plant.json: 697 candidate pairs): 50 warm-up + 100 timed
-             control steps in chunks of 50; 20 steps split into plan and
+             control steps in chunks of 50; 10 steps split into plan and
              plant ms (CUDA events, Newton iterations, active rows); the
              device launches of one plant step; one plant step under
              set_sync_debug_mode("error"); every logged row finite and the
              trunk height >= 0.08 (the fall line) over the 150 steps; one
-             collect_quadruped run (goal tolerance opened to 1e9 so that its
-             gate saves) read back: 37 / 12 / 1 columns
+             collect_quadruped run in one chunk of 10 (goal tolerance opened
+             to 1e9 so that its gate saves) read back: 37 / 12 / 1 columns
   check_estimator -- the estimator kernel against its plain version on the
              card, seeded weights with nonzero biases and LayerNorm terms,
              presets quadruped/humanoid/cartpole_attention at B=64 and 61:
@@ -95,6 +95,34 @@ Phases, one JSON line each (with its own `seconds`):
              at B=2048 also each kernel alone at the forward's shapes
              (`stages`: each GEMM's ms and TFLOP/s, attention's and
              LayerNorm's ms and GB/s)
+  train   -- slice 7, scripts/quad_pipeline.py's train stage at full width
+             (PRESET_CONFIGS["quadruped"] + quad_train_config: the qpos
+             surrogate, F=31, H=512, 4 heads, 2 layers, f32, TF32 off;
+             rollout_k=8, clip 1.0, ego root x/y, scanned epochs, batch 64,
+             Adam 1e-4 cosine to 1e-6): (a) train_model on main_quad_collect's
+             150 logged rows (10 epochs, eval split 0.5 so that one full eval
+             batch exists): every loss finite, the last eval loss below the
+             first, the best/periodic/final checkpoints and state_last
+             written, model_final's forward equal to the trained module's;
+             (b) on a seeded linear-plant dataset of quad_data_goal's shape
+             (16 runs, 42,597 pairs): 100 single-step epochs timed by CUDA
+             events (ms per step, pairs/s, projected epoch), one 100-step
+             scanned epoch (peak memory), a profiled 10-step epoch (busy
+             share), the host syncs of one epoch (set_sync_debug_mode
+             "warn": 1 expected) and one step under "error"
+  check_estimator_trained -- the estimator kernel against its plain
+             version on the trained quad_pipeline weights
+             (assets/quad_pipeline_best.pt) at B=2048 and 253, F=31, on
+             home-pose inputs: the gates of check_estimator
+  main_estimator_loop -- quad_pipeline's estimator stage: EstimatorRunner
+             on go1_collect's coupled plant, planning on the trained
+             surrogate through the estimator kernel (bf16) at K=2048, T=32,
+             accumulate update, sigma 0.18, the ctrlrange clamp, the FD gait
+             cost, from `home` with the plan seeded at home: 5 warm-up and 50
+             timed control steps (T forwards each), 6 split into plan and
+             plant ms by CUDA events, one profiled control step (launches by
+             kernel, busy share); every row finite, trunk z >= 0.08 m, the
+             progress beside the JAX record
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -141,6 +169,10 @@ GO1_GOAL = (2.0, 0.0)
 GO1_FALL_Z = 0.08   # collect_quadruped's fall line
 GO1_JL_TIMED = 10   # timed replans of the go1 (quadruped_jl) task
 GO1_TIME_K = (4096, 8192)   # the rollout kernel alone, T = GO1_H
+# main_quad_collect's depth, cut to leave the run time for the learning
+# loop's phases: 10 control steps split into plan and plant (20 before),
+# collect_quadruped in one chunk of 10 (50 before)
+GO1_SPLIT_STEPS, GO1_COLLECT_CHUNK = 10, 10
 
 
 def emit(obj):
@@ -768,9 +800,10 @@ def rollout_diagnostics(model, ro, T) -> dict:
             "phase_cycles_one_sample_per_sm": alone}
 
 
-def device_launches(fn) -> dict:
+def device_launches(fn, top: int = 0) -> dict:
     """Device work items (kernels, and memcpy/memset apart) of one call of
-    fn, from torch.profiler; None where it traced no device activity."""
+    fn, from torch.profiler; None where it traced no device activity. With
+    `top`, also the `top` most launched kernel names and their counts."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -778,13 +811,19 @@ def device_launches(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     kernels = copies = 0
+    by_name = {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             if ev.key.startswith(("Memcpy", "Memset")):
                 copies += ev.count
             else:
                 kernels += ev.count
-    return {"kernels": kernels or None, "memcpy_memset": copies}
+                name = ev.key.replace("void ", "").split("(")[0].split("<")[0]
+                by_name[name] = by_name.get(name, 0) + ev.count
+    out = {"kernels": kernels or None, "memcpy_memset": copies}
+    if top:
+        out["by_kernel"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    return out
 
 
 def collect_phase() -> dict:
@@ -954,7 +993,8 @@ def go1_replans(task: str, K: int, H: int, params, warmup: int, timed: int,
 def go1_phases() -> dict:
     """check_go1, main_go1 and main_quad_collect (see the module
     docstring). Returns the Go1 numbers of the rollout kernel's entry of the
-    `kernels` line."""
+    `kernels` line, and under "collected_rows" main_quad_collect's logged
+    rows (the learning loop trains on them)."""
     from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
     from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
     from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
@@ -1028,7 +1068,7 @@ def go1_phases() -> dict:
           "geometry": ro.geometry.get(torch.float32), "ops_per_rollout": n_rollout_ops,
           "seconds": time.perf_counter() - t0})
 
-    collect = quad_collect_phase(params)
+    collect, rows = quad_collect_phase(params)
     t = timing[GO1_K]
     return {"ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "at": {"K": GO1_K, "T": GO1_H},
@@ -1043,12 +1083,14 @@ def go1_phases() -> dict:
                                              "replans": WARMUP + TIMED},
                       "go1 replan": {"launches": jl["launches"],
                                      "replans": WARMUP + GO1_JL_TIMED},
-                      **collect}}
+                      **collect},
+            "collected_rows": rows}
 
 
-def quad_collect_phase(params) -> dict:
+def quad_collect_phase(params):
     """main_quad_collect (see the module docstring). Returns the launch
-    counts of the Go1 collection path."""
+    counts of the Go1 collection path and the logged (states, actions) of
+    its warm-up and timed runs."""
     from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner, collect_quadruped
     from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
     from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
@@ -1089,7 +1131,7 @@ def quad_collect_phase(params) -> dict:
     plant = runner.init_state
     p = torch.tensor(params, dtype=torch.float32, device="cuda")
     plan_ms, plant_ms, step_ms, iters, active = [], [], [], [], []
-    for _ in range(COLLECT_SPLIT_STEPS):
+    for _ in range(GO1_SPLIT_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         h0 = time.perf_counter()
         ev[0].record()
@@ -1121,7 +1163,7 @@ def quad_collect_phase(params) -> dict:
     with tempfile.TemporaryDirectory() as out_base:
         episode = collect_quadruped(n_runs=1, out_base=out_base, use_kernel=True,
                                     mppi_override=tiny, max_steps=COLLECT_TIMED,
-                                    goal_tolerance=1e9, chunk=COLLECT_CHUNK,
+                                    goal_tolerance=1e9, chunk=GO1_COLLECT_CHUNK,
                                     gait_params=np.asarray(GAIT_TUNED, np.float32),
                                     goal_for_run=lambda i: GO1_GOAL)
         torch.cuda.synchronize()
@@ -1137,16 +1179,16 @@ def quad_collect_phase(params) -> dict:
         raise AssertionError(f"collect_quadruped: {episode}")
     if shapes != {"states": 37, "actions": 12, "times": 1}:
         raise AssertionError(f"go1 CSV columns {shapes}")
-    # a chunk always runs to its end: the goal at step 1 still ran COLLECT_CHUNK
-    if collect_launches != COLLECT_CHUNK:
+    # a chunk always runs to its end: the goal at step 1 still ran GO1_COLLECT_CHUNK
+    if collect_launches != GO1_COLLECT_CHUNK:
         raise AssertionError(f"collect_quadruped: {collect_launches} rollout launches "
-                             f"for {COLLECT_CHUNK} control steps")
+                             f"for {GO1_COLLECT_CHUNK} control steps")
     emit({"phase": "main_quad_collect", "task": "go1_collect", "K": cfg.K, "H": cfg.T,
           "dtype": "float32", "params": params.tolist(),
           "steps": COLLECT_WARMUP + COLLECT_TIMED, "timed_steps": COLLECT_TIMED,
           "steps_per_s": COLLECT_TIMED / wall, "control_step_ms": wall / COLLECT_TIMED * 1e3,
           "rollout_launches_per_control_step": timed_launches / COLLECT_TIMED,
-          "split_steps": COLLECT_SPLIT_STEPS,
+          "split_steps": GO1_SPLIT_STEPS,
           "plan_ms_median": statistics.median(plan_ms),
           "plan_ms_q1_q3": [float(x) for x in np.percentile(plan_ms, [25, 75])],
           "plant_ms_median": statistics.median(plant_ms),
@@ -1161,9 +1203,12 @@ def quad_collect_phase(params) -> dict:
           "x_travelled_timed": float(timed.final_qpos[0] - runner.init_state.qpos[0]),
           "collect_episode": episode[0], "csv_columns": shapes,
           "seconds": time.perf_counter() - t0})
-    return {"go1_collect EpisodeRunner.run": {"launches": warm_launches + timed_launches,
-                                               "control_steps": COLLECT_WARMUP + COLLECT_TIMED},
-            "collect_quadruped": {"launches": collect_launches, "control_steps": COLLECT_CHUNK}}
+    paths = {"go1_collect EpisodeRunner.run": {"launches": warm_launches + timed_launches,
+                                                "control_steps": COLLECT_WARMUP + COLLECT_TIMED},
+             "collect_quadruped": {"launches": collect_launches,
+                                   "control_steps": GO1_COLLECT_CHUNK}}
+    rows = {name: res.logger.arrays()[:2] for name, res in (("warmup", warm), ("timed", timed))}
+    return paths, rows
 
 
 def estimator_phases() -> dict:
@@ -1367,6 +1412,400 @@ def estimator_phases() -> dict:
     }
 
 
+# ---- the Go1 learning loop (scripts/quad_pipeline.py's train and estimator stages)
+
+QUAD_ROLLOUT_K = 8
+# quad_data_goal's shape: 16 saved runs, 42,597 pairs (42,613 rows)
+QUAD_DATA_RUNS, QUAD_DATA_PAIRS = 16, 42597
+CHAIN_EPOCHS, CHAIN_CKPT_EVERY = 10, 5
+# the chain's 150 rows make 134 windows of k=8: one full eval batch of 64
+# needs an eval split of at least 0.48
+CHAIN_EVAL_SPLIT = 0.5
+TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, TRAIN_SYNC_STEPS = 10, 100, 10
+EST_LOOP_K, EST_LOOP_T = 2048, 32
+EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 5, 50, 6
+# the JAX record (artifacts/quad_pipeline/summary.json and its
+# estimator_closedloop.npz, 200 steps on a TPU): behaviour, not a target
+JAX_LOOP_RECORD = {"steps": 200, "min_trunk_z": 0.27, "forward_progress_m": -0.1682,
+                   "forward_progress_m_first_50": -0.010717, "min_trunk_z_first_50": 0.27}
+
+
+def quad_train_config(ckpt_dir: str, **overrides):
+    """PRESET_CONFIGS["quadruped"] with scripts/quad_pipeline.py's train
+    overrides (the qpos surrogate: 19 state columns, rollout_k=8, global-norm
+    clip 1.0, ego root x/y, scanned epochs)."""
+    from humanoid_mppi_rl_tpu_torch.learning.train import PRESET_CONFIGS
+
+    kw = dict(ckpt_dir=ckpt_dir, scan_epochs=True, rollout_k=QUAD_ROLLOUT_K, grad_clip=1.0,
+              state_idxes=tuple(range(19)), model_overrides={"state_dim": 19},
+              ego_xy_cols=(0, 1))
+    kw.update(overrides)
+    return dataclasses.replace(PRESET_CONFIGS["quadruped"], **kw)
+
+
+def write_runs(root: str, runs: dict) -> tuple:
+    """{name: (states, actions)} as <root>/{states,actions}/<name>.csv (the
+    flat layout quad_pipeline trains from); returns the two dirs."""
+    from humanoid_mppi_rl_tpu_torch.utils.trajio import write_csv
+
+    dirs = tuple(os.path.join(root, kind) for kind in ("states", "actions"))
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    for name, arrays in runs.items():
+        for d, a in zip(dirs, arrays):
+            write_csv(os.path.join(d, f"{name}.csv"), a)
+    return dirs
+
+
+def quad_linear_runs(seed: int = 0) -> dict:
+    """QUAD_DATA_RUNS runs of [qpos-like (19); qvel-like (18)] rows and 12
+    actions, QUAD_DATA_PAIRS pairs in all, from a stable numpy linear plant
+    whose first 19 columns evolve on their own (so a net given those
+    columns and the actions can fit them)."""
+    rng = np.random.default_rng(seed)
+    n_rows = QUAD_DATA_PAIRS + QUAD_DATA_RUNS
+    lengths = [n_rows // QUAD_DATA_RUNS + (i < n_rows % QUAD_DATA_RUNS)
+               for i in range(QUAD_DATA_RUNS)]
+    A = 0.97 * np.eye(37) + 0.02 * rng.normal(size=(37, 37)) / np.sqrt(37)
+    A[:19, 19:] = 0.0
+    B = 0.05 * rng.normal(size=(37, 12))
+    runs = {}
+    for i, n in enumerate(lengths):
+        u = 0.3 * rng.normal(size=(n, 12))
+        x = np.empty((n, 37))
+        x[0] = 0.3 * rng.normal(size=37)
+        for t in range(n - 1):
+            x[t + 1] = A @ x[t] + B @ u[t]
+        runs[f"run_{i:03d}"] = (x, u)
+    return runs
+
+
+def count_syncs(fn):
+    """(fn's result, the synchronizing CUDA calls it made), counted with
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def train_phase(collected: dict) -> dict:
+    """train (see the module docstring): (a) the chain on main_quad_collect's
+    rows, (b) the step's time on a dataset of quad_data_goal's shape."""
+    from humanoid_mppi_rl_tpu_torch.learning import train as tr
+    from humanoid_mppi_rl_tpu_torch.learning.data import MultiTrajectoryDataset
+    from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
+
+    # ---- (a) the chain: collect -> CSV -> dataset -> train -> checkpoints --
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sdir, adir = write_runs(os.path.join(root, "data"), collected)
+        ck = os.path.join(root, "ckpt")
+        cfg = quad_train_config(ck, epochs=CHAIN_EPOCHS, ckpt_every=CHAIN_CKPT_EVERY,
+                                eval_split=CHAIN_EVAL_SPLIT)
+        out = tr.train_model(sdir, adir, cfg)
+        torch.cuda.synchronize()
+        with open(os.path.join(ck, "metrics.jsonl")) as f:
+            epochs = [e for e in map(json.loads, f) if e["kind"] == "epoch"]
+        files = sorted(os.listdir(ck))
+        model = out["model"]
+        x = torch.tensor(np.concatenate([collected["timed"][0][:64, :19],
+                                         collected["timed"][1][:64]], axis=1),
+                         dtype=torch.float32, device="cuda")
+        with torch.no_grad():
+            mine = model.eval()(x)
+            final = tr.load_checkpoint(out["final_checkpoint"],
+                                       make_model("quadruped_attention", state_dim=19).cuda())(x)
+            best = tr.load_checkpoint(out["best_checkpoint"],
+                                      make_model("quadruped_attention", state_dim=19).cuda())(x)
+    train_l = [e["train_loss"] for e in epochs]
+    eval_l = [e["eval_loss"] for e in epochs]
+    best_epoch = int(np.argmin(eval_l))
+    want_files = {"model_best.pt", "model_final.pt", "state_last.pt", "train_summary.json",
+                  "metrics.jsonl"} | {f"model_epoch_{e}.pt" for e in
+                                      range(CHAIN_CKPT_EVERY, CHAIN_EPOCHS + 1, CHAIN_CKPT_EVERY)}
+    if len(epochs) != CHAIN_EPOCHS or not np.isfinite(train_l + eval_l).all():
+        raise AssertionError(f"chain losses: train {train_l}, eval {eval_l}")
+    if not eval_l[-1] < eval_l[0]:
+        raise AssertionError(f"the chain's eval loss did not fall: {eval_l}")
+    if not want_files <= set(files):
+        raise AssertionError(f"chain checkpoints: {files}")
+    if not torch.equal(final, mine):
+        raise AssertionError("model_final's forward differs from the trained module's")
+    if best_epoch == CHAIN_EPOCHS - 1 and not torch.equal(best, mine):
+        raise AssertionError("model_best (the last epoch) differs from the trained module")
+    if not torch.isfinite(best).all():
+        raise AssertionError("model_best's forward is not finite")
+    chain = {"rows": {k: list(v[0].shape) for k, v in collected.items()},
+             "n_pairs": out["n_pairs"], "epochs": CHAIN_EPOCHS, "eval_split": CHAIN_EVAL_SPLIT,
+             "train_loss": train_l, "eval_loss": eval_l, "best_epoch": best_epoch,
+             "checkpoints": files, "seconds": time.perf_counter() - t0}
+
+    # ---- (b) the step's time on quad_data_goal's shape ----------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sdir, adir = write_runs(root, quad_linear_runs(seed=0))
+        cfg = quad_train_config(os.path.join(root, "ckpt"))
+        ds = MultiTrajectoryDataset(sdir, adir, return_type=cfg.return_type,
+                                    eval_split=cfg.eval_split, state_idxes=cfg.state_idxes,
+                                    seed=cfg.seed, rollout_k=cfg.rollout_k)
+    if len(ds) != QUAD_DATA_PAIRS or ds.n_trajectories != QUAD_DATA_RUNS:
+        raise AssertionError(f"dataset: {len(ds)} pairs in {ds.n_trajectories} runs")
+    dev = torch.device("cuda")
+    B, k = cfg.batch_size, cfg.rollout_k
+    steps_per_epoch = len(ds.win_train_idx) // B
+    model, state = tr.create_train_state(cfg, ds.inputs[:1], steps_per_epoch)
+    S = torch.as_tensor(ds.win_states, device=dev)
+    A = torch.as_tensor(ds.win_actions, device=dev)
+    train_epoch, eval_all = tr.make_scanned_rollout_steps(S, A, k, ego_cols=cfg.ego_xy_cols)
+    perm = np.random.default_rng(0).permutation(len(ds.win_train_idx))
+    pool = np.asarray(ds.win_train_idx, np.int64)[perm]
+    n_idx = TRAIN_WARMUP_STEPS + 1 + 2 * TRAIN_TIMED_STEPS
+    idx = tr.to_device(pool[: n_idx * B].reshape(n_idx, B), dev)
+    parts = np.cumsum([0, TRAIN_WARMUP_STEPS, 1, TRAIN_TIMED_STEPS])
+    warm_i, err_i, step_i = (idx[a:b] for a, b in zip(parts[:-1], parts[1:]))
+    epoch_i = idx[parts[-1]:]
+    gen = tr.epoch_generator(cfg.seed, 0, dev)
+    state, loss0 = train_epoch(state, warm_i, gen)
+    first_loss = float(loss0)
+    def one_epoch():
+        """An epoch as train_model runs it: the index upload, the steps,
+        the loss fetch."""
+        _, loss = train_epoch(state, tr.to_device(pool[:TRAIN_SYNC_STEPS * B].reshape(-1, B),
+                                                  dev), gen)
+        return float(loss)
+
+    sync_loss, syncs = count_syncs(one_epoch)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, err_loss = train_epoch(state, err_i, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    # per step: single-step epochs back to back, CUDA events around each
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_TIMED_STEPS + 1)]
+    ev[0].record()
+    h0 = time.perf_counter()
+    for i in range(TRAIN_TIMED_STEPS):
+        state, _ = train_epoch(state, step_i[i:i + 1], gen)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    host_step_ms = (time.perf_counter() - h0) / TRAIN_TIMED_STEPS * 1e3
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_TIMED_STEPS)]
+    # one scanned epoch of TRAIN_TIMED_STEPS steps, its memory peak
+    torch.cuda.reset_peak_memory_stats()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    state, loss_epoch = train_epoch(state, epoch_i, gen)
+    b.record()
+    last_loss = float(loss_epoch)
+    scanned_ms = a.elapsed_time(b) / TRAIN_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: train_epoch(state, warm_i, gen))
+    n_ev = len(ds.win_eval_idx) // B
+    ev_out = eval_all(model, tr.to_device(
+        np.asarray(ds.win_eval_idx[: n_ev * B], np.int64).reshape(n_ev, B), dev))
+    eval_loss = float(ev_out[0].mean())
+    losses = [first_loss, sync_loss, float(err_loss), last_loss, eval_loss]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train losses {losses}")
+    if syncs != 1:
+        raise AssertionError(f"{syncs} host syncs in one scanned epoch (1 expected)")
+    med = statistics.median(step_ms)
+    q1, q3 = np.percentile(step_ms, [25, 75])
+    timing = {"model": "quadruped_attention, state_dim=19 (F=31, H=512, 4 heads, 2 layers)",
+              "dtype": "float32", "tf32": torch.backends.cuda.matmul.allow_tf32,
+              "batch": B, "rollout_k": k, "n_pairs": len(ds), "n_windows": len(ds.win_states),
+              "steps_per_epoch": steps_per_epoch, "timed_steps": TRAIN_TIMED_STEPS,
+              "step_ms_median": med, "step_ms_q1_q3": [float(q1), float(q3)],
+              "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+              "host_step_ms_mean": host_step_ms, "scanned_epoch_step_ms": scanned_ms,
+              "windows_per_s": B / (med / 1e3), "pairs_per_s": B * k / (med / 1e3),
+              "projected_epoch_s": steps_per_epoch * scanned_ms / 1e3,
+              "peak_memory_bytes": peak, "host_syncs_per_epoch": syncs,
+              "sync_free_step": True, "device_busy_share": prof["device_busy_share"],
+              "profiled_epoch": {"steps": TRAIN_WARMUP_STEPS, "wall_ms": prof["wall_ms"],
+                                 "device_busy_ms": prof["device_busy_ms"],
+                                 "top_kernels_ms": dict(list(
+                                     prof["device_ms_by_kernel"].items())[:8])},
+              "loss_first_steps": first_loss, "loss_last_epoch": last_loss,
+              "eval_loss": eval_loss, "seconds": time.perf_counter() - t0}
+    emit({"phase": "train", "chain": chain, "timing": timing})
+    return {"train_step_ms": med, "host_syncs_per_epoch": syncs}
+
+
+def check_trained_phase() -> dict:
+    """check_estimator_trained: the estimator kernel against its plain
+    version on the trained quad_pipeline weights."""
+    from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+    from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+
+    t0 = time.perf_counter()
+    module = load_trained("quad_pipeline_best")
+    home = dict(load_model("go1_plant").keyframes)["home"]
+    errs = {}
+    for B in (EST_LOOP_K, 253):
+        # the closed loop's net inputs: home poses (root x/y zeroed) and
+        # home leg targets, perturbed
+        rng = np.random.default_rng(B)
+        q = home[:19] + 0.05 * rng.normal(size=(B, 19))
+        q[:, :2] = 0.0
+        u = home[7:19] + 0.18 * rng.normal(size=(B, 12))
+        x = torch.tensor(np.concatenate([q, u], axis=1), dtype=torch.float32, device="cuda")
+        for cd in (torch.float32, torch.bfloat16):
+            apply = ek.make_flash_feature_attention(module, cd)
+            n0 = ek.launches
+            got = apply(x)
+            torch.cuda.synchronize()
+            if ek.launches != n0 + 1:
+                raise AssertionError("estimator kernel launch was not counted")
+            want = apply.plain(x)
+            key = f"{str(cd).replace('torch.', '')}/B={B}"
+            if tuple(got.shape) != (B, 19) or not torch.isfinite(got).all():
+                raise AssertionError(f"{key}: bad kernel output")
+            if cd == torch.float32:
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=key)
+                errs[key] = {"max_abs": float((got - want).abs().max()),
+                             "max_abs_y": float(want.abs().max())}
+            else:
+                e = bf16_errors(got, want)
+                if not e["within"]:
+                    raise AssertionError(f"{key}: {e}")
+                errs[key] = e
+    emit({"phase": "check_estimator_trained", "weights": "assets/quad_pipeline_best.pt",
+          "model": "quadruped_attention, state_dim=19 (F=31)", "B": [EST_LOOP_K, 253],
+          "tolerance": {"float32": "rtol=atol=1e-4",
+                        "bfloat16": "median|diff|<=3e-3*s, max|diff|<=3e-2*s, s=max(1,max|y|)"},
+          "errors": errs, "seconds": time.perf_counter() - t0})
+    return errs
+
+
+def estimator_loop_phase() -> dict:
+    """main_estimator_loop: quad_pipeline's estimator stage on the card."""
+    import dataclasses as dc
+
+    from humanoid_mppi_rl_tpu_torch.collect.estimator import (
+        ESTIMATOR_CONFIGS, EstimatorRunner, quadruped_fd_gait_estimator_costs)
+    from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+    from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+
+    t0 = time.perf_counter()
+    pm = load_model("go1_plant")
+    home = dict(pm.keyframes)["home"]
+    lo, hi = pm.ctrl_range()
+    # scripts/quad_pipeline.py:233-270
+    cfg = dc.replace(ESTIMATOR_CONFIGS["quadruped"], n_samples=EST_LOOP_K, horizon=EST_LOOP_T,
+                     update_mode="accumulate", sigma=0.3 * 0.6, tail_decay=0.0,
+                     ctrl_low=tuple(float(v) for v in lo), ctrl_high=tuple(float(v) for v in hi),
+                     clamp_rollout_ctrl=True)
+    running, terminal = quadruped_fd_gait_estimator_costs(home[7:19], dt=float(pm.timestep))
+    runner = EstimatorRunner("go1_collect", load_trained("quad_pipeline_best"), cfg, running,
+                             terminal, state_fn=lambda plant: plant.qpos, batched_dynamics=True,
+                             fd_time_augment=19, ego_cols=(0, 1))
+    start = dict(init_qpos=home, init_plan=home[7:19], seed=0)
+    ek.launches = 0
+    ek.kernel_launches.update(dict.fromkeys(ek.KINDS, 0))
+    warm = runner.run(n_steps=EST_LOOP_WARMUP, chunk=EST_LOOP_WARMUP, **start)
+    torch.cuda.synchronize()
+    warm_launches = ek.launches
+    h0 = time.perf_counter()
+    log = runner.run(n_steps=EST_LOOP_TIMED, chunk=EST_LOOP_TIMED, **start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - h0
+    launches, per_kind = ek.launches, dict(ek.kernel_launches)
+    n_steps = EST_LOOP_WARMUP + EST_LOOP_TIMED
+    if (warm_launches, launches) != (EST_LOOP_WARMUP * cfg.T, n_steps * cfg.T):
+        raise AssertionError(f"estimator forwards {warm_launches}/{launches} for "
+                             f"{EST_LOOP_WARMUP}/{n_steps} control steps of T={cfg.T}")
+    heights = []
+    for name, lg, n in (("warm-up", warm, EST_LOOP_WARMUP), ("timed", log, EST_LOOP_TIMED)):
+        states, actions, times = lg.arrays()
+        if states.shape != (n, 37) or actions.shape != (n, 12) or times.shape != (n,):
+            raise AssertionError(f"estimator loop {name}: {states.shape} {actions.shape}")
+        if not (np.isfinite(states).all() and np.isfinite(actions).all()):
+            raise AssertionError(f"estimator loop {name}: non-finite rows")
+        heights.append(states[:, 2])
+    heights = np.concatenate(heights)
+    if heights.min() < GO1_FALL_Z:
+        raise AssertionError(f"the Go1 fell in the closed loop: trunk {heights.min():.3f}")
+    states, actions, _ = log.arrays()
+
+    # control steps one at a time: plan and plant apart by CUDA events
+    ms, plant = runner.start(**start)
+    plan_ms, plant_ms, step_ms = [], [], []
+    with torch.no_grad():
+        for _ in range(EST_LOOP_SPLIT):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            h = time.perf_counter()
+            ev[0].record()
+            action, ms, _ = runner.plan(ms, runner.extract(plant))
+            ev[1].record()
+            plant = runner.plant_dyn(plant, action)
+            ev[2].record()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - h) * 1e3)
+            plan_ms.append(ev[0].elapsed_time(ev[1]))
+            plant_ms.append(ev[1].elapsed_time(ev[2]))
+    n0, k0 = ek.launches, dict(ek.kernel_launches)
+    prof = device_profile(lambda: runner.control_step(ms, plant))
+    prof_kinds = {kk: ek.kernel_launches[kk] - k0[kk] for kk in ek.KINDS}
+    prof_forwards = ek.launches - n0
+    by_kernel = device_launches(lambda: runner.control_step(ms, plant), top=12)
+    if prof_forwards != cfg.T:
+        raise AssertionError(f"{prof_forwards} estimator forwards in a control step (T={cfg.T})")
+    q = lambda v: [float(x) for x in np.percentile(v, [25, 75])]
+    emit({"phase": "main_estimator_loop", "task": "go1_collect",
+          "weights": "assets/quad_pipeline_best.pt", "K": cfg.K, "T": cfg.T,
+          "dtype": "bfloat16 surrogate, float32 plant", "cost": "quadruped_fd_gait",
+          "update_mode": cfg.update_mode, "sigma": cfg.sigma,
+          "steps": n_steps, "timed_steps": EST_LOOP_TIMED,
+          "control_step_ms_mean_timed_run": wall / EST_LOOP_TIMED * 1e3,
+          "split_steps": EST_LOOP_SPLIT,
+          "control_step_host_ms_median": statistics.median(step_ms),
+          "control_step_host_ms_q1_q3": q(step_ms),
+          "plan_ms_median": statistics.median(plan_ms), "plan_ms_q1_q3": q(plan_ms),
+          "plant_ms_median": statistics.median(plant_ms), "plant_ms_q1_q3": q(plant_ms),
+          "plan_ms": plan_ms, "plant_ms": plant_ms,
+          "estimator_forwards_per_control_step": launches / n_steps,
+          "estimator_kernel_launches": per_kind,
+          "profiled_control_step": {"estimator_forwards": prof_forwards,
+                                    "estimator_kernels_by_kind": prof_kinds,
+                                    "device_launches": by_kernel,
+                                    "wall_ms": prof["wall_ms"],
+                                    "device_busy_ms": prof["device_busy_ms"],
+                                    "device_busy_share": prof["device_busy_share"]},
+          "trunk_z_min": float(heights.min()),
+          "forward_progress_m": float(states[-1, 0] - states[0, 0]),
+          "final_root_xyz": [float(v) for v in states[-1, :3]],
+          "jax_record_tpu": JAX_LOOP_RECORD,
+          "seconds": time.perf_counter() - t0})
+    return {"launches": launches, "control_steps": n_steps,
+            "control_step_ms_median": statistics.median(step_ms)}
+
+
+def learning_phases(collected: dict) -> dict:
+    """train, check_estimator_trained and main_estimator_loop; returns the
+    numbers the estimator's entry of the `kernels` line adds."""
+    train = train_phase(collected)
+    errs = check_trained_phase()
+    loop = estimator_loop_phase()
+    return {"paths": {"go1 estimator closed loop": {
+                "launches": loop["launches"], "control_steps": loop["control_steps"]}},
+            "max_abs_err_bf16_B2048": errs[f"bfloat16/B={EST_LOOP_K}"]["max_abs"],
+            "max_abs_err_f32_B2048": errs[f"float32/B={EST_LOOP_K}"]["max_abs"],
+            "closed_loop_control_step_ms": loop["control_step_ms_median"],
+            "train_step_ms": train["train_step_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1495,8 +1934,14 @@ def main() -> int:
     collect = collect_phase()
     go1 = go1_phases()
 
+    collected = go1.pop("collected_rows")
     est = estimator_phases()
     est["sass_hgmma"] = hgmma_of["estimator_kernel.cu"]
+    loop = learning_phases(collected)
+    est["paths"] = {"estimator replan": {"launches": est["launches"],
+                                         "replans": EST_WARMUP + EST_TIMED},
+                    **loop.pop("paths")}
+    est["trained_weights"] = loop
 
     emit({"kernels": [{
         "name": "rollout",

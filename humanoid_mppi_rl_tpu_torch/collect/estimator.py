@@ -1,21 +1,29 @@
-"""Estimator MPPI on a learned surrogate: the solver configurations and the
-costs (collect/estimator.py counterpart).
+"""Estimator MPPI: closed-loop control that plans on a learned surrogate
+while the coupled plant plays the real robot (collect/estimator.py
+counterpart): the solver configurations, the costs and EstimatorRunner.
 
 Every cost here is batched: x (..., nx) and u (..., nu) -> (...), summing
 over the last axis only (the JAX costs are per-sample and vmapped over K).
 
-Still to port: humanoid_fk/predvel_estimator_costs (they need the array
-engine's forward kinematics and costs/humanoid) and EstimatorRunner (it
-steps the plant on the array engine).
+Still to port: humanoid_fk/predvel_estimator_costs (they need the batched
+array engine's forward kinematics and costs/humanoid, ROADMAP A2/A3) and
+make_cartpole_estimator (slide joints, ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from ..solver.mppi import MPPIConfig
+from .._device import resolve_device
+from ..dynamics.learned import flat_state_from_physics, make_learned_dynamics
+from ..envs.tasks import load_plant
+from ..ops.estimator_kernel import make_flash_feature_attention
+from ..solver.mppi import MPPIConfig, MPPIState, make_mppi
+from .logging import TrajectoryLogger
 
 ESTIMATOR_CONFIGS = {
     # reference src/cartpole_mppi_estimator.py:37-40
@@ -213,3 +221,101 @@ def quadruped_fd_gait_estimator_costs(home12, goal_xy=(2.0, 0.0),
         return torch.zeros(x_aug.shape[:-1], dtype=x_aug.dtype, device=x_aug.device)
 
     return running, terminal
+
+
+class EstimatorRunner:
+    """Plan on the surrogate; execute on the task's coupled plant
+    (envs/tasks.load_plant: the coupled constraint tier with body-body
+    contacts, as the JAX runner's build_from_mjcf(...,
+    include_self_collisions=True) and step(solver="coupled")).
+
+    `module` is the surrogate (models/predictors); it is moved to `device`
+    and put in eval mode. With `batched_dynamics=True` the rollouts go
+    through the CUDA estimator kernel
+    (ops/estimator_kernel.make_flash_feature_attention in bf16, the JAX
+    kernel's default; on CPU tensors its plain version), else through the
+    module's own forward. `state_fn(plant) -> x` overrides the default
+    [qpos; qvel] estimator state.
+    `fd_time_augment=nx` wraps the surrogate in the [x; x_prev; t_abs]
+    augmentation (make_fd_time_augmented), t_abs read from the plant's
+    clock. The plant runs on `device` in `dtype`; the plan is float32, as
+    the JAX MPPIState's."""
+
+    def __init__(self, task_name: str, module, cfg: MPPIConfig, running, terminal,
+                 state_slice: Optional[int] = None, seed: int = 0,
+                 state_fn: Optional[Callable] = None, batched_dynamics: bool = False,
+                 fd_time_augment: Optional[int] = None, ego_cols=None,
+                 device="cuda", dtype=torch.float32):
+        self.device, self.dtype = resolve_device(device), dtype
+        self.plant_model, self.plant_dyn = load_plant(task_name, device=self.device, dtype=dtype)
+        self.cfg = cfg
+        module = module.to(self.device).eval()
+        self.apply = (make_flash_feature_attention(module, torch.bfloat16, self.device)
+                      if batched_dynamics else module)
+        net_dyn = make_learned_dynamics(self.apply, state_slice=state_slice, ego_cols=ego_cols)
+        extract = state_fn or flat_state_from_physics
+        if fd_time_augment is not None:
+            net_dyn, augment = make_fd_time_augmented(
+                net_dyn, fd_time_augment, float(self.plant_model.timestep))
+            base_extract = extract
+            extract = lambda plant: augment(base_extract(plant), plant.time)
+        self.extract = extract
+        self.plan = make_mppi(net_dyn, running, cfg, terminal_fn=terminal)
+        self.seed = seed
+
+    @torch.no_grad()
+    def control_step(self, ms: MPPIState, plant, noise=None):
+        """Plan on the surrogate from the plant's state, then step the
+        plant: (action, ms', plant', diag). `noise` (K, T, nu) replaces the
+        planner's draw."""
+        action, ms, diag = self.plan(ms, self.extract(plant), noise=noise)
+        return action, ms, self.plant_dyn(plant, action), diag
+
+    def start(self, init_qpos=None, init_qvel=None, seed: Optional[int] = None,
+              init_plan=None):
+        """(ms, plant): a seeded controller and the plant's forward state at
+        time 0 from (init_qpos or qpos0, init_qvel or zeros). `init_plan`
+        (nu,) seeds every horizon row of the plan (a position-servo robot's
+        zero plan commands zero joint targets)."""
+        m = self.plant_model
+        as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)
+        plant = self.plant_dyn.engine.forward(
+            as_t(m.qpos0 if init_qpos is None else init_qpos),
+            as_t(np.zeros(m.nv) if init_qvel is None else init_qvel))
+        ms = MPPIState.seeded(self.seed if seed is None else seed, self.cfg.T, m.nu,
+                              device=self.device)
+        if init_plan is not None:
+            ms.U = torch.as_tensor(np.asarray(init_plan, np.float32),
+                                   device=self.device).repeat(self.cfg.T, 1)
+        return ms, plant
+
+    def run(self, n_steps: int = 200, init_qpos=None, init_qvel=None,
+            seed: Optional[int] = None, init_plan=None, chunk: int = 50,
+            noise_fn: Optional[Callable] = None) -> TrajectoryLogger:
+        """n_steps control steps from `start(...)`; logs [qpos; qvel], the
+        action and the sim time of the state before each step. Rows stay on
+        the device and cross to the host once per `chunk` steps.
+        `noise_fn(step) -> (K, T, nu)` replaces the planner's noise draw at
+        step `step` (the parity tests' matched-noise hook)."""
+        ms, plant = self.start(init_qpos, init_qvel, seed, init_plan)
+        nq, nv = self.plant_model.nq, self.plant_model.nv
+        log = TrajectoryLogger()
+        done = 0
+        while done < n_steps:
+            packed = []
+            for _ in range(min(chunk, n_steps - done)):
+                noise = noise_fn(done) if noise_fn is not None else None
+                action, ms, nxt, _ = self.control_step(ms, plant, noise)
+                packed.append(torch.cat([plant.qpos, plant.qvel, action.to(plant.qpos.dtype),
+                                         plant.time.reshape(1)]))
+                plant = nxt
+                done += 1
+            for row in torch.stack(packed).cpu().numpy():   # one host fetch per chunk
+                log.log(row[:nq + nv], row[nq + nv:-1], float(row[-1]))
+        return log
+
+
+def make_cartpole_estimator(module, seed: int = 0, device="cuda") -> EstimatorRunner:
+    raise NotImplementedError(
+        "the cartpole estimator needs slide joints in the plant and the cartpole "
+        "costs, which are not ported yet (ROADMAP A8)")

@@ -21,16 +21,18 @@ def make_learned_dynamics(apply_fn: Callable[[torch.Tensor], torch.Tensor],
     state). `state_slice` truncates the net output. `ego_cols` zeroes those
     state columns in the net input only (a copy; x itself is untouched), so
     deltas stay translation-invariant while the state keeps its absolute
-    coordinates."""
+    coordinates; the column index reaches each device once, not per call."""
     if mode not in ("delta", "raw"):
         raise ValueError(f"mode {mode!r}: expected 'delta' or 'raw'")
     ego = None if ego_cols is None else list(ego_cols)
+    ego_index = {}   # device -> the columns as an index tensor there, made once
 
     def dynamics(x: torch.Tensor, u: torch.Tensor, t) -> torch.Tensor:
         x_in = x
         if ego is not None:
-            x_in = x.clone()
-            x_in[..., ego] = 0.0
+            if x.device not in ego_index:
+                ego_index[x.device] = torch.as_tensor(ego, dtype=torch.long, device=x.device)
+            x_in = x.index_fill(-1, ego_index[x.device], 0.0)
         out = apply_fn(torch.cat([x_in, u], dim=-1))
         if state_slice is not None:
             out = out[..., :state_slice]

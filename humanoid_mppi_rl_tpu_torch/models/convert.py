@@ -12,16 +12,42 @@ Layouts (flax -> torch):
   attention out kernel (nh, hd, H)       -> out_proj.weight = kernel.reshape(H, H).T
   LayerNorm scale/bias                   -> LayerNorm weight/bias
   pos_embedding (F, H)                   -> pos_embedding (1, F, H)
+
+Trained weights ship as state_dicts in assets/ (TRAINED), converted once
+from the JAX package's orbax checkpoints so that no orbax is needed to
+load them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from .predictors import FeatureAttentionStatePredictor
+from .._device import resolve_device
+from .predictors import FeatureAttentionStatePredictor, make_model
+
+# assets/<name>.pt: (preset, constructor overrides) of the module it fits
+TRAINED = {
+    # scripts/quad_pipeline.py's best checkpoint: the position-only Go1
+    # surrogate (artifacts/quad_pipeline/ckpt/model_best)
+    "quad_pipeline_best": ("quadruped_attention", {"state_dim": 19}),
+}
+
+
+def trained_path(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.dirname(__file__)), "assets", f"{name}.pt")
+
+
+def load_trained(name: str, device="cuda") -> FeatureAttentionStatePredictor:
+    """The module of TRAINED[name] with its committed weights, on `device`,
+    in eval mode."""
+    preset, overrides = TRAINED[name]
+    module = make_model(preset, **overrides)
+    module.load_state_dict(torch.load(trained_path(name), map_location="cpu", weights_only=True))
+    return module.to(resolve_device(device))
 
 
 def _t(a) -> torch.Tensor:

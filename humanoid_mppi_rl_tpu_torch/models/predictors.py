@@ -5,14 +5,25 @@ FeatureAttentionStatePredictor: each scalar feature of [state; action] is a
 token (shared Linear(1,H) encoding, LayerNorm, ReLU, learned positional
 embedding), pre-LN transformer blocks (multi-head self-attention, FFN 4H
 with ReLU), a per-token scalar head, output cut to state_dim. The numerics
-are the flax module's: LayerNorm eps 1e-6, f32 throughout. Parameter names
+are the flax module's: LayerNorm eps 1e-6, computed in the weights' dtype
+(f32, or f64 after `.double()`), the output cast to f32. Parameter names
 are those of the reference's PyTorch model (learning/model.py there), so
 models.convert carries flax weights across and back.
 
-The MLP and cross-attention predictors wait for the training slice.
+Training mode (`module.train()`) applies flax's dropouts: on the attention
+weights after the softmax, one (F, F) mask shared by every sample and head
+(flax's broadcast_dropout), and elementwise on the attention residual,
+after the FFN's ReLU and on the FFN residual; kept values are scaled by
+1/keep. The masks come from the `generator` passed to forward. Eval mode
+runs nn.MultiheadAttention and no dropout.
+
+The MLP and cross-attention predictors are not ported yet.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -31,11 +42,39 @@ class _TransformerBlock(nn.Module):
                                  nn.Linear(4 * hidden_dim, hidden_dim))
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x, generator)
         y = self.norm1(x).reshape(-1, *x.shape[-2:])
         a = self.attention(y, y, y, need_weights=False)[0].reshape(x.shape)
         x = x + self.dropout(a)
         return x + self.dropout(self.ffn(self.norm2(x)))
+
+    def _train_forward(self, x, gen):
+        """The attention written out, flax's dropouts in flax's places."""
+        mha, rate = self.attention, self.dropout.p
+        Fn, H = x.shape[-2:]
+        hd = H // mha.num_heads
+        qkv = nn.functional.linear(self.norm1(x), mha.in_proj_weight, mha.in_proj_bias)
+        q, k, v = (t.unflatten(-1, (mha.num_heads, hd)).transpose(-2, -3)
+                   for t in qkv.split(H, dim=-1))                 # (..., nh, F, hd)
+        w = torch.softmax((q / math.sqrt(hd)) @ k.transpose(-1, -2), dim=-1)
+        if rate > 0:
+            keep = torch.rand((Fn, Fn), generator=gen, dtype=w.dtype, device=w.device) < 1 - rate
+            w = w * (keep.to(w.dtype) / (1 - rate))
+        a = mha.out_proj((w @ v).transpose(-2, -3).flatten(-2))
+        x = x + _dropout(a, rate, gen)
+        h = _dropout(torch.relu(self.ffn[0](self.norm2(x))), rate, gen)
+        return x + _dropout(self.ffn[3](h), rate, gen)
+
+
+def _dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - rate, scaled by 1/keep."""
+    if rate <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, dtype=x.dtype, device=x.device) < 1 - rate
+    return torch.where(keep, x / (1 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class FeatureAttentionStatePredictor(nn.Module):
@@ -60,12 +99,15 @@ class FeatureAttentionStatePredictor(nn.Module):
     def input_dim(self) -> int:
         return self.state_dim + self.action_dim
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (..., state_dim + action_dim) -> (..., state_dim), f32."""
-        h = self.feature_encoding(x.float()[..., None]) + self.pos_embedding[0]
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (..., state_dim + action_dim) -> (..., state_dim), f32 (the flax
+        module's output cast). `generator` draws the training-mode dropout
+        masks; eval mode draws nothing."""
+        h = self.feature_encoding(x.to(self.pos_embedding.dtype)[..., None]) + self.pos_embedding[0]
         for layer in self.layers:
-            h = layer(h)
-        return self.output_layer(h)[..., 0][..., : self.state_dim]
+            h = layer(h, generator)
+        return self.output_layer(h)[..., 0][..., : self.state_dim].float()
 
 
 PRESETS = {

@@ -1,5 +1,5 @@
-"""Structured metrics: a JSONL event stream (utils/metrics.py counterpart,
-the part the collection loop uses)."""
+"""Structured metrics: a JSONL event stream and a wall-clock timer
+(utils/metrics.py counterpart)."""
 
 from __future__ import annotations
 
@@ -29,3 +29,15 @@ class JSONLWriter:
     def close(self) -> None:
         if self._f:
             self._f.close()
+
+
+class Timer:
+    """Wall-clock timer; `with Timer() as t: ...; t.seconds`."""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        return False

@@ -278,3 +278,73 @@ def test_cuda_go1_plant_step_matches_cpu(case):
     got = eng.step(eng.forward(card(qpos), card(qvel)), card(ctrl))
     torch.testing.assert_close(got.qpos.cpu(), ref.qpos, rtol=0, atol=1e-9)
     torch.testing.assert_close(got.qvel.cpu(), ref.qvel, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu():
+    """Three scanned rollout steps (k=8, ego root x/y, clip 1.0) of the
+    quad_pipeline surrogate at a narrow width, dropout 0, f32 (TF32 off):
+    losses and weights on the card against the CPU's, rtol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from chip_smoke import QUAD_ROLLOUT_K, quad_train_config
+    from humanoid_mppi_rl_tpu_torch.learning import train as tr
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = quad_train_config("unused", model_overrides=dict(
+            state_dim=19, hidden_dim=64, dropout_rate=0.0))
+        rng = np.random.default_rng(0)
+        S = np.cumsum(0.01 * rng.normal(size=(96, QUAD_ROLLOUT_K + 1, 19)), axis=1)
+        S = (S + rng.normal(size=(96, 1, 19))).astype(np.float32)
+        A = rng.normal(size=(96, QUAD_ROLLOUT_K, 12)).astype(np.float32)
+        idx = rng.permutation(96)[:3 * 32].reshape(3, 32)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model, state = tr.create_train_state(cfg, np.zeros((1, 31)), 3, device=dev)
+            step, _ = tr.make_scanned_rollout_steps(
+                torch.tensor(S, device=dev), torch.tensor(A, device=dev), QUAD_ROLLOUT_K,
+                ego_cols=(0, 1))
+            losses = []
+            for i in range(3):
+                state, loss = step(state, torch.tensor(idx[i:i + 1], device=dev),
+                                   tr.epoch_generator(0, i, dev))
+                losses.append(float(loss))
+            out[dev] = (losses, {k: v.cpu() for k, v in model.state_dict().items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for name, w in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][name], w, rtol=1e-4, atol=1e-6, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_estimator_runner_runs():
+    """EstimatorRunner with the trained quad_pipeline weights through the
+    estimator kernel (K=256, T=4), 3 control steps on the Go1 plant: T
+    kernel forwards per step, finite rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
+    from humanoid_mppi_rl_tpu_torch.collect.estimator import (
+        ESTIMATOR_CONFIGS, EstimatorRunner, quadruped_fd_gait_estimator_costs)
+    from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
+
+    pm = load_model("go1_plant")
+    home = dict(pm.keyframes)["home"]
+    lo, hi = pm.ctrl_range()
+    cfg = dataclasses.replace(ESTIMATOR_CONFIGS["quadruped"], n_samples=256, horizon=4,
+                              update_mode="accumulate", sigma=0.18, tail_decay=0.0,
+                              ctrl_low=tuple(lo), ctrl_high=tuple(hi))
+    runner = EstimatorRunner("go1_collect", load_trained("quad_pipeline_best"), cfg,
+                             *quadruped_fd_gait_estimator_costs(home[7:19]),
+                             state_fn=lambda plant: plant.qpos, batched_dynamics=True,
+                             fd_time_augment=19, ego_cols=(0, 1))
+    n0 = ek.launches
+    states, actions, times = runner.run(n_steps=3, init_qpos=home, init_plan=home[7:19],
+                                        chunk=2).arrays()
+    assert ek.launches == n0 + 3 * 4
+    assert states.shape == (3, 37) and np.isfinite(states).all() and np.isfinite(actions).all()
+    np.testing.assert_allclose(times, [0.0, 0.002, 0.004], atol=1e-6)

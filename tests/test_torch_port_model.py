@@ -14,8 +14,12 @@ import pytest
 import torch
 
 from humanoid_mppi_rl_tpu.physics.model import build_from_mjcf
+from humanoid_mppi_rl_tpu_torch.collect.estimator import (
+    ESTIMATOR_CONFIGS, EstimatorRunner, quadruped_estimator_costs)
 from humanoid_mppi_rl_tpu_torch.collect.runner import (EpisodeRunner, collect_humanoid,
                                                        collect_quadruped)
+from humanoid_mppi_rl_tpu_torch.learning.train import TrainConfig, train_model
+from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_plant, load_task
 from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 from humanoid_mppi_rl_tpu_torch.ops import kernel_costs
@@ -109,6 +113,37 @@ out = collect_quadruped(n_runs=1, out_base=quad_dir, max_steps=1, goal_tolerance
                         gait_params=GAIT_TUNED)
 assert out[0]["goal"], out
 assert read_csv(os.path.join(quad_dir, "run_000", "states.csv")).shape == (1, 37)
+from humanoid_mppi_rl_tpu_torch.collect.estimator import (
+    EstimatorRunner, quadruped_fd_gait_estimator_costs)
+from humanoid_mppi_rl_tpu_torch.learning.data import MultiTrajectoryDataset
+from humanoid_mppi_rl_tpu_torch.learning.train import PRESET_CONFIGS, train_model
+from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
+from humanoid_mppi_rl_tpu_torch.utils.trajio import write_csv
+cfg = dataclasses.replace(PRESET_CONFIGS["quadruped"], epochs=2, batch_size=4,
+                          ckpt_dir=os.path.join(quad_dir, "ckpt"), scan_epochs=True,
+                          rollout_k=2, grad_clip=1.0, state_idxes=tuple(range(19)),
+                          model_overrides={"state_dim": 19, "hidden_dim": 16},
+                          ego_xy_cols=(0, 1), eval_split=0.5)
+for kind, cols in (("states", 37), ("actions", 12)):
+    os.makedirs(os.path.join(quad_dir, "flat", kind))
+    for i in range(2):
+        write_csv(os.path.join(quad_dir, "flat", kind, f"run_{i}.csv"),
+                  np.random.default_rng(i).normal(size=(12, cols)))
+out = train_model(os.path.join(quad_dir, "flat", "states"),
+                  os.path.join(quad_dir, "flat", "actions"), cfg, device="cpu")
+assert np.isfinite(out["best_eval_loss"]) and os.path.exists(out["best_checkpoint"])
+net = load_trained("quad_pipeline_best", device="cpu")
+spec, model, cfg, init = load_task("go1_collect", device="cpu")
+home = dict(model.keyframes)["home"]
+cfg = dataclasses.replace(ESTIMATOR_CONFIGS["quadruped"], n_samples=4, horizon=2,
+                          update_mode="accumulate", ctrl_low=cfg.ctrl_low,
+                          ctrl_high=cfg.ctrl_high)
+runner = EstimatorRunner("go1_collect", net, cfg,
+                         *quadruped_fd_gait_estimator_costs(home[7:19]),
+                         state_fn=lambda plant: plant.qpos, batched_dynamics=True,
+                         fd_time_augment=19, ego_cols=(0, 1), device="cpu")
+states, actions, times = runner.run(n_steps=1, init_qpos=home, init_plan=home[7:19]).arrays()
+assert states.shape == (1, 37) and np.isfinite(actions).all()
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
@@ -129,7 +164,8 @@ def test_port_runs_without_jax_mujoco_or_the_jax_package():
                                    "build_rollout_kernel",
                                    "make_flash_feature_attention",
                                    "load_plant", "EpisodeRunner", "collect_humanoid",
-                                   "collect_quadruped"])
+                                   "collect_quadruped", "EstimatorRunner", "train_model",
+                                   "load_trained"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -148,6 +184,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
                                                      use_kernel=True, save=False),
         "collect_quadruped": lambda: collect_quadruped(n_runs=1, use_kernel=True,
                                                        save=False),
+        "EstimatorRunner": lambda: EstimatorRunner(
+            "go1_collect", make_model("quadruped_attention", hidden_dim=8),
+            ESTIMATOR_CONFIGS["quadruped"], *quadruped_estimator_costs()),
+        "train_model": lambda: train_model(".", ".", TrainConfig()),
+        "load_trained": lambda: load_trained("quad_pipeline_best"),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
