@@ -111,9 +111,13 @@ Phases, one JSON line each (with its own `seconds`):
              share), the host syncs of one epoch (set_sync_debug_mode
              "warn": 1 expected) and one step under "error"
   check_estimator_trained -- the estimator kernel against its plain
-             version on the trained quad_pipeline weights
-             (assets/quad_pipeline_best.pt) at B=2048 and 253, F=31, on
-             home-pose inputs: the gates of check_estimator
+             version on each set of trained weights at its loop's inputs,
+             B=2048 and 253, f32 and bf16, the gates of check_estimator:
+             quad_pipeline (assets/quad_pipeline_best.pt, F=31, home-pose
+             inputs) and the humanoid's rollout_k surrogate
+             (assets/rollout_k_surrogate_best.pt, humanoid_attention, F=51:
+             perturbed plant poses with their FK foot heights, controls of
+             sigma 0.4)
   main_estimator_loop -- quad_pipeline's estimator stage: EstimatorRunner
              on go1_collect's coupled plant, planning on the trained
              surrogate through the estimator kernel (bf16) at K=2048, T=32,
@@ -123,6 +127,20 @@ Phases, one JSON line each (with its own `seconds`):
              plant ms by CUDA events, one profiled control step (launches by
              kernel, busy share); every row finite, trunk z >= 0.08 m, the
              progress beside the JAX record
+  main_humanoid_estimator_loop -- scripts/dev_estimator_walk.py --configs
+             fk: EstimatorRunner on humanoid_collect's coupled plant (f32),
+             planning on the trained rollout_k surrogate through the
+             estimator kernel (bf16) at ESTIMATOR_CONFIGS["humanoid"] with
+             T=25 (K=2048, replace update, sigma 0.4), the walking cost on
+             the batched FK of the predicted qpos (f32), state [qpos; foot
+             z]: 5 warm-up and 120 timed control steps, 10 split into plan
+             and plant ms by CUDA events, one profiled control step (busy
+             share, device launches by kernel) and the device launches of
+             one replan (those outside the estimator kernel); T forwards per
+             step, every row finite (55 / 21 columns), root z >= 0.7 m over
+             every step, the progress beside the JAX record
+  time_estimator also times the humanoid loop's forward alone (the trained
+             rollout_k surrogate at B=2048, bf16) with its bound and library
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -141,6 +159,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -362,10 +381,12 @@ def go1_plant_state(model, case: str, seed: int = 0):
     return qpos, rng.normal(0, 0.3, model.nv), rng.normal(0, 0.5, model.nu)
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, launches_top: Optional[int] = None) -> dict:
     """One call of fn under torch.profiler: device time by kernel, its sum,
     the call's wall time and the device's busy share (the profiler's own
-    launch overhead lengthens the wall time a little)."""
+    launch overhead lengthens the wall time a little). With `launches_top`,
+    also the call's device launches (device_launches' counts) from the same
+    trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -381,8 +402,11 @@ def device_profile(fn) -> dict:
             name = name.split("(")[0].split("<")[0]
             by_kernel[name] = by_kernel.get(name, 0.0) + ev.self_device_time_total / 1e3
     busy_ms = sum(by_kernel.values())
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
-            "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]))}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+           "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]))}
+    if launches_top is not None:
+        out["device_launches"] = launch_counts(prof, launches_top)
+    return out
 
 
 def seeded_weights(module, seed: int):
@@ -810,6 +834,11 @@ def device_launches(fn, top: int = 0) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return launch_counts(prof, top)
+
+
+def launch_counts(prof, top: int) -> dict:
+    """device_launches' counts from a finished torch.profiler trace."""
     kernels = copies = 0
     by_name = {}
     for ev in prof.key_averages():
@@ -1211,12 +1240,69 @@ def quad_collect_phase(params):
     return paths, rows
 
 
+def time_forward(module, x, model: str, stages: bool) -> dict:
+    """time_estimator at one batch: the bf16 kernel's forward alone beside
+    its plain version (outputs compared at the bf16 tolerance), its bound
+    and one PyTorch TransformerEncoder forward of the same weights; with
+    `stages`, each kernel alone too. Emits the phase line and returns the
+    kernel's numbers."""
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+
+    t0 = time.perf_counter()
+    B = x.shape[0]
+    apply = ek.make_flash_feature_attention(module)
+    library = library_forward(module)
+    reps = 5 if B <= 8192 else 2
+    apply(x)
+    kernel_ms = cuda_ms(lambda: apply(x), reps)
+    got = apply(x)
+    parts = []
+
+    def plain():
+        parts[:] = [apply.plain(x[i:i + EST_PLAIN_CHUNK]) for i in range(0, B, EST_PLAIN_CHUNK)]
+
+    if B <= EST_PLAIN_CHUNK:
+        plain()     # first use of the library's products outside the timing
+    plain_ms = cuda_ms(plain, 1)
+    want = torch.cat(parts)
+    del parts[:]
+    e = bf16_errors(got, want)
+    if not (e["within"] and torch.isfinite(got).all()):
+        raise AssertionError(f"{model} B={B} kernel vs plain: {e}")
+    library(x)
+    library_ms = cuda_ms(lambda: library(x), reps)
+    lib_e = bf16_errors(library(x), want)
+    n_ops = estimator_ops(module, B)
+    n_bytes = estimator_bytes(module, B, esize=2)
+    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+    t_bytes = n_bytes["function"] / PEAK_BYTES_PER_S * 1e3
+    out = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "bytes" if t_bytes > t_ops else "operations",
+           "max_abs_err": e["max_abs"]}
+    emit({"phase": "time_estimator", "model": model, "dtype": "bfloat16",
+          "B": B, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "plain_chunk": EST_PLAIN_CHUNK, "library_ms": library_ms,
+          "library": "nn.TransformerEncoder(norm_first, eps=1e-6) in bf16 + torch encode/head",
+          "ops": n_ops, "bytes_function": n_bytes["function"],
+          "bytes_design": n_bytes["design"], "bound_ops_ms": t_ops,
+          "bound_bytes_ms": t_bytes,
+          "bound_design_bytes_ms": n_bytes["design"] / PEAK_BYTES_PER_S * 1e3,
+          "kernel_tflops": n_ops / kernel_ms / 1e9,
+          "kernel_vs_plain": e, "library_vs_plain": lib_e,
+          "library_within_bf16_tolerance": lib_e["within"],
+          "stages": stage_times(module, B) if stages else None,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
 def estimator_phases() -> dict:
     """check_estimator, main_estimator and time_estimator; returns the
     estimator kernel's entry of the `kernels` line."""
     from humanoid_mppi_rl_tpu_torch.collect.estimator import (
         ESTIMATOR_CONFIGS, quadruped_estimator_costs)
     from humanoid_mppi_rl_tpu_torch.dynamics.learned import make_learned_dynamics
+    from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
     from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
     from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
     from humanoid_mppi_rl_tpu_torch.solver.mppi import MPPIState, make_mppi
@@ -1338,56 +1424,19 @@ def estimator_phases() -> dict:
 
     # ---- time_estimator: one forward alone ---------------------------------
     module = seeded_weights(make_model("quadruped_attention"), seed=0)
-    apply = ek.make_flash_feature_attention(module)
-    library = library_forward(module)
     timed = {}
     for B in EST_TIME_B:
-        t0 = time.perf_counter()
         x = x_on_card(B, module.input_dim, seed=3)
-        reps = 5 if B <= 8192 else 2
-        apply(x)
-        kernel_ms = cuda_ms(lambda: apply(x), reps)
-        got = apply(x)
-        parts = []
-
-        def plain():
-            parts[:] = [apply.plain(x[i:i + EST_PLAIN_CHUNK])
-                        for i in range(0, B, EST_PLAIN_CHUNK)]
-
-        if B <= EST_PLAIN_CHUNK:
-            plain()     # first use of the library's products outside the timing
-        plain_ms = cuda_ms(plain, 1)
-        want = torch.cat(parts)
-        del parts[:]
-        e = bf16_errors(got, want)
-        if not (e["within"] and torch.isfinite(got).all()):
-            raise AssertionError(f"B={B} kernel vs plain: {e}")
-        library(x)
-        library_ms = cuda_ms(lambda: library(x), reps)
-        lib_e = bf16_errors(library(x), want)
-        n_ops = estimator_ops(module, B)
-        n_bytes = estimator_bytes(module, B, esize=2)
-        stages = stage_times(module, B) if B == ESTIMATOR_CONFIGS["quadruped"].K else None
-        t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
-        t_bytes = n_bytes["function"] / PEAK_BYTES_PER_S * 1e3
-        timed[B] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                    "bound_ms": max(t_ops, t_bytes),
-                    "bound_by": "bytes" if t_bytes > t_ops else "operations",
-                    "max_abs_err": e["max_abs"]}
-        emit({"phase": "time_estimator", "model": "quadruped_attention", "dtype": "bfloat16",
-              "B": B, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-              "plain_chunk": EST_PLAIN_CHUNK, "library_ms": library_ms,
-              "library": "nn.TransformerEncoder(norm_first, eps=1e-6) in bf16 + torch encode/head",
-              "ops": n_ops, "bytes_function": n_bytes["function"],
-              "bytes_design": n_bytes["design"], "bound_ops_ms": t_ops,
-              "bound_bytes_ms": t_bytes,
-              "bound_design_bytes_ms": n_bytes["design"] / PEAK_BYTES_PER_S * 1e3,
-              "kernel_tflops": n_ops / kernel_ms / 1e9,
-              "kernel_vs_plain": e, "library_vs_plain": lib_e,
-              "library_within_bf16_tolerance": lib_e["within"],
-              "stages": stages, "seconds": time.perf_counter() - t0})
-        del x, got, want
+        timed[B] = time_forward(module, x, "quadruped_attention",
+                                stages=B == ESTIMATOR_CONFIGS["quadruped"].K)
+        del x
         torch.cuda.empty_cache()
+    # the humanoid closed loop's forward: the trained rollout_k surrogate at
+    # the loop's B on its own inputs
+    human = time_forward(load_trained("rollout_k_surrogate_best"),
+                         humanoid_loop_inputs(HUM_LOOP_K, seed=3),
+                         "humanoid_attention (trained rollout_k_surrogate)", stages=False)
+    torch.cuda.empty_cache()
 
     main_b = ESTIMATOR_CONFIGS["quadruped"].K
     check_max = max(v["max_abs"] for k, v in errs.items() if "bfloat16" in k)
@@ -1409,6 +1458,7 @@ def estimator_phases() -> dict:
         "library_ms": timed[main_b]["library_ms"],
         "at_B": main_b,
         "B65536": timed[EST_TIME_B[-1]],
+        "humanoid_attention_trained_B2048": human,
     }
 
 
@@ -1424,6 +1474,14 @@ CHAIN_EVAL_SPLIT = 0.5
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, TRAIN_SYNC_STEPS = 10, 100, 10
 EST_LOOP_K, EST_LOOP_T = 2048, 32
 EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 5, 50, 6
+# the humanoid loop (scripts/dev_estimator_walk.py --configs fk): K=2048,
+# T=25; 120 timed control steps, the JAX record's length
+HUM_LOOP_K, HUM_LOOP_T = 2048, 25
+HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 5, 120, 10
+# the JAX record (artifacts/rollout_k_surrogate/estimator_summary.json,
+# closed_loop.fk_cost_K2048_T25, on a TPU, another noise stream)
+HUM_JAX_RECORD = {"steps": 120, "K": 2048, "T": 25, "forward_progress_m": 0.159,
+                  "torso_z_min": 1.18}
 # the JAX record (artifacts/quad_pipeline/summary.json and its
 # estimator_closedloop.npz, 200 steps on a TPU): behaviour, not a target
 JAX_LOOP_RECORD = {"steps": 200, "min_trunk_z": 0.27, "forward_progress_m": -0.1682,
@@ -1641,51 +1699,93 @@ def train_phase(collected: dict) -> dict:
     return {"train_step_ms": med, "host_syncs_per_epoch": syncs}
 
 
-def check_trained_phase() -> dict:
-    """check_estimator_trained: the estimator kernel against its plain
-    version on the trained quad_pipeline weights."""
-    from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
-    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+def go1_loop_inputs(B: int, seed: int):
+    """The Go1 closed loop's net inputs: home poses (root x/y zeroed, its
+    ego columns) and home leg targets, perturbed: (B, 31) f32 on the card."""
     from humanoid_mppi_rl_tpu_torch.physics.model import load_model
 
-    t0 = time.perf_counter()
-    module = load_trained("quad_pipeline_best")
     home = dict(load_model("go1_plant").keyframes)["home"]
-    errs = {}
-    for B in (EST_LOOP_K, 253):
-        # the closed loop's net inputs: home poses (root x/y zeroed) and
-        # home leg targets, perturbed
-        rng = np.random.default_rng(B)
-        q = home[:19] + 0.05 * rng.normal(size=(B, 19))
-        q[:, :2] = 0.0
-        u = home[7:19] + 0.18 * rng.normal(size=(B, 12))
-        x = torch.tensor(np.concatenate([q, u], axis=1), dtype=torch.float32, device="cuda")
-        for cd in (torch.float32, torch.bfloat16):
-            apply = ek.make_flash_feature_attention(module, cd)
-            n0 = ek.launches
-            got = apply(x)
-            torch.cuda.synchronize()
-            if ek.launches != n0 + 1:
-                raise AssertionError("estimator kernel launch was not counted")
-            want = apply.plain(x)
-            key = f"{str(cd).replace('torch.', '')}/B={B}"
-            if tuple(got.shape) != (B, 19) or not torch.isfinite(got).all():
-                raise AssertionError(f"{key}: bad kernel output")
-            if cd == torch.float32:
-                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=key)
-                errs[key] = {"max_abs": float((got - want).abs().max()),
-                             "max_abs_y": float(want.abs().max())}
-            else:
-                e = bf16_errors(got, want)
-                if not e["within"]:
-                    raise AssertionError(f"{key}: {e}")
-                errs[key] = e
-    emit({"phase": "check_estimator_trained", "weights": "assets/quad_pipeline_best.pt",
-          "model": "quadruped_attention, state_dim=19 (F=31)", "B": [EST_LOOP_K, 253],
-          "tolerance": {"float32": "rtol=atol=1e-4",
-                        "bfloat16": "median|diff|<=3e-3*s, max|diff|<=3e-2*s, s=max(1,max|y|)"},
-          "errors": errs, "seconds": time.perf_counter() - t0})
-    return errs
+    rng = np.random.default_rng(seed)
+    q = home[:19] + 0.05 * rng.normal(size=(B, 19))
+    q[:, :2] = 0.0
+    u = home[7:19] + 0.18 * rng.normal(size=(B, 12))
+    return torch.tensor(np.concatenate([q, u], axis=1), dtype=torch.float32, device="cuda")
+
+
+def humanoid_loop_inputs(B: int, seed: int):
+    """The humanoid closed loop's net inputs [qpos; foot_left z; foot_right
+    z; u]: plant poses about qpos0 (root x/y as the plant gives them),
+    their foot heights from the batched forward kinematics, and controls
+    of the loop's sigma: (B, 51) f32 on the card."""
+    from humanoid_mppi_rl_tpu_torch.collect.estimator import ESTIMATOR_CONFIGS
+    from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
+    from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+
+    pm = load_model("humanoid_plant")
+    rng = np.random.default_rng(seed)
+    q = pm.qpos0 + 0.05 * rng.normal(size=(B, pm.nq))
+    q[:, :2] += 0.3 * rng.normal(size=(B, 2))
+    q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=-1, keepdims=True)
+    eng = Engine(pm, "cuda", torch.float32)
+    st = eng.forward(torch.tensor(q, dtype=torch.float32, device="cuda"),
+                     torch.zeros(B, pm.nv, device="cuda"))
+    feet = st.xpos[:, [pm.body_id("foot_left"), pm.body_id("foot_right")], 2]
+    u = ESTIMATOR_CONFIGS["humanoid"].sigma * rng.normal(size=(B, pm.nu))
+    return torch.cat([st.qpos, feet, torch.tensor(u, dtype=torch.float32, device="cuda")], 1)
+
+
+# check_estimator_trained's weights: (asset, model, net inputs, batch sizes)
+TRAINED_CHECKS = (
+    ("quad_pipeline_best", "quadruped_attention, state_dim=19 (F=31)", go1_loop_inputs,
+     (EST_LOOP_K, 253)),
+    ("rollout_k_surrogate_best", "humanoid_attention (F=51, H=512, 8 heads, 7 layers)",
+     humanoid_loop_inputs, (HUM_LOOP_K, 253)),
+)
+
+
+def check_trained_phase() -> dict:
+    """check_estimator_trained: the estimator kernel against its plain
+    version on each set of trained weights at its closed loop's inputs.
+    Returns {asset: errors by dtype and B}."""
+    from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+
+    out = {}
+    for name, model, inputs, batches in TRAINED_CHECKS:
+        t0 = time.perf_counter()
+        module = load_trained(name)
+        errs = {}
+        for B in batches:
+            x = inputs(B, seed=B)
+            for cd in (torch.float32, torch.bfloat16):
+                apply = ek.make_flash_feature_attention(module, cd)
+                n0 = ek.launches
+                got = apply(x)
+                torch.cuda.synchronize()
+                if ek.launches != n0 + 1:
+                    raise AssertionError("estimator kernel launch was not counted")
+                want = apply.plain(x)
+                key = f"{str(cd).replace('torch.', '')}/B={B}"
+                if tuple(got.shape) != (B, module.state_dim) or not torch.isfinite(got).all():
+                    raise AssertionError(f"{name} {key}: bad kernel output")
+                if cd == torch.float32:
+                    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                                               msg=f"{name} {key}")
+                    errs[key] = {"max_abs": float((got - want).abs().max()),
+                                 "max_abs_y": float(want.abs().max())}
+                else:
+                    e = bf16_errors(got, want)
+                    if not e["within"]:
+                        raise AssertionError(f"{name} {key}: {e}")
+                    errs[key] = e
+        emit({"phase": "check_estimator_trained", "weights": f"assets/{name}.pt",
+              "model": model, "B": list(batches),
+              "tolerance": {"float32": "rtol=atol=1e-4",
+                            "bfloat16": "median|diff|<=3e-3*s, max|diff|<=3e-2*s, "
+                                        "s=max(1,max|y|)"},
+              "errors": errs, "seconds": time.perf_counter() - t0})
+        out[name] = errs
+    return out
 
 
 def estimator_loop_phase() -> dict:
@@ -1756,10 +1856,10 @@ def estimator_loop_phase() -> dict:
             plan_ms.append(ev[0].elapsed_time(ev[1]))
             plant_ms.append(ev[1].elapsed_time(ev[2]))
     n0, k0 = ek.launches, dict(ek.kernel_launches)
-    prof = device_profile(lambda: runner.control_step(ms, plant))
+    prof = device_profile(lambda: runner.control_step(ms, plant), launches_top=12)
     prof_kinds = {kk: ek.kernel_launches[kk] - k0[kk] for kk in ek.KINDS}
     prof_forwards = ek.launches - n0
-    by_kernel = device_launches(lambda: runner.control_step(ms, plant), top=12)
+    by_kernel = prof["device_launches"]
     if prof_forwards != cfg.T:
         raise AssertionError(f"{prof_forwards} estimator forwards in a control step (T={cfg.T})")
     q = lambda v: [float(x) for x in np.percentile(v, [25, 75])]
@@ -1792,17 +1892,140 @@ def estimator_loop_phase() -> dict:
             "control_step_ms_median": statistics.median(step_ms)}
 
 
+def humanoid_estimator_loop_phase() -> dict:
+    """main_humanoid_estimator_loop: scripts/dev_estimator_walk.py --configs
+    fk on the card -- the trained rollout_k surrogate through the estimator
+    kernel (bf16), the walking cost on FK of its predicted qpos, the
+    humanoid's coupled plant (f32)."""
+    import dataclasses as dc
+
+    from humanoid_mppi_rl_tpu_torch.collect.estimator import (
+        ESTIMATOR_CONFIGS, EstimatorRunner, humanoid_fk_estimator_costs,
+        humanoid_foot_state_fn)
+    from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+    from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+
+    t0 = time.perf_counter()
+    pm = load_model("humanoid_plant")
+    cfg = dc.replace(ESTIMATOR_CONFIGS["humanoid"], n_samples=HUM_LOOP_K, horizon=HUM_LOOP_T)
+    running, terminal = humanoid_fk_estimator_costs(pm)
+    runner = EstimatorRunner("humanoid_collect", load_trained("rollout_k_surrogate_best"), cfg,
+                             running, terminal, state_fn=humanoid_foot_state_fn(pm),
+                             batched_dynamics=True, fd_time_augment=30)
+    ek.launches = 0
+    ek.kernel_launches.update(dict.fromkeys(ek.KINDS, 0))
+    warm = runner.run(n_steps=HUM_LOOP_WARMUP, chunk=HUM_LOOP_WARMUP, seed=0)
+    torch.cuda.synchronize()
+    warm_launches = ek.launches
+    h0 = time.perf_counter()
+    log = runner.run(n_steps=HUM_LOOP_TIMED, chunk=HUM_LOOP_TIMED, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - h0
+    launches, per_kind = ek.launches, dict(ek.kernel_launches)
+    n_steps = HUM_LOOP_WARMUP + HUM_LOOP_TIMED
+    if (warm_launches, launches) != (HUM_LOOP_WARMUP * cfg.T, n_steps * cfg.T):
+        raise AssertionError(f"estimator forwards {warm_launches}/{launches} for "
+                             f"{HUM_LOOP_WARMUP}/{n_steps} control steps of T={cfg.T}")
+    heights = []
+    for name, lg, n in (("warm-up", warm, HUM_LOOP_WARMUP), ("timed", log, HUM_LOOP_TIMED)):
+        states, actions, times = lg.arrays()
+        if states.shape != (n, 55) or actions.shape != (n, 21) or times.shape != (n,):
+            raise AssertionError(f"humanoid loop {name}: {states.shape} {actions.shape}")
+        if not (np.isfinite(states).all() and np.isfinite(actions).all()):
+            raise AssertionError(f"humanoid loop {name}: non-finite rows")
+        heights.append(states[:, 2])
+    states, actions, _ = log.arrays()
+
+    # control steps one at a time: plan and plant apart by CUDA events
+    ms, plant = runner.start(seed=0)
+    plan_ms, plant_ms, step_ms, split_z = [], [], [], []
+    with torch.no_grad():
+        for _ in range(HUM_LOOP_SPLIT):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            h = time.perf_counter()
+            ev[0].record()
+            action, ms, _ = runner.plan(ms, runner.extract(plant))
+            ev[1].record()
+            plant = runner.plant_dyn(plant, action)
+            ev[2].record()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - h) * 1e3)
+            plan_ms.append(ev[0].elapsed_time(ev[1]))
+            plant_ms.append(ev[1].elapsed_time(ev[2]))
+            split_z.append(float(plant.qpos[2]))
+    heights = np.concatenate(heights + [np.array(split_z)])
+    if not np.isfinite(heights).all() or heights.min() < FALL_Z:
+        raise AssertionError(f"the humanoid fell in the closed loop: root z {heights.min():.3f}")
+    n0, k0 = ek.launches, dict(ek.kernel_launches)
+    prof = device_profile(lambda: runner.control_step(ms, plant), launches_top=12)
+    prof_kinds = {kk: ek.kernel_launches[kk] - k0[kk] for kk in ek.KINDS}
+    prof_forwards = ek.launches - n0
+    if prof_forwards != cfg.T:
+        raise AssertionError(f"{prof_forwards} estimator forwards in a control step (T={cfg.T})")
+    by_kernel = prof["device_launches"]
+    k1 = dict(ek.kernel_launches)
+    with torch.no_grad():
+        plan_launches = device_launches(lambda: runner.plan(ms, runner.extract(plant)))
+    plan_est = sum(ek.kernel_launches[kk] - k1[kk] for kk in ek.KINDS)
+    q = lambda v: [float(x) for x in np.percentile(v, [25, 75])]
+    emit({"phase": "main_humanoid_estimator_loop", "task": "humanoid_collect",
+          "weights": "assets/rollout_k_surrogate_best.pt",
+          "model": "humanoid_attention (F=51, H=512, 8 heads, 7 layers)",
+          "K": cfg.K, "T": cfg.T, "dtype": "bfloat16 surrogate, float32 plant and costs",
+          "cost": "humanoid_fk_estimator_costs (humanoid_walk weights on FK of the "
+                  "predicted qpos, FD velocities)",
+          "update_mode": cfg.update_mode, "sigma": cfg.sigma, "temperature": cfg.temperature,
+          "steps": n_steps, "timed_steps": HUM_LOOP_TIMED,
+          "control_step_ms_mean_timed_run": wall / HUM_LOOP_TIMED * 1e3,
+          "split_steps": HUM_LOOP_SPLIT,
+          "control_step_host_ms_median": statistics.median(step_ms),
+          "control_step_host_ms_q1_q3": q(step_ms),
+          "plan_ms_median": statistics.median(plan_ms), "plan_ms_q1_q3": q(plan_ms),
+          "plant_ms_median": statistics.median(plant_ms), "plant_ms_q1_q3": q(plant_ms),
+          "plan_ms": plan_ms, "plant_ms": plant_ms,
+          "estimator_forwards_per_control_step": launches / n_steps,
+          "estimator_kernel_launches": per_kind,
+          "profiled_control_step": {"estimator_forwards": prof_forwards,
+                                    "estimator_kernels_by_kind": prof_kinds,
+                                    "device_launches": by_kernel,
+                                    "wall_ms": prof["wall_ms"],
+                                    "device_busy_ms": prof["device_busy_ms"],
+                                    "device_busy_share": prof["device_busy_share"]},
+          "replan_device_launches": plan_launches,
+          "replan_estimator_kernels": plan_est,
+          "replan_launches_outside_estimator_kernel":
+              None if plan_launches["kernels"] is None else plan_launches["kernels"] - plan_est,
+          "root_z_min": float(heights.min()),
+          "forward_progress_m": float(states[-1, 0] - states[0, 0]),
+          "torso_z_min_timed": float(states[:, 2].min()),
+          "final_root_xyz": [float(v) for v in states[-1, :3]],
+          "jax_record": dict(HUM_JAX_RECORD, note="TPU, another noise stream"),
+          "seconds": time.perf_counter() - t0})
+    return {"launches": launches, "control_steps": n_steps,
+            "control_step_ms_median": statistics.median(step_ms)}
+
+
 def learning_phases(collected: dict) -> dict:
-    """train, check_estimator_trained and main_estimator_loop; returns the
-    numbers the estimator's entry of the `kernels` line adds."""
+    """train, check_estimator_trained, main_estimator_loop and
+    main_humanoid_estimator_loop; returns the numbers the estimator's entry
+    of the `kernels` line adds."""
     train = train_phase(collected)
-    errs = check_trained_phase()
+    checked = check_trained_phase()
+    errs, herrs = checked["quad_pipeline_best"], checked["rollout_k_surrogate_best"]
     loop = estimator_loop_phase()
+    hloop = humanoid_estimator_loop_phase()
     return {"paths": {"go1 estimator closed loop": {
-                "launches": loop["launches"], "control_steps": loop["control_steps"]}},
+                "launches": loop["launches"], "control_steps": loop["control_steps"]},
+                      "humanoid estimator closed loop": {
+                "launches": hloop["launches"], "control_steps": hloop["control_steps"]}},
             "max_abs_err_bf16_B2048": errs[f"bfloat16/B={EST_LOOP_K}"]["max_abs"],
             "max_abs_err_f32_B2048": errs[f"float32/B={EST_LOOP_K}"]["max_abs"],
             "closed_loop_control_step_ms": loop["control_step_ms_median"],
+            "humanoid": {
+                "max_abs_err_bf16_B2048": herrs[f"bfloat16/B={HUM_LOOP_K}"]["max_abs"],
+                "max_abs_err_f32_B2048": herrs[f"float32/B={HUM_LOOP_K}"]["max_abs"],
+                "closed_loop_control_step_ms": hloop["control_step_ms_median"]},
             "train_step_ms": train["train_step_ms"]}
 
 

@@ -5,9 +5,7 @@ counterpart): the solver configurations, the costs and EstimatorRunner.
 Every cost here is batched: x (..., nx) and u (..., nu) -> (...), summing
 over the last axis only (the JAX costs are per-sample and vmapped over K).
 
-Still to port: humanoid_fk/predvel_estimator_costs (they need the batched
-array engine's forward kinematics and costs/humanoid, ROADMAP A2/A3) and
-make_cartpole_estimator (slide joints, ROADMAP A8).
+Still to port: make_cartpole_estimator (slide joints, ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -19,9 +17,12 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..costs import humanoid as humc
+from ..costs.base import EngineCache
 from ..dynamics.learned import flat_state_from_physics, make_learned_dynamics
 from ..envs.tasks import load_plant
 from ..ops.estimator_kernel import make_flash_feature_attention
+from ..physics import spatial as sp
 from ..solver.mppi import MPPIConfig, MPPIState, make_mppi
 from .logging import TrajectoryLogger
 
@@ -60,6 +61,81 @@ def humanoid_estimator_costs(goal_pos=(2.0, 0.0, 1.28), action_dim=21):
     """Goal-reaching cost over the humanoid surrogate's 30-dim state
     [qpos(28); foot_l_z; foot_r_z]."""
     return _goal_costs(goal_pos)
+
+
+def humanoid_foot_state_fn(model):
+    """state_fn of the humanoid surrogate: [qpos; foot_left z; foot_right z]
+    (scripts/dev_estimator_walk.py:65-67)."""
+    id_l, id_r = model.body_id("foot_left"), model.body_id("foot_right")
+
+    def state_fn(plant):
+        return torch.cat([plant.qpos, plant.xpos[id_l, 2:3], plant.xpos[id_r, 2:3]])
+
+    return state_fn
+
+
+# the humanoid_walk preset as the estimator loop runs it
+_WALK_ESTIMATOR = dict(humc.WEIGHTS_WALK, target=(10.0, 0.0, 1.28),
+                       w_height=22.0, w_orient=17.0, w_goal_xy=1.0,
+                       w_clearance=1.0, w_foot_lift=10.0,
+                       w_swing_vel=0.20, target_vel=(0.4, 0.0))
+
+
+def _full_state_costs(model, reconstruct, cost_kwargs):
+    """costs/humanoid.make_costs (the walk preset, `cost_kwargs` on top) on
+    the state that `reconstruct(eng, x_aug (K, n)) -> (qpos, qvel, time)`
+    rebuilds through the engine's batched forward kinematics."""
+    kw = dict(_WALK_ESTIMATOR)
+    kw.update(cost_kwargs or {})
+    run_full, term_full = humc.make_costs(model, **kw)
+    engine = EngineCache(model)
+
+    def state_of(x_aug):
+        eng = engine(x_aug)
+        return eng.forward(*reconstruct(x_aug.reshape(-1, x_aug.shape[-1])))
+
+    def running(x_aug, u, t):
+        return run_full(state_of(x_aug), u.reshape(-1, u.shape[-1]), t).reshape(x_aug.shape[:-1])
+
+    def terminal(x_aug, t):
+        return term_full(state_of(x_aug), t).reshape(x_aug.shape[:-1])
+
+    return running, terminal
+
+
+def humanoid_fk_estimator_costs(model, dt: float = 0.005, nx: int = 30,
+                                cost_kwargs: Optional[dict] = None):
+    """The humanoid_walk cost on surrogate rollouts of [qpos(28); foot z(2)]
+    in the [x; x_prev; t_abs] augmentation: qvel by finite differences (root
+    linear from xyz, root angular from the local quaternion difference,
+    joint rates directly), then forward kinematics of the predicted qpos
+    and costs/humanoid.make_costs on that state. `model` is the kinematic
+    model (the humanoid plant snapshot)."""
+    nv = model.nv
+
+    def reconstruct(x_aug):
+        q = x_aug[:, :28]
+        prev = x_aug[:, nx:nx + 28]
+        v_lin = (q[:, 0:3] - prev[:, 0:3]) / dt
+        w_loc = sp.quat_sub(q[:, 3:7], prev[:, 3:7]) / dt
+        v_jnt = (q[:, 7:28] - prev[:, 7:28]) / dt
+        return q, torch.cat([v_lin, w_loc, v_jnt], dim=-1)[:, :nv], x_aug[:, 2 * nx]
+
+    return _full_state_costs(model, reconstruct, cost_kwargs)
+
+
+def humanoid_predvel_estimator_costs(model, nx: int = 57,
+                                     cost_kwargs: Optional[dict] = None):
+    """The same walking cost over a velocity-predicting surrogate's state
+    [qpos(28); qvel(27); foot z(2)]: the predicted qvel, no finite
+    differences; the augmentation only carries the clock. The qpos width
+    28 is the reference's, whatever the model [sic]."""
+    nv = model.nv
+
+    def reconstruct(x_aug):
+        return x_aug[:, :28], x_aug[:, 28:28 + nv], x_aug[:, 2 * nx]
+
+    return _full_state_costs(model, reconstruct, cost_kwargs)
 
 
 def quadruped_estimator_costs(goal_pos=(2.0, 0.0, 0.35), action_dim=12):
@@ -318,4 +394,4 @@ class EstimatorRunner:
 def make_cartpole_estimator(module, seed: int = 0, device="cuda") -> EstimatorRunner:
     raise NotImplementedError(
         "the cartpole estimator needs slide joints in the plant and the cartpole "
-        "costs, which are not ported yet (ROADMAP A8)")
+        "costs, which are not ported yet (ROADMAP A7)")

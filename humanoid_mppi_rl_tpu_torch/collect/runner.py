@@ -8,6 +8,8 @@
 - `collect_humanoid()`: the reference's src/Humanoid_datacollection_v2.jl:
   randomized pose and goal, goal-gated saving, 57-column states with the
   foot heights, episodes sharded across processes.
+- `collect_humanoid_jl()`: the reference's src/Humanoid_datacollection.jl:
+  the stand start, an advancing goal, 55-column [qpos; qvel] rows.
 - `collect_quadruped()`: the reference's src/quadruped_datacollection.py:
   the Go1 goal ladder, fall abort, per-run save dirs of 37-column
   [qpos; qvel] rows, only reached goals kept.
@@ -19,7 +21,7 @@ to and including the first terminating step, and leaves the plant (final
 qpos, sim time) at the chunk's end.
 
 The batched array planner (use_kernel=False, planner_solver) is ROADMAP
-A2/A3; until it exists those options raise.
+A3; until it exists those options raise.
 """
 
 from __future__ import annotations
@@ -67,11 +69,11 @@ class EpisodeRunner:
         if not use_kernel:
             raise NotImplementedError(
                 "use_kernel=False plans on the batched array engine, which is not "
-                "ported yet (ROADMAP A2/A3): pass use_kernel=True")
+                "ported yet (ROADMAP A3): pass use_kernel=True")
         if planner_solver not in (None, "penalty"):
             raise NotImplementedError(
                 f'planner_solver="{planner_solver}" plans on the batched array engine, '
-                "which is not ported yet (ROADMAP A2/A3)")
+                "which is not ported yet (ROADMAP A3)")
         self.device, self.dtype = resolve_device(device), dtype
         spec, model, cfg, init_state = load_task(task_name, device=self.device, dtype=dtype)
         kw = dict(spec.cost_kwargs)
@@ -303,6 +305,68 @@ def collect_humanoid(
             steps_executed=int(steps_executed), attempts=int(attempts),
             outcome=("goal" if res.goal_reached else
                      ("fell" if res.fell else ("stalled" if res.stalled else "cap")))))
+    return results
+
+
+def _jl_goal_advance(goal_step=(1.0, 0.0), threshold: float = 0.15):
+    """Reference src/Humanoid_datacollection.jl:181-185 goal advance: every
+    control step with the torso xy within `threshold` of the goal adds one
+    to a counter and sets the goal to counter * goal_step. params layout:
+    [goal_x, goal_y, goal_z, counter, ...]; on the device, no host sync."""
+    sx, sy = float(goal_step[0]), float(goal_step[1])
+
+    def params_update(plant, params):
+        near = torch.linalg.vector_norm(plant.qpos[0:2] - params[0:2]) < threshold
+        counter = params[3:4] + near.to(params.dtype)
+        return torch.cat([counter * sx, counter * sy, params[2:3], counter, params[4:]])
+
+    return params_update
+
+
+def collect_humanoid_jl(
+    n_episodes: int = 1,
+    out_dir: str = "data",
+    seed: int = 0,
+    max_steps: int = 10000,
+    goal_threshold: float = 0.15,
+    save: bool = True,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    use_kernel: bool = True,
+    mppi_override: Optional[dict] = None,
+    metrics_path: Optional[str] = None,
+    chunk: int = 50,
+    device="cuda",
+    dtype=torch.float32,
+):
+    """Reference src/Humanoid_datacollection.jl collection: the v3 cost at K=75,
+    sigma=0.5, the default stand start, and an advancing goal: it starts at
+    (1, 0); each control step with the torso xy within `goal_threshold`
+    adds one to a counter and re-targets the goal to counter * (1, 0)
+    (:14-17, 181-185; the reference quirk kept: the first "reach" leaves
+    the goal at (1, 0)). The goal is a runtime kernel parameter
+    (`param_target=True`). Logs 55-column [qpos; qvel] rows and saves every
+    episode into out_dir/<timestamp>_<ep>/{states,actions,times}.csv.
+    Returns [(episode, steps)]. use_kernel=False (the goal fixed at
+    (1, 0, 1.28) on the array engine) waits for ROADMAP A3."""
+    from datetime import datetime
+
+    results = []
+    cost_kw = {"param_target": True} if use_kernel else {"target": (1.0, 0.0, 1.28)}
+    runner = EpisodeRunner("humanoid_collect_jl", use_kernel=use_kernel,
+                           cost_kwargs_override=cost_kw, mppi_override=mppi_override,
+                           device=device, dtype=dtype)
+    advance = _jl_goal_advance((1.0, 0.0), goal_threshold)
+    for ep in range(n_episodes):
+        if ep % num_shards != shard_index:
+            continue
+        res = runner.run(max_steps=max_steps, seed=seed + ep,
+                         params=np.array([1.0, 0.0, 1.28, 0.0]), params_update_fn=advance,
+                         metrics_path=metrics_path, chunk=chunk)
+        if save:
+            ts = datetime.now().strftime("%Y-%m-%d_%H%M%S") + f"_{ep:03d}"
+            res.logger.save_run_dir(os.path.join(out_dir, ts))
+        results.append((ep, res.steps))
     return results
 
 

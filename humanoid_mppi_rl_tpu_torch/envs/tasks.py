@@ -17,16 +17,12 @@ from typing import Optional
 import torch
 
 from .._device import resolve_device
+from ..costs.humanoid import WEIGHTS_WALK
 from ..ops import kernel_costs
 from ..dynamics.physics import make_physics_dynamics
 from ..physics.engine import Engine
 from ..physics.model import PhysicsModel, load_model
 from ..solver.mppi import MPPIConfig
-
-# costs/humanoid.py WEIGHTS_WALK: the tuned walking posture base weights
-WEIGHTS_WALK = dict(w_orient=15.0, w_goal_xy=2.5, w_height=20.0,
-                    w_swing_x=0.0, w_swing_vel=0.0, w_knee_x=0.0,
-                    w_clearance=0.0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,6 +34,9 @@ TRAINED = {
     # scripts/quad_pipeline.py's best checkpoint: the position-only Go1
     # surrogate (artifacts/quad_pipeline/ckpt/model_best)
     "quad_pipeline_best": ("quadruped_attention", {"state_dim": 19}),
+    # the rollout_k humanoid surrogate on [qpos; foot z] (30 + 21 tokens,
+    # 7 layers; artifacts/rollout_k_surrogate/ckpt/model_best)
+    "rollout_k_surrogate_best": ("humanoid_attention", {}),
 }
 
 

@@ -1,5 +1,7 @@
 """Rigid-body dynamics for one sample (physics/engine.py counterpart): the
-environment plant that the collection loop steps.
+environment plant that the collection loop steps. The kinematics (`fk`,
+`body_velocities`, `Engine.forward`) also take a leading K batch, for
+costs scored on K predicted states.
 
 Formulation as in the JAX engine: world-frame ("origin" Plucker) algebra.
 Forward kinematics walks the body tree one depth level at a time and gives
@@ -48,7 +50,7 @@ def _refuse(model: PhysicsModel) -> None:
     if bad:
         raise NotImplementedError(
             "the array engine covers free and hinge joints only, not "
-            + ", ".join(bad) + " (ROADMAP A8)")
+            + ", ".join(bad) + " (ROADMAP A7)")
 
 
 @contextlib.contextmanager
@@ -151,7 +153,7 @@ class Engine:
         t, ix = self.t, self.ix
         acts = model.actuators
         if any(getattr(a, "ndof", 1) != 1 for a in acts):
-            raise NotImplementedError("multi-dof actuator transmissions (ROADMAP A8)")
+            raise NotImplementedError("multi-dof actuator transmissions (ROADMAP A7)")
         inf = np.inf
         self.P = t(model.pred_mask)
         self.live = t(1.0 - model.sdot_zero)
@@ -182,12 +184,14 @@ class Engine:
 
     def forward(self, qpos: torch.Tensor, qvel: torch.Tensor,
                 time: Optional[torch.Tensor] = None) -> PhysicsState:
-        """Kinematics caches for (qpos, qvel): mujoco mj_forward analog."""
+        """Kinematics caches for (qpos, qvel): mujoco mj_forward analog.
+        One sample (nq,), (nv,) or a batch (K, nq), (K, nv) with time (K,)
+        (JAX forward vmapped): every field of the state gains the K axis."""
         with _full_f32():
             xpos, xquat, S = fk(self, qpos)
             V = body_velocities(self, S, qvel)
         if time is None:
-            time = torch.zeros((), dtype=qpos.dtype, device=qpos.device)
+            time = torch.zeros(qpos.shape[:-1], dtype=qpos.dtype, device=qpos.device)
         return PhysicsState(qpos=qpos, qvel=qvel, time=time, xpos=xpos, xquat=xquat,
                             S=S, body_vel=V)
 
@@ -203,7 +207,7 @@ class Engine:
         count and row counts (device tensors)."""
         if solver in ("penalty", "coupled_pgs"):
             raise NotImplementedError(
-                f'solver="{solver}" is not ported yet (ROADMAP A2)')
+                f'solver="{solver}" is not ported yet (ROADMAP A3)')
         if solver != "coupled":
             raise ValueError(f"unknown solver {solver!r}")
         if not self.has_dynamics:
@@ -239,40 +243,43 @@ class Engine:
 # ---------------------------------------------------------------------------
 
 def fk(eng: Engine, qpos: torch.Tensor):
-    """Forward kinematics: xpos (nbody,3), xquat (nbody,4), S (nv,6). Body
-    frame = parent frame * (body_pos, body_quat), then the body's joints in
-    order, each about its anchor (mj_kinematics)."""
+    """Forward kinematics: xpos (..., nbody,3), xquat (..., nbody,4), S
+    (..., nv,6) for qpos (..., nq). Body frame = parent frame * (body_pos,
+    body_quat), then the body's joints in order, each about its anchor
+    (mj_kinematics). Leading axes run the same ops on every sample, so a
+    batch row equals its one-sample call."""
     m, dtype, dev = eng.model, qpos.dtype, qpos.device
-    xpos = torch.zeros(m.nbody, 3, dtype=dtype, device=dev)
-    xquat = eng.xquat0.clone()
-    jaxis_w = eng.init_axis.clone()
-    janchor_w = torch.zeros(m.nv, 3, dtype=dtype, device=dev)
+    lead = qpos.shape[:-1]
+    xpos = torch.zeros(lead + (m.nbody, 3), dtype=dtype, device=dev)
+    xquat = eng.xquat0.expand(lead + eng.xquat0.shape).clone()
+    jaxis_w = eng.init_axis.expand(lead + eng.init_axis.shape).clone()
+    janchor_w = torch.zeros(lead + (m.nv, 3), dtype=dtype, device=dev)
     for level in eng.levels:
-        pq = xquat[level["parent_ids"]]
-        pp = xpos[level["parent_ids"]]
+        pq = xquat[..., level["parent_ids"], :]
+        pp = xpos[..., level["parent_ids"], :]
         quat = sp.quat_mul(pq, level["body_quat"])
         pos = pp + sp.quat_rotate(pq, level["body_pos"])
         for st in level["stages"]:
             rows = st["rows"]
             if st["jtype"] == FREE:
-                pos[rows] = qpos[st["qpos3"]]
-                quat[rows] = sp.quat_normalize(qpos[st["qpos4"]])
+                pos[..., rows, :] = qpos[..., st["qpos3"]]
+                quat[..., rows, :] = sp.quat_normalize(qpos[..., st["qpos4"]])
                 continue
-            qv = qpos[st["qposadr"]] - st["ref"]
-            qr, pr, jpos, axis = quat[rows], pos[rows], st["jpos"], st["axis"]
+            qv = qpos[..., st["qposadr"]] - st["ref"]
+            qr, pr, jpos, axis = quat[..., rows, :], pos[..., rows, :], st["jpos"], st["axis"]
             anchor = pr + sp.quat_rotate(qr, jpos)
             qnew = sp.quat_mul(qr, sp.quat_from_axis_angle(axis, qv))
-            quat[rows] = qnew
-            pos[rows] = anchor - sp.quat_rotate(qnew, jpos)
-            jaxis_w[st["dofadr"]] = sp.quat_rotate(qnew, axis)
-            janchor_w[st["dofadr"]] = anchor
-        xpos[level["body_ids"]] = pos
-        xquat[level["body_ids"]] = quat
+            quat[..., rows, :] = qnew
+            pos[..., rows, :] = anchor - sp.quat_rotate(qnew, jpos)
+            jaxis_w[..., st["dofadr"], :] = sp.quat_rotate(qnew, axis)
+            janchor_w[..., st["dofadr"], :] = anchor
+        xpos[..., level["body_ids"], :] = pos
+        xquat[..., level["body_ids"], :] = quat
     # free-joint rotational dofs: axis = R e_i (body-local angular velocity),
     # anchor = body origin
     for _, da, bid in eng.free:
-        jaxis_w[da + 3:da + 6] = sp.quat_to_mat(xquat[bid]).T
-        janchor_w[da + 3:da + 6] = xpos[bid]
+        jaxis_w[..., da + 3:da + 6, :] = sp.quat_to_mat(xquat[..., bid, :]).transpose(-1, -2)
+        janchor_w[..., da + 3:da + 6, :] = xpos[..., bid, None, :]
     S_ang = jaxis_w * eng.rot_mask
     S_lin = sp.cross(janchor_w, jaxis_w) * eng.rot_mask + jaxis_w * eng.lin_mask
     return xpos, xquat, torch.cat([S_ang, S_lin], dim=-1)
@@ -297,7 +304,10 @@ def mass_matrix(eng: Engine, S: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
 
 
 def body_velocities(eng: Engine, S: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bn,n,ni->bi", eng.A, qvel, S)
+    """Body spatial velocities (nbody, 6), or (K, nbody, 6) for a batch."""
+    if qvel.dim() == 1:
+        return torch.einsum("bn,n,ni->bi", eng.A, qvel, S)
+    return torch.einsum("bn,kn,kni->kbi", eng.A, qvel, S)
 
 
 def bias_forces(eng: Engine, S, I, V, qvel) -> torch.Tensor:

@@ -322,7 +322,7 @@ def test_logger_layouts_and_metrics(tmp_path):
 
 
 def test_unported_planners_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2/A3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         prunner.EpisodeRunner(TASK, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2/A3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         prunner.EpisodeRunner(TASK, use_kernel=True, planner_solver="coupled", device="cpu")

@@ -348,3 +348,54 @@ def test_cuda_estimator_runner_runs():
     assert ek.launches == n0 + 3 * 4
     assert states.shape == (3, 37) and np.isfinite(states).all() and np.isfinite(actions).all()
     np.testing.assert_allclose(times, [0.0, 0.002, 0.004], atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_humanoid_estimator_loop_runs():
+    """The humanoid closed loop on the trained rollout_k surrogate through
+    the estimator kernel (K=256, T=4), 3 control steps on the humanoid
+    plant with the FK walking cost: T kernel forwards per step, finite
+    rows, the root above 0.7 m."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
+    from humanoid_mppi_rl_tpu_torch.collect.estimator import (
+        ESTIMATOR_CONFIGS, EstimatorRunner, humanoid_fk_estimator_costs,
+        humanoid_foot_state_fn)
+    from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
+
+    pm = load_model("humanoid_plant")
+    cfg = dataclasses.replace(ESTIMATOR_CONFIGS["humanoid"], n_samples=256, horizon=4)
+    runner = EstimatorRunner("humanoid_collect", load_trained("rollout_k_surrogate_best"), cfg,
+                             *humanoid_fk_estimator_costs(pm),
+                             state_fn=humanoid_foot_state_fn(pm), batched_dynamics=True,
+                             fd_time_augment=30)
+    n0 = ek.launches
+    states, actions, times = runner.run(n_steps=3, chunk=2).arrays()
+    assert ek.launches == n0 + 3 * 4
+    assert states.shape == (3, 55) and actions.shape == (3, 21)
+    assert np.isfinite(states).all() and np.isfinite(actions).all()
+    assert states[:, 2].min() >= 0.7
+    np.testing.assert_allclose(times, [0.0, 0.005, 0.01], atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_collect_humanoid_jl_runs(tmp_path):
+    """collect_humanoid_jl at the task's K=75, T=100 for 20 control steps
+    on the card: one rollout launch per step, 55 / 21 / 1 columns saved."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import os
+
+    from humanoid_mppi_rl_tpu_torch.collect.runner import collect_humanoid_jl
+    from humanoid_mppi_rl_tpu_torch.utils.trajio import read_csv
+
+    n0 = rk.launches
+    out = collect_humanoid_jl(n_episodes=1, out_dir=str(tmp_path), max_steps=20, chunk=10)
+    assert out == [(0, 20)] and rk.launches == n0 + 20
+    (run,) = os.listdir(tmp_path)
+    cols = {k: read_csv(os.path.join(tmp_path, run, f"{k}.csv")).reshape(20, -1).shape[1]
+            for k in ("states", "actions", "times")}
+    assert cols == {"states": 55, "actions": 21, "times": 1}
+    assert np.isfinite(read_csv(os.path.join(tmp_path, run, "states.csv"))).all()

@@ -201,7 +201,7 @@ def test_batched_dynamics_plans_through_the_estimator_kernel_wrapper(monkeypatch
 
 
 def test_cartpole_estimator_waits_for_slide_joints():
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A7"):
         pest.make_cartpole_estimator(make_model("cartpole_attention"), device="cpu")
 
 

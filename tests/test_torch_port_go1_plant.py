@@ -265,5 +265,5 @@ def test_collect_quadruped_falls_retries_and_shards(tmp_path, monkeypatch):
 
 
 def test_collect_quadruped_needs_the_kernel_planner():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2/A3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         prunner.collect_quadruped(n_runs=1, use_kernel=False, device="cpu", save=False)

@@ -17,7 +17,7 @@ from humanoid_mppi_rl_tpu.physics.model import build_from_mjcf
 from humanoid_mppi_rl_tpu_torch.collect.estimator import (
     ESTIMATOR_CONFIGS, EstimatorRunner, quadruped_estimator_costs)
 from humanoid_mppi_rl_tpu_torch.collect.runner import (EpisodeRunner, collect_humanoid,
-                                                       collect_quadruped)
+                                                       collect_humanoid_jl, collect_quadruped)
 from humanoid_mppi_rl_tpu_torch.learning.train import TrainConfig, train_model
 from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_plant, load_task
@@ -144,6 +144,22 @@ runner = EstimatorRunner("go1_collect", net, cfg,
                          fd_time_augment=19, ego_cols=(0, 1), device="cpu")
 states, actions, times = runner.run(n_steps=1, init_qpos=home, init_plan=home[7:19]).arrays()
 assert states.shape == (1, 37) and np.isfinite(actions).all()
+import humanoid_mppi_rl_tpu_torch.costs.base, humanoid_mppi_rl_tpu_torch.costs.humanoid
+from humanoid_mppi_rl_tpu_torch.collect.estimator import (
+    humanoid_fk_estimator_costs, humanoid_foot_state_fn)
+from humanoid_mppi_rl_tpu_torch.collect.runner import collect_humanoid_jl
+from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+pm = load_model("humanoid_plant")
+cfg = dataclasses.replace(ESTIMATOR_CONFIGS["humanoid"], n_samples=4, horizon=2)
+runner = EstimatorRunner("humanoid_collect", load_trained("rollout_k_surrogate_best", device="cpu"),
+                         cfg, *humanoid_fk_estimator_costs(pm),
+                         state_fn=humanoid_foot_state_fn(pm), batched_dynamics=True,
+                         fd_time_augment=30, device="cpu")
+states, actions, times = runner.run(n_steps=1).arrays()
+assert states.shape == (1, 55) and np.isfinite(actions).all()
+out = collect_humanoid_jl(n_episodes=1, out_dir=tempfile.mkdtemp(), max_steps=1,
+                          mppi_override=tiny, chunk=1, device="cpu")
+assert out == [(0, 1)], out
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
@@ -165,7 +181,7 @@ def test_port_runs_without_jax_mujoco_or_the_jax_package():
                                    "make_flash_feature_attention",
                                    "load_plant", "EpisodeRunner", "collect_humanoid",
                                    "collect_quadruped", "EstimatorRunner", "train_model",
-                                   "load_trained"])
+                                   "load_trained", "collect_humanoid_jl"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -189,6 +205,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
             ESTIMATOR_CONFIGS["quadruped"], *quadruped_estimator_costs()),
         "train_model": lambda: train_model(".", ".", TrainConfig()),
         "load_trained": lambda: load_trained("quad_pipeline_best"),
+        "collect_humanoid_jl": lambda: collect_humanoid_jl(save=False),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -263,7 +263,7 @@ def test_unported_solvers_and_features_raise(port_model):
     eng = _engine(port_model)
     st = eng.forward(torch.tensor(port_model.qpos0), torch.zeros(port_model.nv))
     for solver in ("penalty", "coupled_pgs"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
             eng.step(st, torch.zeros(port_model.nu), solver=solver)
     planner = load_model("humanoid")      # no plant fields
     with pytest.raises(ValueError, match="plant snapshot"):
