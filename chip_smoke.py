@@ -36,13 +36,13 @@ Phases, one JSON line each (with its own `seconds`):
              a runtime goal (K=256 and 253, T=4: the gates of `check`); a
              warm-up run(max_steps=50, chunk=50) and a timed run(max_steps=
              100, chunk=50) (bench.py::_bench_collect's protocol: steps/s,
-             control step ms); then 20 control steps one at a time, CUDA
+             control step ms); then 10 control steps one at a time, CUDA
              events around the plan and around the plant step (Newton
              iterations and constraint rows read after), one plant step
              under torch.profiler (device launches) and one control step
              (busy share); one plant step under
              torch.cuda.set_sync_debug_mode("error") (no host sync);
-             one collect_humanoid episode (max_steps=100, saved into a
+             one collect_humanoid episode (one chunk of 10, saved into a
              temporary directory; goal threshold opened to 1e9 so the goal
              gate saves it). Checks: one rollout launch per control
              step, every logged row finite, root height qpos[2] >= 0.7 over
@@ -64,12 +64,12 @@ Phases, one JSON line each (with its own `seconds`):
   main_quad_collect -- EpisodeRunner("go1_collect", use_kernel=True) at
              K=4096, H=32 with GAIT_TUNED and goal (2, 0) on the Go1 plant
              (go1_plant.json: 697 candidate pairs): 50 warm-up + 100 timed
-             control steps in chunks of 50; 10 steps split into plan and
+             control steps in chunks of 50; 5 steps split into plan and
              plant ms (CUDA events, Newton iterations, active rows); the
              device launches of one plant step; one plant step under
              set_sync_debug_mode("error"); every logged row finite and the
              trunk height >= 0.08 (the fall line) over the 150 steps; one
-             collect_quadruped run in one chunk of 10 (goal tolerance opened
+             collect_quadruped run in one chunk of 5 (goal tolerance opened
              to 1e9 so that its gate saves) read back: 37 / 12 / 1 columns
   check_estimator -- the estimator kernel against its plain version on the
              card, seeded weights with nonzero biases and LayerNorm terms,
@@ -122,8 +122,8 @@ Phases, one JSON line each (with its own `seconds`):
              on go1_collect's coupled plant, planning on the trained
              surrogate through the estimator kernel (bf16) at K=2048, T=32,
              accumulate update, sigma 0.18, the ctrlrange clamp, the FD gait
-             cost, from `home` with the plan seeded at home: 5 warm-up and 50
-             timed control steps (T forwards each), 6 split into plan and
+             cost, from `home` with the plan seeded at home: 3 warm-up and 20
+             timed control steps (T forwards each), 4 split into plan and
              plant ms by CUDA events, one profiled control step (launches by
              kernel, busy share); every row finite, trunk z >= 0.08 m, the
              progress beside the JAX record
@@ -133,7 +133,7 @@ Phases, one JSON line each (with its own `seconds`):
              estimator kernel (bf16) at ESTIMATOR_CONFIGS["humanoid"] with
              T=25 (K=2048, replace update, sigma 0.4), the walking cost on
              the batched FK of the predicted qpos (f32), state [qpos; foot
-             z]: 5 warm-up and 120 timed control steps, 10 split into plan
+             z]: 3 warm-up and 120 timed control steps, 5 split into plan
              and plant ms by CUDA events, one profiled control step (busy
              share, device launches by kernel) and the device launches of
              one replan (those outside the estimator kernel); T forwards per
@@ -141,6 +141,34 @@ Phases, one JSON line each (with its own `seconds`):
              every step, the progress beside the JAX record
   time_estimator also times the humanoid loop's forward alone (the trained
              rollout_k surrogate at B=2048, bf16) with its bound and library
+  check_cartpole, check_hopper -- slice 9: the rollout kernel against its
+             plain version at the gates of `check` (K=256 and 253, T=4) on
+             the cartpole (slide joint; cartpole_inputs puts the cart past
+             the slider's +-1 limit) and the planar hopper (slide, slide and
+             hinge on one body; hopper_inputs: four poses with the foot in
+             the floor, crouched, falling and in the air), the hopper with
+             param_gait (HOP_GAIT in slots 4-9, t0 in [0.3, 10] s): each
+             gait term (landing, knee anchor, hop clock) nonzero somewhere
+  main_cartpole -- the swing-up of tests/test_e2e_cartpole.py:
+             EpisodeRunner("cartpole", use_kernel=True) at K=256, T=100,
+             f32, 400 control steps from (0, pi): one launch a step, mean
+             |theta| < 0.15 over the last 40 steps and |x| < 0.5 at the end;
+             20 steps split into replan and plant ms, the plant step's
+             device launches, one profiled control step; the kernel alone
+             beside its plain version and its bound
+  main_hopper -- EpisodeRunner("hopper", use_kernel=True) at K=4096,
+             H=100 (artifacts/hopper_k4096.npz's): 5 warm-up and 200 timed
+             control steps, one launch a step, finite rows; the split, the
+             kernel alone, torso z minimum and x progress as main_cartpole
+  main_cartpole_pipeline -- two cartpole_collect episodes (K=75, T=100)
+             of 200 steps written as CSV, PRESET_CONFIGS["cartpole"] trained
+             on them for 10 epochs (eval loss falls), the trained weights at
+             check_estimator_trained's gates (B=2048 and 253) and timed as
+             time_estimator does, then EstimatorRunner("cartpole", ...,
+             batched_dynamics=True) at ESTIMATOR_CONFIGS["cartpole"] (K=2048,
+             T=100, bf16): 3 warm-up and 100 timed control steps, T forwards
+             a step, 5 split into plan and plant ms, one profiled step and
+             the replan's device launches outside the estimator kernel
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -179,7 +207,10 @@ EST_PLAIN_CHUNK = 8192   # the plain forward at B=65536 runs in sample chunks (m
 SWEEP_K = (2048, 4096, 8192, 16384, 32768)   # rollout kernel alone, T = the main path's H
 COLLECT_TASK = "humanoid_walk"
 COLLECT_WARMUP, COLLECT_TIMED, COLLECT_CHUNK = 50, 100, 50   # bench.py::_bench_collect
-COLLECT_SPLIT_STEPS = 20
+# main_collect's depth, cut to leave the run time for the later phases:
+# 10 control steps split into plan and plant (20 before), collect_humanoid
+# in one chunk of 10 (50 before)
+COLLECT_SPLIT_STEPS, HUM_COLLECT_CHUNK = 10, 10
 FALL_Z = 0.7   # scripts/dev_seed_evidence.py:53
 # the Go1 at scripts/quad_pipeline.py's operating point (collect_quadruped
 # with use_kernel=True, K=4096, H=32, GAIT_TUNED, goals at (2 + i mod 3, 0))
@@ -188,10 +219,10 @@ GO1_GOAL = (2.0, 0.0)
 GO1_FALL_Z = 0.08   # collect_quadruped's fall line
 GO1_JL_TIMED = 10   # timed replans of the go1 (quadruped_jl) task
 GO1_TIME_K = (4096, 8192)   # the rollout kernel alone, T = GO1_H
-# main_quad_collect's depth, cut to leave the run time for the learning
-# loop's phases: 10 control steps split into plan and plant (20 before),
-# collect_quadruped in one chunk of 10 (50 before)
-GO1_SPLIT_STEPS, GO1_COLLECT_CHUNK = 10, 10
+# main_quad_collect's depth, cut to leave the run time for the later
+# phases: 5 control steps split into plan and plant (20, then 10 before),
+# collect_quadruped in one chunk of 5 (50, then 10 before)
+GO1_SPLIT_STEPS, GO1_COLLECT_CHUNK = 5, 5
 
 
 def emit(obj):
@@ -886,7 +917,7 @@ def collect_phase() -> dict:
     with tempfile.TemporaryDirectory() as out_dir:
         episode = collect_humanoid(n_episodes=1, task_name=COLLECT_TASK, use_kernel=True,
                                    max_steps=COLLECT_TIMED, save=True, out_dir=out_dir,
-                                   goal_threshold=1e9, chunk=COLLECT_CHUNK)
+                                   goal_threshold=1e9, chunk=HUM_COLLECT_CHUNK)
         torch.cuda.synchronize()
         path_launches = rk.launches
         shapes = {}
@@ -896,8 +927,9 @@ def collect_phase() -> dict:
                 if not np.isfinite(a).all():
                     raise AssertionError(f"{f}: non-finite CSV values")
                 shapes[f.split("_")[0]] = a.shape[1]
-    # a chunk always runs to its end: the episode's goal at step 1 still ran 50
-    executed = COLLECT_WARMUP + COLLECT_TIMED + COLLECT_CHUNK
+    # a chunk always runs to its end: the episode's goal at step 1 still ran
+    # HUM_COLLECT_CHUNK
+    executed = COLLECT_WARMUP + COLLECT_TIMED + HUM_COLLECT_CHUNK
     if (warm_launches, timed_launches, path_launches) != (COLLECT_WARMUP, COLLECT_TIMED, executed):
         raise AssertionError(f"rollout launches {warm_launches}/{timed_launches}/{path_launches} "
                              f"for {COLLECT_WARMUP}/{COLLECT_TIMED}/{executed} control steps")
@@ -1473,11 +1505,14 @@ CHAIN_EPOCHS, CHAIN_CKPT_EVERY = 10, 5
 CHAIN_EVAL_SPLIT = 0.5
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, TRAIN_SYNC_STEPS = 10, 100, 10
 EST_LOOP_K, EST_LOOP_T = 2048, 32
-EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 5, 50, 6
+# the Go1 loop's depth, cut to leave the run time for the cartpole and
+# hopper phases: 3 warm-up, 20 timed and 4 split steps (5, 50 and 6 before)
+EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 3, 20, 4
 # the humanoid loop (scripts/dev_estimator_walk.py --configs fk): K=2048,
 # T=25; 120 timed control steps, the JAX record's length
 HUM_LOOP_K, HUM_LOOP_T = 2048, 25
-HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 5, 120, 10
+# (3 warm-up and 5 split steps: 5 and 10 before, cut for the run time)
+HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 3, 120, 5
 # the JAX record (artifacts/rollout_k_surrogate/estimator_summary.json,
 # closed_loop.fk_cost_K2048_T25, on a TPU, another noise stream)
 HUM_JAX_RECORD = {"steps": 120, "K": 2048, "T": 25, "forward_progress_m": 0.159,
@@ -1743,41 +1778,48 @@ TRAINED_CHECKS = (
 )
 
 
+def check_weights(name: str, module, x_of, batches) -> dict:
+    """The estimator kernel against its plain version on one set of
+    weights, f32 and bf16, at each B of `batches` on x_of(B, seed): the
+    gates of check_estimator. Returns the errors by dtype and B."""
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+
+    errs = {}
+    for B in batches:
+        x = x_of(B, seed=B)
+        for cd in (torch.float32, torch.bfloat16):
+            apply = ek.make_flash_feature_attention(module, cd)
+            n0 = ek.launches
+            got = apply(x)
+            torch.cuda.synchronize()
+            if ek.launches != n0 + 1:
+                raise AssertionError("estimator kernel launch was not counted")
+            want = apply.plain(x)
+            key = f"{str(cd).replace('torch.', '')}/B={B}"
+            if tuple(got.shape) != (B, module.state_dim) or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {key}: bad kernel output")
+            if cd == torch.float32:
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=f"{name} {key}")
+                errs[key] = {"max_abs": float((got - want).abs().max()),
+                             "max_abs_y": float(want.abs().max())}
+            else:
+                e = bf16_errors(got, want)
+                if not e["within"]:
+                    raise AssertionError(f"{name} {key}: {e}")
+                errs[key] = e
+    return errs
+
+
 def check_trained_phase() -> dict:
     """check_estimator_trained: the estimator kernel against its plain
     version on each set of trained weights at its closed loop's inputs.
     Returns {asset: errors by dtype and B}."""
     from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
-    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
 
     out = {}
     for name, model, inputs, batches in TRAINED_CHECKS:
         t0 = time.perf_counter()
-        module = load_trained(name)
-        errs = {}
-        for B in batches:
-            x = inputs(B, seed=B)
-            for cd in (torch.float32, torch.bfloat16):
-                apply = ek.make_flash_feature_attention(module, cd)
-                n0 = ek.launches
-                got = apply(x)
-                torch.cuda.synchronize()
-                if ek.launches != n0 + 1:
-                    raise AssertionError("estimator kernel launch was not counted")
-                want = apply.plain(x)
-                key = f"{str(cd).replace('torch.', '')}/B={B}"
-                if tuple(got.shape) != (B, module.state_dim) or not torch.isfinite(got).all():
-                    raise AssertionError(f"{name} {key}: bad kernel output")
-                if cd == torch.float32:
-                    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
-                                               msg=f"{name} {key}")
-                    errs[key] = {"max_abs": float((got - want).abs().max()),
-                                 "max_abs_y": float(want.abs().max())}
-                else:
-                    e = bf16_errors(got, want)
-                    if not e["within"]:
-                        raise AssertionError(f"{name} {key}: {e}")
-                    errs[key] = e
+        errs = check_weights(name, load_trained(name), inputs, batches)
         emit({"phase": "check_estimator_trained", "weights": f"assets/{name}.pt",
               "model": model, "B": list(batches),
               "tolerance": {"float32": "rtol=atol=1e-4",
@@ -2029,6 +2071,500 @@ def learning_phases(collected: dict) -> dict:
             "train_step_ms": train["train_step_ms"]}
 
 
+# ---- slice 9: the cartpole and the planar hopper ---------------------------
+
+# the swing-up of tests/test_e2e_cartpole.py: K=256 at the task's T=100, 400
+# control steps from (0, pi); the pole upright over the last 40 steps
+CART_K, CART_STEPS, CART_SETTLE = 256, 400, 40
+CART_SPLIT_STEPS = 20
+# the hopper at artifacts/hopper_k4096.npz's K and H
+# (tests/test_e2e_hopper.py:12-14): 5 warm-up and 200 timed control steps
+HOP_K, HOP_H, HOP_WARMUP, HOP_TIMED, HOP_SPLIT_STEPS = 4096, 100, 5, 200, 10
+# check_hopper's param_gait deltas, slots 4..9: target velocity, landing
+# weight, pitch log-scale, knee weight, hop-clock weight, knee anchor shift
+HOP_GAIT = (0.2, 3.0, 0.3, 2.0, 5.0, -0.1)
+# the cartpole learning loop: two cartpole_collect episodes (K=75, T=100,
+# the reference's) of 200 steps, PRESET_CONFIGS["cartpole"] cut to 10
+# epochs, then the closed loop at ESTIMATOR_CONFIGS["cartpole"]
+CART_EPISODES, CART_EPISODE_STEPS, CART_TRAIN_EPOCHS = 2, 200, 10
+CART_LOOP_WARMUP, CART_LOOP_TIMED, CART_LOOP_SPLIT = 3, 100, 5
+CART_LOOP_CHECK_B = (2048, 253)
+# hopper poses for the rollout checks (sample k in pose k % 4): (name, hip,
+# knee, ankle, the foot's lowest point above the floor (m), vertical
+# velocity mean (m/s)). "stand" and "crouch" put the foot 5 mm into the
+# floor (crouch: torso below 0.85 m, the landing gate open); "falling" is
+# the crouch 5 cm up, descending at 1.5 m/s (the landing term); "air" the
+# straight leg 0.3 m up. The knee's range is 5..150 deg: the straight leg
+# is past its lower limit.
+HOPPER_POSES = (("stand", 0.0, 0.0, 0.0, -0.005, 0.0), ("crouch", -1.0, 2.0, -1.0, -0.005, 0.0),
+                ("falling", -1.0, 2.0, -1.0, 0.05, -1.5), ("air", 0.0, 0.0, 0.0, 0.3, 0.0))
+
+
+def cartpole_inputs(model, K, T, dtype, seed=0, device="cuda"):
+    """Cartpole rollout inputs: the cart in [-1.15, 1.15] (past the slider's
+    +-1 limit in about one sample in eight: the limit row acts), the pole
+    at any angle, velocities N(0, 1), a plan and noise N(0, 0.5), start
+    times in [0, 10] s."""
+    rng = np.random.default_rng(seed)
+    qpos = np.stack([rng.uniform(-1.15, 1.15, K), rng.uniform(-np.pi, np.pi, K)])
+    qvel = rng.normal(0, 1.0, (model.nv, K))
+    U = rng.normal(0, 0.5, (T, model.nu))
+    noise = rng.normal(0, 0.5, (T, model.nu, K))
+    t0 = rng.uniform(0, 10.0, (1, K))
+    as_t = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    return tuple(as_t(a) for a in (qpos, qvel, t0, U, noise))
+
+
+def hopper_foot_low(model, qpos: np.ndarray) -> np.ndarray:
+    """Height (K,) of the foot capsule's lowest point for qpos (nq, K), by
+    the port's kinematics on the CPU in f64."""
+    from humanoid_mppi_rl_tpu_torch.physics import spatial as sp
+    from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
+
+    eng = Engine(model, "cpu", torch.float64)
+    st = eng.forward(torch.tensor(qpos.T), torch.zeros(qpos.shape[1], model.nv,
+                                                       dtype=torch.float64))
+    b = model.body_id("foot")
+    g = next(g for g in model.geoms if g.bodyid == b)
+    R = sp.quat_to_mat(st.xquat[:, b]).numpy()
+    gp = st.xpos[:, b].numpy() + R @ np.asarray(g.pos)
+    axis = R @ sp.quat_to_mat(torch.tensor(g.quat)).numpy()[:, 2]
+    hl = float(g.size[1]) * np.abs(axis[:, 2])
+    return gp[:, 2] - hl - float(g.size[0])
+
+
+def hopper_states(model, K: int, seed: int = 0):
+    """qpos (nq, K), qvel (nv, K) numpy arrays: sample k in pose
+    HOPPER_POSES[k % 4], leg angles and torso pitch perturbed by N(0, 0.05),
+    rootx in [-0.5, 0.5], the root height set so that the foot's lowest
+    point is the pose's; velocities N(0, 0.3) plus the pose's vertical
+    velocity."""
+    rng = np.random.default_rng(seed)
+    qpos = np.zeros((model.nq, K))
+    qvel = rng.normal(0, 0.3, (model.nv, K))
+    clear = np.zeros(K)
+    for k in range(K):
+        _, hip, knee, ankle, c, vz = HOPPER_POSES[k % len(HOPPER_POSES)]
+        qpos[0, k] = rng.uniform(-0.5, 0.5)
+        qpos[2:, k] = np.array([0.0, 0.0, hip, knee, ankle]) + rng.normal(0, 0.05, 5)
+        qvel[1, k] += vz
+        clear[k] = c
+    qpos[1] += clear - hopper_foot_low(model, qpos)
+    return qpos, qvel
+
+
+def hopper_inputs(model, K, T, dtype, seed=0, device="cuda"):
+    """Rollout inputs on the poses of hopper_states: a plan and noise
+    N(0, 0.5), start times in [0.3, 10] s."""
+    qpos, qvel = hopper_states(model, K, seed)
+    rng = np.random.default_rng(seed + 1)
+    U = rng.normal(0, 0.5, (T, model.nu))
+    noise = rng.normal(0, 0.5, (T, model.nu, K))
+    t0 = rng.uniform(0.3, 10.0, (1, K))
+    as_t = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    return tuple(as_t(a) for a in (qpos, qvel, t0, U, noise))
+
+
+def hopper_gait_params() -> np.ndarray:
+    p = np.zeros(16)
+    p[4:10] = HOP_GAIT
+    return p
+
+
+def hopper_gait_terms(qpos, qvel, time, params) -> dict:
+    """The param_gait terms of kernel_costs.hopper in numpy: the landing
+    term (gate x squared excess descent), the knee anchor and the hop clock."""
+    gate = np.clip((0.85 - (qpos[1] + 1.0)) * 4.0, 0.0, 1.0)
+    over = np.maximum(-qvel[1] - 0.4, 0.0)
+    zstar = 0.92 + 0.18 * np.sin(time * (2 * np.pi / 0.75))
+    return {"landing": params[5] * gate * over * over,
+            "knee_anchor": params[7] * (qpos[5] - (1.2 + params[9])) ** 2,
+            "clock": params[8] * (qpos[1] + 1.0 - zstar) ** 2}
+
+
+def kernel_alone(ro, model, cost_factory, cost_kwargs, K, T, inputs, params=None) -> dict:
+    """The rollout kernel alone at (K, T) in f32 on `inputs` beside its
+    plain version (cost rel median < 1e-3) and its bound: the bytes of the
+    inputs and outputs, and ops_per_rollout's operations at the f32 rate."""
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    x = inputs(model, K, T, torch.float32, seed=2)
+    p = None if params is None else torch.tensor(params, dtype=torch.float32, device="cuda")
+    ro(*x, params=p)
+    kernel_ms = cuda_ms(lambda: ro(*x, params=p), 5)
+    out = {}
+    plain_ms = cuda_ms(lambda: out.setdefault("plain", ro.plain(*x, params=p)), 1)
+    ck, cp = ro(*x, params=p)[0].double(), out["plain"][0].double()
+    rel = (ck - cp).abs() / cp.abs()
+    vs = {"cost_rel_median": float(rel.median()), "cost_rel_max": float(rel.max()),
+          "cost_max_abs": float((ck - cp).abs().max())}
+    if not (torch.isfinite(ck).all() and vs["cost_rel_median"] < 1e-3):
+        raise AssertionError(f"full-shape f32 kernel vs plain: {vs}")
+    n_rollout_ops = ops_per_rollout(model, cost_factory, cost_kwargs, T, inputs=inputs,
+                                    params=params)
+    n_ops = K * n_rollout_ops
+    n_bytes = 4 * (K * (2 * model.nq + 2 * model.nv + 1) + T * model.nu * (K + 1) + rk.NP)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return {"K": K, "T": T, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "ops_per_rollout": n_rollout_ops, "ops": n_ops, "bytes": n_bytes,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations", "kernel_vs_plain": vs}
+
+
+def split_control_steps(runner, n: int, params=None) -> dict:
+    """n control steps of an EpisodeRunner one at a time from its initial
+    state, CUDA events around the plan and around the plant step; then the
+    device launches of one plant step and one profiled control step."""
+    ms = runner.fresh_controller(1)
+    plant = runner.init_state
+    p = torch.zeros(16, dtype=torch.float32, device="cuda") if params is None else params
+    plan_ms, plant_ms, step_ms = [], [], []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        h = time.perf_counter()
+        ev[0].record()
+        action, ms, _ = runner.plan(ms, plant, params=p)
+        ev[1].record()
+        plant = runner.plant_dyn(plant, action, 0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - h) * 1e3)
+        plan_ms.append(ev[0].elapsed_time(ev[1]))
+        plant_ms.append(ev[1].elapsed_time(ev[2]))
+    launches = device_launches(lambda: runner.plant_dyn(plant, action, 0))
+    prof = device_profile(lambda: runner.control_step(ms, plant, p))
+    q = lambda v: [float(x) for x in np.percentile(v, [25, 75])]
+    return {"split_steps": n, "replan_ms_median": statistics.median(plan_ms),
+            "replan_ms_q1_q3": q(plan_ms), "plant_ms_median": statistics.median(plant_ms),
+            "plant_ms_q1_q3": q(plant_ms), "control_step_host_ms_median": statistics.median(step_ms),
+            "control_step_host_ms_q1_q3": q(step_ms),
+            "plant_step_device_launches": launches,
+            "profiled_control_step": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                           "device_busy_share")}}
+
+
+def small_robot_checks() -> dict:
+    """check_cartpole and check_hopper: the rollout kernel against its
+    plain version at the gates of `check` (check_rollout). Returns the
+    errors by robot."""
+    from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    out = {}
+    t0 = time.perf_counter()
+    spec, model, cfg, _ = load_task("cartpole", dtype=torch.float64)
+    errs, geometry = check_rollout(model, spec.cost_factory, spec.cost_kwargs,
+                                   inputs=cartpole_inputs)
+    x = cartpole_inputs(model, CHECK_KS[0], CHECK_T, torch.float64, seed=1)
+    past = int((x[0][0].abs() > 1.0).sum())
+    if not past:
+        raise AssertionError("no cartpole state past the slider's limit")
+    emit({"phase": "check_cartpole", "kernel": "rollout", "K": list(CHECK_KS), "T": CHECK_T,
+          "cost": "cartpole", "inputs": "cartpole_inputs: cart in [-1.15, 1.15], pole at any "
+                                        "angle, t0 ~ U[0, 10] s",
+          "samples_past_the_slider_limit": past,
+          "tolerance": {"float64": "rtol=atol=1e-9", "float32": "cost rel median<1e-3, max<1e-2",
+                        "repeat": "two launches bit-identical"},
+          "geometry": {str(dt).replace("torch.", ""): geo for dt, geo in geometry.items()},
+          "errors": errs, "seconds": time.perf_counter() - t0})
+    out["cartpole"] = errs
+
+    t0 = time.perf_counter()
+    spec, model, cfg, _ = load_task("hopper", dtype=torch.float64)
+    kw = dict(spec.cost_kwargs, param_gait=True)
+    params = hopper_gait_params()
+    errs, geometry = check_rollout(model, spec.cost_factory, kw, params=params,
+                                   inputs=hopper_inputs)
+    # every param_gait term acts: each nonzero in some sample of the plain
+    # rollout's final states at the terminal's time
+    x = hopper_inputs(model, CHECK_KS[0], CHECK_T, torch.float64, seed=1)
+    ro = rk.build_rollout_kernel(model, spec.cost_factory, CHECK_T, cost_kwargs=kw)
+    _, qT, vT = ro.plain(*x, params=torch.tensor(params, dtype=torch.float64, device="cuda"))
+    t_end = (x[2][0] + CHECK_T * model.timestep).cpu().numpy()
+    terms = hopper_gait_terms(qT.cpu().numpy(), vT.cpu().numpy(), t_end, params)
+    nonzero = {k: int((v > 0).sum()) for k, v in terms.items()}
+    touching = int((hopper_foot_low(model, x[0].cpu().numpy()) < 0).sum())
+    if min(nonzero.values()) == 0 or not touching:
+        raise AssertionError(f"hopper check: terms nonzero in {nonzero}, {touching} feet in")
+    emit({"phase": "check_hopper", "kernel": "rollout", "K": list(CHECK_KS), "T": CHECK_T,
+          "cost": "hopper, param_gait", "params": params.tolist(),
+          "inputs": "hopper_inputs: poses " + ", ".join(p[0] for p in HOPPER_POSES)
+                    + "; t0 ~ U[0.3, 10] s",
+          "feet_in_the_floor": touching, "samples_with_term_nonzero": nonzero,
+          "tolerance": {"float64": "rtol=atol=1e-9", "float32": "cost rel median<1e-3, max<1e-2",
+                        "repeat": "two launches bit-identical"},
+          "geometry": {str(dt).replace("torch.", ""): geo for dt, geo in geometry.items()},
+          "errors": errs, "seconds": time.perf_counter() - t0})
+    out["hopper"] = errs
+    return out
+
+
+def cartpole_phase() -> dict:
+    """main_cartpole: the swing-up of tests/test_e2e_cartpole.py on the card."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    t0 = time.perf_counter()
+    runner = EpisodeRunner("cartpole", use_kernel=True, mppi_override={"n_samples": CART_K})
+    rk.launches = 0
+    h0 = time.perf_counter()
+    res = runner.run(max_steps=CART_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - h0
+    launches = rk.launches
+    if launches != CART_STEPS:
+        raise AssertionError(f"cartpole: {launches} kernel launches for {CART_STEPS} steps")
+    states, actions, _ = res.logger.arrays()
+    if states.shape != (CART_STEPS, 4) or not (np.isfinite(states).all()
+                                               and np.isfinite(actions).all()):
+        raise AssertionError(f"cartpole rows: {states.shape}, finite {np.isfinite(states).all()}")
+    theta = np.mod(states[:, 1] + np.pi, 2 * np.pi) - np.pi
+    upright, cart_x = float(np.abs(theta[-CART_SETTLE:]).mean()), float(states[-1, 0])
+    if not (upright < 0.15 and abs(cart_x) < 0.5):
+        raise AssertionError(f"cartpole swing-up: mean |theta| {upright:.3f} over the last "
+                             f"{CART_SETTLE} steps, cart x {cart_x:.3f}")
+    split = split_control_steps(runner, CART_SPLIT_STEPS)
+    spec, model, cfg = runner.spec, runner.model, runner.cfg
+    alone = kernel_alone(runner.plan.rollouts, model, spec.cost_factory, spec.cost_kwargs,
+                         cfg.K, cfg.T, cartpole_inputs)
+    emit({"phase": "main_cartpole", "task": "cartpole", "K": cfg.K, "T": cfg.T,
+          "dtype": "float32", "control_steps": CART_STEPS, "launches": launches,
+          "control_step_ms_mean": wall / CART_STEPS * 1e3,
+          "mean_abs_theta_last_40": upright, "final_cart_x": cart_x,
+          "gate": "mean |theta| < 0.15 over the last 40 steps, |x| < 0.5 at the end "
+                  "(tests/test_e2e_cartpole.py)",
+          **split, "kernel_alone": alone, "seconds": time.perf_counter() - t0})
+    return {"launches": launches, "control_steps": CART_STEPS, "kernel": alone,
+            "replan_ms_median": split["replan_ms_median"],
+            "plant_ms_median": split["plant_ms_median"]}
+
+
+def hopper_phase() -> dict:
+    """main_hopper: EpisodeRunner("hopper") at K=4096, H=100 on the card."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    t0 = time.perf_counter()
+    runner = EpisodeRunner("hopper", use_kernel=True,
+                           mppi_override={"n_samples": HOP_K, "horizon": HOP_H})
+    rk.launches = 0
+    runner.run(max_steps=HOP_WARMUP, chunk=HOP_WARMUP)
+    h0 = time.perf_counter()
+    res = runner.run(max_steps=HOP_TIMED, chunk=50)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - h0
+    launches = rk.launches
+    if launches != HOP_WARMUP + HOP_TIMED:
+        raise AssertionError(f"hopper: {launches} kernel launches for "
+                             f"{HOP_WARMUP + HOP_TIMED} control steps")
+    states, actions, _ = res.logger.arrays()
+    if states.shape != (HOP_TIMED, 14) or not (np.isfinite(states).all()
+                                               and np.isfinite(actions).all()):
+        raise AssertionError(f"hopper rows: {states.shape}, finite {np.isfinite(states).all()}")
+    split = split_control_steps(runner, HOP_SPLIT_STEPS)
+    spec, model, cfg = runner.spec, runner.model, runner.cfg
+    alone = kernel_alone(runner.plan.rollouts, model, spec.cost_factory, spec.cost_kwargs,
+                         cfg.K, cfg.T, hopper_inputs)
+    torch.cuda.empty_cache()
+    emit({"phase": "main_hopper", "task": "hopper", "K": cfg.K, "H": cfg.T, "dtype": "float32",
+          "warmup_steps": HOP_WARMUP, "timed_steps": HOP_TIMED, "launches": launches,
+          "control_step_ms_mean_timed_run": wall / HOP_TIMED * 1e3,
+          "torso_z_min": float(1.0 + states[:, 1].min()),
+          "x_progress_m": float(states[-1, 0] - states[0, 0]),
+          "jax_record_tpu": {"steps": 524, "x_progress_m": 0.87, "speed_m_per_s": 0.34,
+                             "note": "artifacts/hopper_k4096.npz: behaviour, not a target"},
+          **split, "kernel_alone": alone, "seconds": time.perf_counter() - t0})
+    return {"launches": launches, "control_steps": HOP_WARMUP + HOP_TIMED, "kernel": alone,
+            "replan_ms_median": split["replan_ms_median"],
+            "plant_ms_median": split["plant_ms_median"]}
+
+
+def cartpole_pipeline_phase() -> dict:
+    """main_cartpole_pipeline: collect -> CSV -> train -> the closed loop on
+    the trained surrogate through the estimator kernel (the reference's
+    cartpole_datacollection.jl, its trainer and cartpole_mppi_estimator.py)."""
+    from humanoid_mppi_rl_tpu_torch.collect.estimator import (ESTIMATOR_CONFIGS,
+                                                              EstimatorRunner)
+    from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
+    from humanoid_mppi_rl_tpu_torch.costs.cartpole import make_costs_flat
+    from humanoid_mppi_rl_tpu_torch.learning import train as tr
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    t0 = time.perf_counter()
+    collector = EpisodeRunner("cartpole_collect", use_kernel=True)
+    rk.launches = 0
+    runs = {}
+    for ep in range(CART_EPISODES):
+        res = collector.run(max_steps=CART_EPISODE_STEPS, seed=ep)
+        states, actions, _ = res.logger.arrays()
+        if states.shape != (CART_EPISODE_STEPS, 4) or not np.isfinite(states).all():
+            raise AssertionError(f"cartpole_collect episode {ep}: {states.shape}")
+        runs[f"episode_{ep}"] = (states, actions)
+    collect_launches = rk.launches
+    if collect_launches != CART_EPISODES * CART_EPISODE_STEPS:
+        raise AssertionError(f"cartpole_collect: {collect_launches} kernel launches")
+    collect_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        sdir, adir = write_runs(os.path.join(root, "data"), runs)
+        ck = os.path.join(root, "ckpt")
+        cfg = dataclasses.replace(tr.PRESET_CONFIGS["cartpole"], epochs=CART_TRAIN_EPOCHS,
+                                  ckpt_dir=ck)
+        out = tr.train_model(sdir, adir, cfg)
+        torch.cuda.synchronize()
+        with open(os.path.join(ck, "metrics.jsonl")) as f:
+            epochs = [e for e in map(json.loads, f) if e["kind"] == "epoch"]
+    train_l = [e["train_loss"] for e in epochs]
+    eval_l = [e["eval_loss"] for e in epochs]
+    if len(epochs) != CART_TRAIN_EPOCHS or not np.isfinite(train_l + eval_l).all():
+        raise AssertionError(f"cartpole training losses: train {train_l}, eval {eval_l}")
+    if not eval_l[-1] < eval_l[0]:
+        raise AssertionError(f"the cartpole surrogate's eval loss did not fall: {eval_l}")
+    module = out["model"].eval()
+    train_s = time.perf_counter() - t1
+
+    # the trained weights at the gates of check_estimator_trained, on rows
+    # of the collection with small perturbations
+    rows = np.concatenate([np.concatenate(r, axis=1) for r in runs.values()])
+
+    def x_of(B, seed):
+        rng = np.random.default_rng(seed)
+        x = rows[rng.integers(0, len(rows), B)] + rng.normal(0, 0.05, (B, rows.shape[1]))
+        return torch.tensor(x, dtype=torch.float32, device="cuda")
+
+    errs = check_weights("cartpole (trained in the run)", module, x_of, CART_LOOP_CHECK_B)
+    emit({"phase": "check_estimator_trained", "weights": "cartpole_attention trained in "
+          "main_cartpole_pipeline", "model": "cartpole_attention (F=5, H=64, 4 heads, 2 layers)",
+          "B": list(CART_LOOP_CHECK_B),
+          "tolerance": {"float32": "rtol=atol=1e-4",
+                        "bfloat16": "median|diff|<=3e-3*s, max|diff|<=3e-2*s, s=max(1,max|y|)"},
+          "errors": errs})
+    forward = time_forward(module, x_of(ESTIMATOR_CONFIGS["cartpole"].K, seed=3),
+                           "cartpole_attention (trained in the run)", stages=False)
+
+    t2 = time.perf_counter()
+    ecfg = ESTIMATOR_CONFIGS["cartpole"]
+    runner = EstimatorRunner("cartpole", module, ecfg, *make_costs_flat(),
+                             batched_dynamics=True)
+    start = dict(init_qpos=(0.0, np.pi), seed=0)
+    ek.launches = 0
+    warm = runner.run(n_steps=CART_LOOP_WARMUP, chunk=CART_LOOP_WARMUP, **start)
+    torch.cuda.synchronize()
+    warm_launches = ek.launches
+    h0 = time.perf_counter()
+    log = runner.run(n_steps=CART_LOOP_TIMED, chunk=CART_LOOP_TIMED, **start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - h0
+    n_steps = CART_LOOP_WARMUP + CART_LOOP_TIMED
+    launches = ek.launches
+    if (warm_launches, launches) != (CART_LOOP_WARMUP * ecfg.T, n_steps * ecfg.T):
+        raise AssertionError(f"estimator forwards {warm_launches}/{launches} for "
+                             f"{CART_LOOP_WARMUP}/{n_steps} control steps of T={ecfg.T}")
+    for name, lg, n in (("warm-up", warm, CART_LOOP_WARMUP), ("timed", log, CART_LOOP_TIMED)):
+        states, actions, times = lg.arrays()
+        if states.shape != (n, 4) or actions.shape != (n, 1) or times.shape != (n,):
+            raise AssertionError(f"cartpole loop {name}: {states.shape} {actions.shape}")
+        if not (np.isfinite(states).all() and np.isfinite(actions).all()):
+            raise AssertionError(f"cartpole loop {name}: non-finite rows")
+    states, actions, _ = log.arrays()
+    ms, plant = runner.start(**start)
+    plan_ms, plant_ms, step_ms = [], [], []
+    with torch.no_grad():
+        for _ in range(CART_LOOP_SPLIT):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            h = time.perf_counter()
+            ev[0].record()
+            action, ms, _ = runner.plan(ms, runner.extract(plant))
+            ev[1].record()
+            plant = runner.plant_dyn(plant, action)
+            ev[2].record()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - h) * 1e3)
+            plan_ms.append(ev[0].elapsed_time(ev[1]))
+            plant_ms.append(ev[1].elapsed_time(ev[2]))
+    n0 = ek.launches
+    prof = device_profile(lambda: runner.control_step(ms, plant))
+    if ek.launches - n0 != ecfg.T:
+        raise AssertionError(f"{ek.launches - n0} estimator forwards in a control step "
+                             f"(T={ecfg.T})")
+    k1 = dict(ek.kernel_launches)
+    with torch.no_grad():
+        plan_launches = device_launches(lambda: runner.plan(ms, runner.extract(plant)))
+    plan_est = sum(ek.kernel_launches[kk] - k1[kk] for kk in ek.KINDS)
+    q = lambda v: [float(x) for x in np.percentile(v, [25, 75])]
+    theta = np.mod(states[:, 1] + np.pi, 2 * np.pi) - np.pi
+    emit({"phase": "main_cartpole_pipeline", "collect": {
+              "task": "cartpole_collect", "K": collector.cfg.K, "T": collector.cfg.T,
+              "episodes": CART_EPISODES, "steps": CART_EPISODE_STEPS,
+              "launches": collect_launches, "seconds": collect_s},
+          "train": {"preset": "cartpole", "epochs": CART_TRAIN_EPOCHS, "cut": "10 of 50 epochs",
+                    "n_pairs": out["n_pairs"], "train_loss": train_l, "eval_loss": eval_l,
+                    "seconds": train_s},
+          "loop": {"K": ecfg.K, "T": ecfg.T, "dtype": "bfloat16 surrogate, float32 plant",
+                   "update_mode": ecfg.update_mode, "sigma": ecfg.sigma,
+                   "steps": n_steps, "timed_steps": CART_LOOP_TIMED,
+                   "control_step_ms_mean_timed_run": wall / CART_LOOP_TIMED * 1e3,
+                   "split_steps": CART_LOOP_SPLIT,
+                   "control_step_host_ms_median": statistics.median(step_ms),
+                   "control_step_host_ms_q1_q3": q(step_ms),
+                   "plan_ms_median": statistics.median(plan_ms), "plan_ms_q1_q3": q(plan_ms),
+                   "plant_ms_median": statistics.median(plant_ms),
+                   "plant_ms_q1_q3": q(plant_ms),
+                   "estimator_forwards_per_control_step": launches / n_steps,
+                   "profiled_control_step": {k: prof[k] for k in (
+                       "wall_ms", "device_busy_ms", "device_busy_share")},
+                   "replan_device_launches": plan_launches,
+                   "replan_estimator_kernels": plan_est,
+                   "replan_launches_outside_estimator_kernel":
+                       None if plan_launches["kernels"] is None
+                       else plan_launches["kernels"] - plan_est,
+                   "mean_abs_theta_last_20": float(np.abs(theta[-20:]).mean()),
+                   "final_cart_x": float(states[-1, 0]), "seconds": time.perf_counter() - t2},
+          "seconds": time.perf_counter() - t0})
+    return {"collect_launches": collect_launches, "loop_launches": launches,
+            "loop_control_steps": n_steps, "forward": forward,
+            "max_abs_err_bf16_B2048": errs["bfloat16/B=2048"]["max_abs"],
+            "control_step_ms_median": statistics.median(step_ms)}
+
+
+def small_robot_phases() -> dict:
+    """check_cartpole, check_hopper, main_cartpole, main_hopper and
+    main_cartpole_pipeline (slice 9); returns the numbers they add to the
+    `kernels` line."""
+    errs = small_robot_checks()
+    cart = cartpole_phase()
+    hop = hopper_phase()
+    pipe = cartpole_pipeline_phase()
+    f32 = lambda e, key: max(v[key] for k, v in e.items() if "float32" in k)
+    robot = lambda r, e: {"ms": r["kernel"]["kernel_ms"], "plain_ms": r["kernel"]["plain_ms"],
+                          "bound_ms": r["kernel"]["bound_ms"],
+                          "bound_by": r["kernel"]["bound_by"],
+                          "at": {"K": r["kernel"]["K"], "T": r["kernel"]["T"]},
+                          "replan_ms_median": r["replan_ms_median"],
+                          "plant_ms_median": r["plant_ms_median"],
+                          "max_abs_err": f32(e, "cost_max_abs"),
+                          "cost_rel_median_f32": f32(e, "cost_rel_median")}
+    return {"rollout": {
+                "paths": {"cartpole swing-up": {"launches": cart["launches"],
+                                                "control_steps": cart["control_steps"]},
+                          "hopper": {"launches": hop["launches"],
+                                     "control_steps": hop["control_steps"]},
+                          "cartpole_collect": {"launches": pipe["collect_launches"],
+                                               "control_steps": CART_EPISODES
+                                               * CART_EPISODE_STEPS}},
+                "cartpole": robot(cart, errs["cartpole"]),
+                "hopper": robot(hop, errs["hopper"])},
+            "estimator": {
+                "paths": {"cartpole estimator closed loop": {
+                    "launches": pipe["loop_launches"],
+                    "control_steps": pipe["loop_control_steps"]}},
+                "cartpole": {"forward_B2048": pipe["forward"],
+                             "max_abs_err_bf16_B2048": pipe["max_abs_err_bf16_B2048"],
+                             "closed_loop_control_step_ms": pipe["control_step_ms_median"]}}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2161,10 +2697,12 @@ def main() -> int:
     est = estimator_phases()
     est["sass_hgmma"] = hgmma_of["estimator_kernel.cu"]
     loop = learning_phases(collected)
+    small = small_robot_phases()
     est["paths"] = {"estimator replan": {"launches": est["launches"],
                                          "replans": EST_WARMUP + EST_TIMED},
-                    **loop.pop("paths")}
+                    **loop.pop("paths"), **small["estimator"].pop("paths")}
     est["trained_weights"] = loop
+    est.update(small["estimator"])
 
     emit({"kernels": [{
         "name": "rollout",
@@ -2172,14 +2710,16 @@ def main() -> int:
         "source": "humanoid_mppi_rl_tpu_torch/ops/csrc/rollout_kernel.cu",
         "replaces": "humanoid_mppi_rl_tpu/ops/rollout_kernel.py:86",
         "launches": main_launches,
-        "robots": {"humanoid": ["humanoid"], "go1": ["quadruped", "quadruped_jl"]},
+        "robots": {"humanoid": ["humanoid"], "go1": ["quadruped", "quadruped_jl"],
+                   "cartpole": ["cartpole"], "hopper": ["hopper"]},
         "paths": {"humanoid_bench replan": {"launches": main_launches,
                                             "replans": WARMUP + TIMED},
                   "humanoid_walk collect": {"launches": collect["launches_collect"],
                                             "control_steps": collect["control_steps"]},
-                  **go1.pop("paths")},
+                  **go1.pop("paths"), **small["rollout"].pop("paths")},
         "collect_control_step_ms": collect["collect_control_step_ms"],
         "go1": go1,
+        **small["rollout"],
         "max_abs_err": max(e["cost_max_abs"] for k, e in errs.items() if "float32" in k),
         "max_abs_err_f64": max(e["cost_max_abs"] for k, e in errs.items() if "float64" in k),
         "cost_rel_median_f32": max(e["cost_rel_median"] for k, e in errs.items()

@@ -4,8 +4,8 @@ counterpart): the solver configurations, the costs and EstimatorRunner.
 
 Every cost here is batched: x (..., nx) and u (..., nu) -> (...), summing
 over the last axis only (the JAX costs are per-sample and vmapped over K).
-
-Still to port: make_cartpole_estimator (slide joints, ROADMAP A7).
+The cartpole's flat costs are costs/cartpole.make_costs_flat
+(make_cartpole_estimator).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..costs import cartpole as cartpole_cost
 from ..costs import humanoid as humc
 from ..costs.base import EngineCache
 from ..dynamics.learned import flat_state_from_physics, make_learned_dynamics
@@ -391,7 +392,17 @@ class EstimatorRunner:
         return log
 
 
-def make_cartpole_estimator(module, seed: int = 0, device="cuda") -> EstimatorRunner:
-    raise NotImplementedError(
-        "the cartpole estimator needs slide joints in the plant and the cartpole "
-        "costs, which are not ported yet (ROADMAP A7)")
+def make_cartpole_estimator(module, seed: int = 0, device="cuda",
+                            dtype=torch.float32) -> EstimatorRunner:
+    """The cartpole closed loop of reference src/cartpole_mppi_estimator.py
+    (JAX collect/estimator.py:444-449): ESTIMATOR_CONFIGS["cartpole"]
+    (K=2048, T=100, replace update), costs/cartpole.make_costs_flat on the
+    surrogate's [x, theta, xdot, thetadot], the cartpole's coupled plant,
+    the module's own forward. The port's API takes the surrogate module
+    (models/predictors cartpole_attention) where JAX takes (apply_fn,
+    params, asset_path); the plant comes from the "cartpole" task. The
+    estimator kernel's route is EstimatorRunner("cartpole", module, cfg,
+    *make_costs_flat(), batched_dynamics=True)."""
+    running, terminal = cartpole_cost.make_costs_flat()
+    return EstimatorRunner("cartpole", module, ESTIMATOR_CONFIGS["cartpole"], running, terminal,
+                           seed=seed, device=device, dtype=dtype)

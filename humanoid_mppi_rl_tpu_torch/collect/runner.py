@@ -1,9 +1,10 @@
 """Receding-horizon episode loop, humanoid and Go1 data collection
 (collect/runner.py counterpart).
 
-- `EpisodeRunner.run()`: plan with the CUDA rollout kernel
-  (solver/kernel_mppi), step the coupled plant (envs/tasks.load_plant), log,
-  check goal and fall. Rows, actions, times and goal/fall flags stay on the
+- `EpisodeRunner.run()` (any task of envs/tasks, the cartpole and hopper
+  ones included; the default row is [qpos; qvel]): plan with the CUDA
+  rollout kernel (solver/kernel_mppi), step the coupled plant
+  (envs/tasks.load_plant), log, check goal and fall. Rows, actions, times and goal/fall flags stay on the
   device and cross to the host once per chunk.
 - `collect_humanoid()`: the reference's src/Humanoid_datacollection_v2.jl:
   randomized pose and goal, goal-gated saving, 57-column states with the

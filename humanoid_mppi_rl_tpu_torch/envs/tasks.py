@@ -1,18 +1,19 @@
 """Task registry (envs/tasks.py counterpart): the tasks whose kernel cost
-the port carries -- the humanoid tasks (`humanoid`) and the Go1 tasks
-(`quadruped`, `quadruped_jl`) -- with the same constants as the JAX
-registry (envs/tasks.py:69-151), and their environment plant
+the port carries -- the humanoid tasks (`humanoid`), the Go1 tasks
+(`quadruped`, `quadruped_jl`), the cartpole tasks (`cartpole`) and the
+planar hopper (`hopper`) -- with the same constants as the JAX registry
+(envs/tasks.py:69-151), and their environment plant
 (`load_plant`).
 
-The remaining JAX tasks (cartpole, hopper, arm5, humanoid v1/hard/v2py)
-need kernel features and costs the port does not have yet (ROADMAP.md).
+The remaining JAX tasks (arm5, humanoid v1/hard/v2py) need kernel
+features and costs the port does not have yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,7 +34,8 @@ class TaskSpec:
     mppi: MPPIConfig
     kernel_cost: str                   # ops.kernel_costs.KERNEL_COSTS key
     cost_kwargs: dict = dataclasses.field(default_factory=dict)
-    init_keyframe: Optional[str] = None     # None -> the model's qpos0
+    init_keyframe: Optional[str] = None     # None -> init_qpos or the model's qpos0
+    init_qpos: Optional[Tuple[float, ...]] = None
     clamp_ctrl_to_range: bool = False       # clip to the actuator ctrlrange
     ctrl_clamp_abs: Optional[float] = None  # clip to +-c (src/mppi.jl:93)
 
@@ -69,15 +71,27 @@ TASKS = {
             kernel_cost="quadruped_jl", init_keyframe="home", ctrl_clamp_abs=10.0),
         _mk("go1_collect", K=50, T=30, lam=0.2, sigma=0.3, tail=0.0, robot="go1",
             kernel_cost="quadruped", init_keyframe="home", clamp_ctrl_to_range=True),
+        # reference src/cartpole_mppi.py:12-15 and
+        # src/cartpole_datacollection.jl:19-22, from the pole hanging down
+        _mk("cartpole", K=30, T=100, lam=1.0, sigma=1.0, robot="cartpole",
+            kernel_cost="cartpole", init_qpos=(0.0, math.pi)),
+        _mk("cartpole_collect", K=75, T=100, lam=1.0, sigma=0.75, robot="cartpole",
+            kernel_cost="cartpole", init_qpos=(0.0, math.pi)),
+        # the JAX package's planar hopper task (no reference analog)
+        _mk("hopper", K=64, T=50, lam=0.5, sigma=0.6, robot="hopper", kernel_cost="hopper"),
     ]
 }
+# the benchmark scale of the cartpole (the JAX registry's cartpole_pr1)
+TASKS["cartpole_pr1"] = dataclasses.replace(
+    TASKS["cartpole"], name="cartpole_pr1",
+    mppi=dataclasses.replace(TASKS["cartpole"].mppi, n_samples=256, horizon=30))
 
 
 def load_task(name: str, device="cuda", dtype=torch.float32):
     """(spec, model, cfg, init_state): cfg carries the task's control bounds
     (the actuator ctrlrange or +-ctrl_clamp_abs, each with clamp_plan, as
-    JAX load_task); init_state is the forward state of (the task's keyframe
-    or qpos0, zeros) at time 0 on `device` in `dtype`."""
+    JAX load_task); init_state is the forward state of (the task's keyframe,
+    its init_qpos or qpos0, zeros) at time 0 on `device` in `dtype`."""
     dev = resolve_device(device)
     spec = TASKS[name]
     model: PhysicsModel = load_model(spec.model)
@@ -90,8 +104,12 @@ def load_task(name: str, device="cuda", dtype=torch.float32):
         c = float(spec.ctrl_clamp_abs)
         cfg = dataclasses.replace(cfg, ctrl_low=(-c,) * model.nu, ctrl_high=(c,) * model.nu,
                                   clamp_plan=True)
-    qpos0 = (model.qpos0 if spec.init_keyframe is None
-             else dict(model.keyframes)[spec.init_keyframe])
+    if spec.init_keyframe is not None:
+        qpos0 = dict(model.keyframes)[spec.init_keyframe]
+    elif spec.init_qpos is not None:
+        qpos0 = spec.init_qpos
+    else:
+        qpos0 = model.qpos0
     init_state = Engine(model, dev, dtype).forward(
         torch.as_tensor(qpos0, dtype=dtype, device=dev),
         torch.zeros(model.nv, dtype=dtype, device=dev))

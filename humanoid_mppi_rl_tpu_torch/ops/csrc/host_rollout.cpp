@@ -29,7 +29,7 @@ void hmr_rollout_host_f64(const void* tab, const double* qpos0, const double* qv
     for (int t = 0; t < horizon; ++t)
       hmr::advance(g, m, w, t, U + (size_t)t * m.nu, noise + (size_t)t * m.nu * K + k, K,
                    params);
-    hmr::terminal(g, m, w, params);
+    hmr::terminal(g, m, w, params, horizon);
     cost[k] = w[m.off[hmr::WS_COST]];
     for (int i = 0; i < m.nq; ++i) qpos_out[(size_t)i * K + k] = w[m.off[hmr::WS_QPOS] + i];
     for (int i = 0; i < m.nv; ++i) qvel_out[(size_t)i * K + k] = w[m.off[hmr::WS_QVEL] + i];

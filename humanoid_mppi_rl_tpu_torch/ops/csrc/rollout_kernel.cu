@@ -6,9 +6,11 @@
 // physics step, FK, the running cost at the step's end time -- and then the
 // terminal cost, with the state kept on chip. Device memory sees only the
 // initial state and start time, the noise stream, U, the 16 runtime
-// parameters, and the outputs. It carries the humanoid (humanoid cost) and
-// the Go1 (quadruped and quadruped_jl costs: frictionloss, box corners and
-// exact cylinder rims, a clock-driven trot phase).
+// parameters, and the outputs. It carries the humanoid (humanoid cost), the
+// Go1 (quadruped and quadruped_jl costs: frictionloss, box corners and
+// exact cylinder rims, a clock-driven trot phase), the cartpole and the
+// planar hopper (slide joints; the cartpole cost, and the hopper cost with
+// its hop clock).
 //
 // What bounds it: the work, not the bytes. The humanoid step is ~24k scalar
 // operations, so a replan at K=8192, T=64 is ~1.2e10 (0.185 ms at the f32
@@ -130,7 +132,7 @@ rollout_kernel(const hmr::Tables<T>* __restrict__ tab, const T* __restrict__ qpo
     cp_async_wait_all();
     __syncthreads();
   }
-  hmr::terminal(g, m, w, prm);
+  hmr::terminal(g, m, w, prm, horizon);
 
   // outputs, row by row; the sizes and offsets read afresh from the tables
   // (held in registers across the rollout, they would spill)

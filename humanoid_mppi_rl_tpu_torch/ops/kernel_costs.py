@@ -3,9 +3,9 @@ counterpart). Each factory returns (running(ctx, t) -> (K,),
 terminal(ctx) -> (K,)) over StepContext views, with ctrl read from ctx.
 
 Ported: `humanoid` (the humanoid tasks), `quadruped` and `quadruped_jl`
-(the Go1 tasks); the CUDA kernel carries the same formulas as device
-functions (csrc/rollout_body.cuh). The other costs of the JAX registry
-(cartpole, humanoid_v1, humanoid_hard, hopper, arm5) are ROADMAP B1.
+(the Go1 tasks), `cartpole` and `hopper`; the CUDA kernel carries the same
+formulas as device functions (csrc/rollout_body.cuh). The other costs of
+the JAX registry (humanoid_v1, humanoid_hard, arm5) are ROADMAP B1.
 """
 
 from __future__ import annotations
@@ -55,6 +55,23 @@ def _sumsq(xs):
     for x in xs:
         acc = acc + x * x
     return acc
+
+
+def cartpole(model: PhysicsModel):
+    """Cartpole swing-up cost (reference src/cartpole_mppi.py:44-53, see
+    costs/cartpole.py); terminal = 10 x running at zero control."""
+
+    def running_vals(x_pos, theta, x_vel, theta_vel, u):
+        return (1.0 * x_pos ** 2 + 20.0 * (torch.cos(theta) - 1.0) ** 2
+                + 0.1 * x_vel ** 2 + 0.1 * theta_vel ** 2 + 0.01 * _sumsq(u))
+
+    def running(ctx: StepContext, t):
+        return running_vals(ctx.qpos[0], ctx.qpos[1], ctx.qvel[0], ctx.qvel[1], ctx.ctrl)
+
+    def terminal(ctx: StepContext):
+        return 10.0 * running_vals(ctx.qpos[0], ctx.qpos[1], ctx.qvel[0], ctx.qvel[1], [0.0])
+
+    return running, terminal
 
 
 def humanoid(model: PhysicsModel, target=(2.0, 0.0, 1.28), target_vel=(0.3, 0.0),
@@ -238,7 +255,56 @@ def quadruped_jl(model: PhysicsModel, target_vel_x=0.5):
     return running, terminal
 
 
+def hopper(model: PhysicsModel, target_vel_x=1.0, target_height=1.0,
+           w_pitch=4.0, w_pitch_rate=0.3, param_gait: bool = False):
+    """Planar hopper cost (see costs/hopper.py): forward speed, torso
+    height and pitch, control. qpos = [rootx, rootz (offset from z = 1 m),
+    rooty, waist, hip, knee, ankle].
+
+    param_gait=True reads runtime shaping DELTAS from ctx.params (zero ==
+    the baked cost exactly):
+      4: d_target_vel_x
+      5: w_land -- squared descent speed beyond 0.4 m/s, gated on the torso
+         being below 0.85 m
+      6: d_log_w_pitch (scales w_pitch and w_pitch_rate)
+      7: d_knee_w -- knee-angle anchor toward 1.2 + slot 9 rad
+      8: w_clock -- hop clock: torso height toward
+         0.92 + 0.18 sin(2 pi t / 0.75 s) at the context's time
+      9: d_knee_anchor -- shifts the knee anchor angle
+    Terminal: 10 x running at zero control, at the terminal context's time."""
+
+    def running(ctx: StepContext, t):
+        q, v, u = ctx.qpos, ctx.qvel, ctx.ctrl
+        if param_gait:
+            p = ctx.params
+            d_vel, w_land = p[4], p[5]
+            pitch_scale = torch.exp(p[6])
+            w_knee, w_clock, d_anchor = p[7], p[8], p[9]
+        else:
+            d_vel, w_land, pitch_scale, w_knee = 0.0, 0.0, 1.0, 0.0
+            w_clock, d_anchor = 0.0, 0.0
+        cost = 2.0 * (v[0] - (target_vel_x + d_vel)) ** 2
+        cost = cost + 5.0 * torch.clamp_min(target_height - 0.3 - q[1] - 1.0, 0.0) ** 2
+        cost = cost + (w_pitch * q[2] ** 2 + w_pitch_rate * v[2] ** 2) * pitch_scale
+        cost = cost + 0.01 * _sumsq(u)
+        if param_gait:
+            gate = torch.clamp((0.85 - (q[1] + 1.0)) * 4.0, 0.0, 1.0)
+            over = torch.clamp_min(-v[1] - 0.4, 0.0)
+            cost = cost + w_land * gate * over * over
+            cost = cost + w_knee * (q[5] - (1.2 + d_anchor)) ** 2
+            zstar = 0.92 + 0.18 * torch.sin(ctx.time * (2 * np.pi / 0.75))
+            cost = cost + w_clock * (q[1] + 1.0 - zstar) ** 2
+        return cost
+
+    def terminal(ctx):
+        return 10.0 * running(ctx, 0)
+
+    return running, terminal
+
+
 KERNEL_COSTS = {
+    "cartpole": cartpole,
+    "hopper": hopper,
     "humanoid": humanoid,
     "quadruped": quadruped,
     "quadruped_jl": quadruped_jl,

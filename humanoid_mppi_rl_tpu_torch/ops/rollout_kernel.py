@@ -13,9 +13,9 @@ fallback from one to the other.
 The kernel is table-driven: the model and the cost constants are packed
 once into a flat struct (`pack_tables`, mirrored field for field from
 rollout_body.cuh with ctypes) that the kernel loops over. It carries the
-costs of `KERNEL_COSTS` (humanoid, quadruped, quadruped_jl) by a cost id
-and each cost's constants; a model or cost it cannot carry raises
-NotImplementedError naming its ROADMAP item (B1).
+costs of `KERNEL_COSTS` (humanoid, quadruped, quadruped_jl, cartpole,
+hopper) by a cost id and each cost's constants; a model or cost it cannot
+carry raises NotImplementedError naming its ROADMAP item (B1).
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..physics.model import (GEOM_BOX, GEOM_CYLINDER, GEOM_PLANE, GEOM_SPHERE,
-                             HINGE, PhysicsModel)
+from ..physics.model import (FREE, GEOM_BOX, GEOM_CYLINDER, GEOM_PLANE, GEOM_SPHERE,
+                             PhysicsModel)
 from . import _build
 from . import kernel_costs
 from . import scalar_physics as sph
@@ -45,7 +45,10 @@ _COST_W = ("tx", "ty", "tz", "tvx", "tvy", "w_orient", "w_goal_xy", "w_height",
            "w_swing_x", "w_swing_vel", "w_knee_x", "w_clearance", "w_foot_lift")
 _COST_PARAM_TARGET, _COST_PARAM_GAIT = 1, 2
 # hmr::COST_* ids of the costs the kernel carries
-_COST_ID = {kernel_costs.humanoid: 0, kernel_costs.quadruped: 1, kernel_costs.quadruped_jl: 2}
+_COST_ID = {kernel_costs.humanoid: 0, kernel_costs.quadruped: 1, kernel_costs.quadruped_jl: 2,
+            kernel_costs.cartpole: 3, kernel_costs.hopper: 4}
+# the hopper cost's constants, in hmr::HopW order
+_HOPPER_W = ("target_vel_x", "target_height", "w_pitch", "w_pitch_rate")
 _PAIR_SPHERE, _PAIR_CAPSULE, _PAIR_CYLINDER, _PAIR_BOX = 0, 1, 2, 3
 
 MAXTRI = MAXV * (MAXV + 1) // 2
@@ -199,7 +202,7 @@ def check_kernel_supported(model: PhysicsModel) -> None:
     for b, js in enumerate(model.body_joints):
         if js and list(js) != list(range(js[0], js[0] + len(js))):
             bad.append("non-contiguous joints of a body")
-        if len(js) > 1 and any(model.joints[j].jtype != HINGE for j in js):
+        if len(js) > 1 and any(model.joints[j].jtype == FREE for j in js):
             bad.append("free joint sharing its body with other joints")
     if bad:
         raise NotImplementedError(
@@ -233,6 +236,11 @@ def _cost_constants(cost_factory: Callable, model: PhysicsModel, kw: dict):
         w.update(zip(("tvx", "tvy"), [float(v) for v in c["target_vel"]]))
         w.update({k: float(c[k]) for k in _COST_W if k.startswith("w_")})
         vals = [w[k] for k in _COST_W]
+    elif cost_factory is kernel_costs.hopper:
+        flags = _COST_PARAM_GAIT * bool(c["param_gait"])
+        vals = [float(c[k]) for k in _HOPPER_W]
+    elif cost_factory is kernel_costs.cartpole:
+        flags = 0
     elif cost_factory is kernel_costs.quadruped:
         flags = (_COST_PARAM_TARGET * bool(c["param_goal"])
                  | _COST_PARAM_GAIT * bool(c["param_gait"]))
@@ -292,11 +300,11 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
         v["jnt_type"][j], v["jnt_qposadr"][j] = jnt.jtype, jnt.qposadr
         v["jnt_dofadr"][j], v["jnt_limited"][j] = jnt.dofadr, int(jnt.limited)
         v["jnt_pos"][j], v["jnt_axis"][j] = jnt.pos, jnt.axis
-        if jnt.jtype == HINGE:
+        if jnt.jtype != FREE:  # hinge or slide
             v["jnt_qpos0"][j] = model.qpos0[jnt.qposadr]
             v["jnt_stiffness"][j] = jnt.stiffness
             v["jnt_springref"][j] = jnt.springref
-        if jnt.limited and jnt.jtype == HINGE:
+        if jnt.limited and jnt.jtype != FREE:
             v["jnt_range"][j] = jnt.range
             v["jnt_meff"][j] = hs_meff[jnt.dofadr]
             v["jnt_kbase"][j], v["jnt_bref"][j] = sph._solref_kb_scalar(
@@ -351,7 +359,7 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
         v["pair_meff"][i], v["pair_margin"][i] = pair.m_eff, pair.margin
         v["pair_solimp"][i] = _solimp(pair.solimp)
     s.npair = npair
-    dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype == HINGE}
+    dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype != FREE}
     nten = 0
     for t in np.nonzero(model.tendon_limited)[0]:
         nz = np.nonzero(model.tendon_coef[t])[0]
@@ -405,7 +413,7 @@ def _pack_schedule(model: PhysicsModel, s, v: dict, chain_bits: list, npair: int
     v["acc_adr"][:len(acc) + 1] = np.cumsum([0] + [len(lv) for lv in acc])
     v["acc_body"][:sum(map(len, acc))] = [b for lv in acc for b in lv]
     for j, jnt in enumerate(model.joints):
-        nd = 1 if jnt.jtype == HINGE else 6
+        nd = 6 if jnt.jtype == FREE else 1
         v["dof_jnt"][jnt.dofadr:jnt.dofadr + nd] = j
     for i, act in enumerate(model.actuators):
         v["dof_acts"][act.dofadr] |= 1 << i

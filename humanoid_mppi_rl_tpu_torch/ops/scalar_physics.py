@@ -9,12 +9,13 @@ results agree with the JAX step to rounding. This is the reference the CUDA
 kernel (csrc/rollout_body.cuh) is held against; it runs one small tensor op
 per equation and is no yardstick of speed.
 
-Covered: free and hinge joints, single-dof motors, dof damping and
+Covered: free, slide and hinge joints, single-dof motors, dof damping and
 frictionloss, joint springs and limits, limited fixed tendons, and
-plane-vs-sphere/capsule/box/exact-cylinder penalty contacts -- the humanoid's
-and the Go1's feature sets. `unsupported_features` names what a model needs
-beyond that (slide and ball joints, meshes, moving planes); those branches
-raise NotImplementedError here and in ops/rollout_kernel (ROADMAP.md B1).
+plane-vs-sphere/capsule/box/exact-cylinder penalty contacts -- the
+humanoid's, the Go1's, the cartpole's and the hopper's feature sets.
+`unsupported_features` names what a model needs beyond that (ball joints,
+meshes, moving planes); those branches raise NotImplementedError here and
+in ops/rollout_kernel (ROADMAP.md B1).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ..physics.model import (
     GEOM_PLANE,
     GEOM_SPHERE,
     HINGE,
+    SLIDE,
     PhysicsModel,
 )
 # the planner tier's cap (m/s) on the separation velocity a contact or limit
@@ -49,8 +51,8 @@ def unsupported_features(model: PhysicsModel) -> List[str]:
     """What `model` needs beyond the port's scalar step (empty = covered)."""
     bad = []
     for j in model.joints:
-        if j.jtype not in (FREE, HINGE):
-            bad.append(f"joint type {j.jtype} (only free and hinge)")
+        if j.jtype not in (FREE, SLIDE, HINGE):
+            bad.append(f"joint type {j.jtype} (only free, slide and hinge)")
     for pair in model.contact_pairs:
         g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
         if g1.gtype != GEOM_PLANE:
@@ -357,6 +359,12 @@ def _fk_scalar(model: PhysicsModel, qpos: List):
                 for i in range(3):
                     a_w = (R[0][i], R[1][i], R[2][i])
                     S[d + 3 + i] = a_w + cross(pos, a_w)
+            elif jnt.jtype == SLIDE:
+                q = qpos[jnt.qposadr] - float(qpos0[jnt.qposadr])
+                ax = tuple(float(x) for x in jnt.axis)
+                a_w = qrot(quat, ax)
+                pos = add3(pos, scl3(a_w, q))
+                S[jnt.dofadr] = (0.0, 0.0, 0.0) + a_w
             elif jnt.jtype == HINGE:
                 q = qpos[jnt.qposadr] - float(qpos0[jnt.qposadr])
                 ax = tuple(float(x) for x in jnt.axis)
@@ -372,7 +380,7 @@ def _fk_scalar(model: PhysicsModel, qpos: List):
                 S[jnt.dofadr] = a_w + cross(anchor, a_w)
             else:
                 raise NotImplementedError(
-                    f"joint type {jnt.jtype}: the port covers free and hinge")
+                    f"joint type {jnt.jtype}: the port covers free, slide and hinge")
 
         xpos[b] = pos
         xquat[b] = quat
@@ -528,7 +536,7 @@ def scalar_step(
     hs_meff = {int(d): float(me)
                for d, me in zip(model.hs_dofadr, model.hs_limit_meff)}
     for jnt in model.joints:
-        if jnt.jtype != HINGE:
+        if jnt.jtype not in (SLIDE, HINGE):
             continue
         d, qa = jnt.dofadr, jnt.qposadr
         if jnt.stiffness:
@@ -541,7 +549,7 @@ def scalar_step(
             g_diag[d] = fadd(g_diag[d], c_l)
 
     # limited fixed tendons
-    dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype == HINGE}
+    dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype in (SLIDE, HINGE)}
     tendon_G: List[Tuple[np.ndarray, object]] = []
     for t in range(model.tendon_coef.shape[0]):
         if not model.tendon_limited[t]:
@@ -788,7 +796,7 @@ def scalar_step(
     qvel_new = [qvel[d] + h * qacc[d] for d in range(nv)]
     qpos_new = list(qpos)
     for jnt in model.joints:
-        if jnt.jtype == HINGE:
+        if jnt.jtype in (SLIDE, HINGE):
             qpos_new[jnt.qposadr] = qpos[jnt.qposadr] + h * qvel_new[jnt.dofadr]
         else:  # FREE
             qa, d = jnt.qposadr, jnt.dofadr

@@ -20,11 +20,11 @@ JAX environment tier does.
 An `Engine` holds every constant of one model on one device in one dtype,
 built once. A step copies nothing from the host and reads nothing back: the
 only decisions on the host are the static ones the JAX engine also takes on
-numpy model fields. Covered: free and hinge joints, single-dof joint
-actuators, damping, springs, frictionloss, joint and fixed-tendon limits,
-plane-vs-sphere/capsule/box/cylinder and sphere/capsule/cylinder self
-contacts (the humanoid's and the Go1's). The rest raises
-NotImplementedError naming its ROADMAP item.
+numpy model fields. Covered: free, slide and hinge joints, single-dof
+joint actuators, damping, springs, frictionloss, joint and fixed-tendon
+limits, plane-vs-sphere/capsule/box/cylinder and sphere/capsule/cylinder
+self contacts (the humanoid's, the Go1's, the cartpole's and the hopper's).
+The rest raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,17 +39,17 @@ from .._device import resolve_device
 from . import contact
 from . import newton
 from . import spatial as sp
-from .model import FREE, HINGE, PhysicsModel
+from .model import FREE, HINGE, SLIDE, PhysicsModel
 from .newton import cho_solve
 from .state import PhysicsState
 
 
 def _refuse(model: PhysicsModel) -> None:
     bad = sorted({f"joint type {j.jtype}" for j in model.joints
-                  if j.jtype not in (FREE, HINGE)})
+                  if j.jtype not in (FREE, SLIDE, HINGE)})
     if bad:
         raise NotImplementedError(
-            "the array engine covers free and hinge joints only, not "
+            "the array engine covers free, slide and hinge joints only, not "
             + ", ".join(bad) + " (ROADMAP A7)")
 
 
@@ -109,7 +109,7 @@ class Engine:
                 continue
             stages = []
             for slot in range(max(len(model.body_joints[b]) for b in bids)):
-                for jt in (FREE, HINGE):
+                for jt in (FREE, SLIDE, HINGE):
                     rows, js = [], []
                     for r, b in enumerate(bids):
                         if slot < len(model.body_joints[b]):
@@ -126,17 +126,19 @@ class Engine:
                         qpos4=ix(qadr[:, None] + 3 + np.arange(4)),
                         qposadr=ix(qadr), dofadr=ix([j.dofadr for j in js]),
                         axis=t([j.axis for j in js]), jpos=t([j.pos for j in js]),
-                        ref=t([model.qpos0[j.qposadr] if jt == HINGE else 0.0 for j in js])))
+                        ref=t([model.qpos0[j.qposadr] if jt != FREE else 0.0 for j in js])))
             self.levels.append(dict(
                 body_ids=ix(bids), parent_ids=ix([parent[b] for b in bids]),
                 body_pos=t(model.body_pos[bids]), body_quat=t(model.body_quat[bids]),
                 stages=stages))
-        hinge, freet, freer = np.zeros(nv), np.zeros(nv), np.zeros(nv)
+        hinge, slide, freet, freer = (np.zeros(nv) for _ in range(4))
         init_axis = np.zeros((nv, 3))
         self.free = []
         for jnt in model.joints:
             if jnt.jtype == HINGE:
                 hinge[jnt.dofadr] = 1.0
+            elif jnt.jtype == SLIDE:
+                slide[jnt.dofadr] = 1.0
             else:
                 for i in range(3):
                     freet[jnt.dofadr + i] = freer[jnt.dofadr + 3 + i] = 1.0
@@ -147,7 +149,7 @@ class Engine:
         xquat0[0, 0] = 1.0       # the world body; the rest are set level by level
         self.xquat0 = t(xquat0)
         self.rot_mask = t(hinge + freer)[:, None]
-        self.lin_mask = t(freet)[:, None]
+        self.lin_mask = t(slide + freet)[:, None]
 
     def _build_dynamics(self, model: PhysicsModel) -> None:
         t, ix = self.t, self.ix
@@ -167,7 +169,7 @@ class Engine:
         self.act_ctrl_hi = t([a.ctrlrange[1] if a.ctrllimited else inf for a in acts])
         self.act_force_lo = t([a.forcerange[0] if a.forcelimited else -inf for a in acts])
         self.act_force_hi = t([a.forcerange[1] if a.forcelimited else inf for a in acts])
-        hs = [j for j in model.joints if j.jtype == HINGE]
+        hs = [j for j in model.joints if j.jtype in (SLIDE, HINGE)]
         self.hs_qposadr, self.hs_dofadr = ix(model.hs_qposadr), ix(model.hs_dofadr)
         self.hs_stiffness = t([j.stiffness for j in hs])
         self.hs_springref = t([j.springref for j in hs])
@@ -265,6 +267,13 @@ def fk(eng: Engine, qpos: torch.Tensor):
                 pos[..., rows, :] = qpos[..., st["qpos3"]]
                 quat[..., rows, :] = sp.quat_normalize(qpos[..., st["qpos4"]])
                 continue
+            if st["jtype"] == SLIDE:
+                # a translation along the axis in the body's current frame
+                qv = qpos[..., st["qposadr"]] - st["ref"]
+                a_w = sp.quat_rotate(quat[..., rows, :], st["axis"])
+                pos[..., rows, :] = pos[..., rows, :] + a_w * qv[..., None]
+                jaxis_w[..., st["dofadr"], :] = a_w
+                continue
             qv = qpos[..., st["qposadr"]] - st["ref"]
             qr, pr, jpos, axis = quat[..., rows, :], pos[..., rows, :], st["jpos"], st["axis"]
             anchor = pr + sp.quat_rotate(qr, jpos)
@@ -361,7 +370,7 @@ def passive_forces(eng: Engine, qpos, qvel, frictionloss: bool = True):
 
 
 def integrate_qpos(eng: Engine, qpos, qvel, h: float) -> torch.Tensor:
-    """qpos advanced by qvel over h: hinges linearly, free joints' position
+    """qpos advanced by qvel over h: slides and hinges linearly, free joints' position
     linearly and quaternion by the local exponential map."""
     out = qpos.clone()
     if eng.hs_qposadr.shape[0]:

@@ -7,8 +7,10 @@ by `export_model_arrays`, and committed as a snapshot (assets/*.json) that
 cannot go stale.
 
 Two snapshots are kept per robot. assets/<robot>.json, the planner's model
-(humanoid, go1), carries the fields that the scalar step (ops/scalar_physics)
-and the kernel costs read, keyframes included (go1 starts from `home`).
+(humanoid, go1, cartpole, hopper), carries the fields that the scalar step
+(ops/scalar_physics) and the kernel costs read, keyframes included (go1
+starts from `home`). Joints are free, slide or hinge (Joint.jtype); the
+array engine derives its per-dof type masks (JAX dof_type_*) from them.
 assets/<robot>_plant.json, the environment plant (built with the body-body
 pairs, envs/tasks.load_plant), also carries what the array engine, its
 contacts and its Newton solver read (`export_model_arrays(m, plant=True)`).

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .contact import RESTITUTION_VCAP_ENV, ContactTables, Impedance, collect_contact_rows, solref_kb
-from .model import HINGE, PhysicsModel
+from .model import HINGE, SLIDE, PhysicsModel
 
 _MINIMP = 1e-4   # mjMINIMP/mjMAXIMP impedance clamps
 _MAXIMP = 0.9999
@@ -78,7 +78,7 @@ class RowTables:
                                              none if frictionless else self_idx]))
                 self.nf = ix(np.concatenate([np.nonzero(mu == 0)[0],
                                              self_idx if frictionless else none]))
-        hs = [j for j in model.joints if j.jtype == HINGE]
+        hs = [j for j in model.joints if j.jtype in (SLIDE, HINGE)]
         self.hs_qposadr, self.hs_dofadr = ix(model.hs_qposadr), ix(model.hs_dofadr)
         self.limits = bool(hs) and any(j.limited for j in hs)
         if self.limits:

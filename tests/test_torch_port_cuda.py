@@ -13,8 +13,9 @@ import torch
 
 import numpy as np
 
-from chip_smoke import (bf16_errors, exact_stage_cases, go1_inputs, go1_plant_state,
-                        plant_state, seeded_inputs, seeded_weights)
+from chip_smoke import (bf16_errors, cartpole_inputs, exact_stage_cases, go1_inputs,
+                        go1_plant_state, hopper_gait_params, hopper_inputs, plant_state,
+                        seeded_inputs, seeded_weights)
 from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
 from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
@@ -399,3 +400,51 @@ def test_cuda_collect_humanoid_jl_runs(tmp_path):
             for k in ("states", "actions", "times")}
     assert cols == {"states": 55, "actions": 21, "times": 1}
     assert np.isfinite(read_csv(os.path.join(tmp_path, run, "states.csv"))).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["cartpole", "hopper"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_small_robot_kernel_matches_plain_rollout(dtype, robot):
+    """The cartpole (slide joint past its limit) and the hopper (param_gait,
+    the check's params, t0 in [0.3, 10] s) through the kernel against the
+    plain rollout at K=256, T=4: the gates of chip_smoke.check_rollout; two
+    launches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    spec, model, cfg, _ = load_task(robot, dtype=dtype)
+    kw, inputs = (({}, cartpole_inputs) if robot == "cartpole"
+                  else (dict(param_gait=True), hopper_inputs))
+    T = 4
+    ro = rk.build_rollout_kernel(model, spec.cost_factory, T, cost_kwargs=kw)
+    x = inputs(model, 256, T, dtype, seed=9)
+    params = torch.tensor(hopper_gait_params(), dtype=dtype, device="cuda")
+    n0 = rk.launches
+    got, again = ro(*x, params=params), ro(*x, params=params)
+    torch.cuda.synchronize()
+    assert rk.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ro.plain(*x, params=params)
+    if dtype == torch.float64:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+    else:
+        rel = ((got[0] - want[0]).abs() / want[0].abs()).double()
+        assert float(rel.median()) < 1e-3 and float(rel.max()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task, K, H, ncol", [("cartpole", 256, 100, 4),
+                                              ("hopper", 4096, 100, 14)])
+def test_cuda_small_robot_runs(task, K, H, ncol):
+    """20 control steps of EpisodeRunner(task, use_kernel=True) on the card
+    at main_cartpole's and main_hopper's K and H: one rollout launch a
+    step, finite rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    runner = EpisodeRunner(task, use_kernel=True, mppi_override=dict(n_samples=K, horizon=H))
+    n0 = rk.launches
+    res = runner.run(max_steps=20, chunk=10)
+    states, actions, _ = res.logger.arrays()
+    assert rk.launches == n0 + 20 and res.steps == 20
+    assert states.shape == (20, ncol) and np.isfinite(states).all() and np.isfinite(actions).all()

@@ -201,8 +201,18 @@ def test_batched_dynamics_plans_through_the_estimator_kernel_wrapper(monkeypatch
 
 
 def test_cartpole_estimator_waits_for_slide_joints():
-    with pytest.raises(NotImplementedError, match="A7"):
-        pest.make_cartpole_estimator(make_model("cartpole_attention"), device="cpu")
+    """It waits no more: with slide joints in the plant (slice 9),
+    make_cartpole_estimator builds the cartpole loop on the CPU -- the
+    cartpole plant, ESTIMATOR_CONFIGS["cartpole"], the module's own forward
+    -- and one control step moves the cart. Its parity with JAX is in
+    tests/test_torch_port_cartpole.py."""
+    runner = pest.make_cartpole_estimator(make_model("cartpole_attention", hidden_dim=8),
+                                          device="cpu")
+    assert (runner.plant_model.nq, runner.plant_model.joints[0].jtype) == (2, 2)
+    assert (runner.cfg.K, runner.cfg.T, runner.cfg.update_mode) == (2048, 100, "replace")
+    assert not hasattr(runner.apply, "plain")
+    states, actions, _ = runner.run(n_steps=2, init_qpos=(0.0, np.pi)).arrays()
+    assert states.shape == (2, 4) and np.isfinite(actions).all()
 
 
 def test_estimator_runner_refuses_cuda_without_a_card():

@@ -384,14 +384,15 @@ def test_go1_tables_and_workspace():
 
 
 def test_go1_unported_costs_and_features_still_raise(models):
-    """What slice 6 leaves out stays refused: a cost of the JAX registry
-    the kernel does not carry, slide joints and mesh geoms."""
+    """What the port leaves out stays refused: a cost of the JAX registry
+    the kernel does not carry (arm5's), ball joints (mjtJoint 1; slide
+    joints are carried since slice 9) and mesh geoms."""
     _, pm = models
     with pytest.raises(NotImplementedError, match="ROADMAP B1"):
         rk._cost_constants(lambda model: None, pm, {})
     joints = list(pm.joints)
-    joints[1] = dataclasses.replace(joints[1], jtype=2)
-    with pytest.raises(NotImplementedError, match="joint type"):
+    joints[1] = dataclasses.replace(joints[1], jtype=1)
+    with pytest.raises(NotImplementedError, match="joint type 1"):
         rk.check_kernel_supported(dataclasses.replace(pm, joints=tuple(joints)))
     meshed = dataclasses.replace(pm, geoms=tuple(
         dataclasses.replace(g, gtype=7, gtype_orig=7) if i == pm.contact_pairs[0].geom2 else g

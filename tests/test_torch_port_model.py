@@ -15,7 +15,7 @@ import torch
 
 from humanoid_mppi_rl_tpu.physics.model import build_from_mjcf
 from humanoid_mppi_rl_tpu_torch.collect.estimator import (
-    ESTIMATOR_CONFIGS, EstimatorRunner, quadruped_estimator_costs)
+    ESTIMATOR_CONFIGS, EstimatorRunner, make_cartpole_estimator, quadruped_estimator_costs)
 from humanoid_mppi_rl_tpu_torch.collect.runner import (EpisodeRunner, collect_humanoid,
                                                        collect_humanoid_jl, collect_quadruped)
 from humanoid_mppi_rl_tpu_torch.learning.train import TrainConfig, train_model
@@ -160,6 +160,19 @@ assert states.shape == (1, 55) and np.isfinite(actions).all()
 out = collect_humanoid_jl(n_episodes=1, out_dir=tempfile.mkdtemp(), max_steps=1,
                           mppi_override=tiny, chunk=1, device="cpu")
 assert out == [(0, 1)], out
+from humanoid_mppi_rl_tpu_torch.collect.estimator import make_cartpole_estimator
+for task, ncol in (("cartpole", 4), ("hopper", 14)):
+    res = EpisodeRunner(task, use_kernel=True, mppi_override=tiny, device="cpu").run(
+        max_steps=2, chunk=2)
+    assert res.logger.arrays()[0].shape == (2, ncol) and np.isfinite(res.final_qpos).all()
+from humanoid_mppi_rl_tpu_torch.costs.cartpole import make_costs_flat
+for runner in (make_cartpole_estimator(make_model("cartpole_attention", hidden_dim=8),
+                                       device="cpu"),
+               EstimatorRunner("cartpole", make_model("cartpole_attention", hidden_dim=8),
+                               dataclasses.replace(ESTIMATOR_CONFIGS["cartpole"], **tiny),
+                               *make_costs_flat(), batched_dynamics=True, device="cpu")):
+    states, actions, times = runner.run(n_steps=1, init_qpos=(0.0, 3.14)).arrays()
+    assert states.shape == (1, 4) and np.isfinite(actions).all()
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
@@ -181,7 +194,9 @@ def test_port_runs_without_jax_mujoco_or_the_jax_package():
                                    "make_flash_feature_attention",
                                    "load_plant", "EpisodeRunner", "collect_humanoid",
                                    "collect_quadruped", "EstimatorRunner", "train_model",
-                                   "load_trained", "collect_humanoid_jl"])
+                                   "load_trained", "collect_humanoid_jl",
+                                   "make_cartpole_estimator", "EpisodeRunner_cartpole",
+                                   "EpisodeRunner_hopper"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -206,6 +221,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
         "train_model": lambda: train_model(".", ".", TrainConfig()),
         "load_trained": lambda: load_trained("quad_pipeline_best"),
         "collect_humanoid_jl": lambda: collect_humanoid_jl(save=False),
+        "make_cartpole_estimator": lambda: make_cartpole_estimator(
+            make_model("cartpole_attention")),
+        "EpisodeRunner_cartpole": lambda: EpisodeRunner("cartpole", use_kernel=True),
+        "EpisodeRunner_hopper": lambda: EpisodeRunner("hopper", use_kernel=True),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -23,7 +23,7 @@ from humanoid_mppi_rl_tpu_torch.ops import kernel_costs as tkc
 from humanoid_mppi_rl_tpu_torch.ops import kernel_math as tkm
 from humanoid_mppi_rl_tpu_torch.ops import scalar_physics as tsph
 from humanoid_mppi_rl_tpu_torch.ops.rollout_kernel import check_kernel_supported
-from humanoid_mppi_rl_tpu_torch.physics.model import HINGE, SLIDE, load_model
+from humanoid_mppi_rl_tpu_torch.physics.model import HINGE, load_model
 
 HUMANOID_XML = os.path.join(os.path.dirname(__file__), "..", "humanoid_mppi_rl_tpu",
                             "assets", "humanoid.xml")
@@ -135,15 +135,17 @@ def test_features_outside_the_port_are_refused(models):
     _, pm = models
     assert tsph.unsupported_features(pm) == []
     check_kernel_supported(pm)
+    # a ball joint (mjtJoint 1) stays unported; slide joints are ported
+    # (the cartpole's and the hopper's, tests/test_torch_port_{cartpole,hopper}.py)
     j = next(i for i, jt in enumerate(pm.joints) if jt.jtype == HINGE)
     joints = list(pm.joints)
-    joints[j] = dataclasses.replace(joints[j], jtype=SLIDE)
-    slid = dataclasses.replace(pm, joints=tuple(joints))
-    with pytest.raises(NotImplementedError, match="joint type"):
-        check_kernel_supported(slid)
+    joints[j] = dataclasses.replace(joints[j], jtype=1)
+    balled = dataclasses.replace(pm, joints=tuple(joints))
+    with pytest.raises(NotImplementedError, match="joint type 1"):
+        check_kernel_supported(balled)
     qpos, qvel, ctrl = _state(pm, 0.0)
     with pytest.raises(NotImplementedError):
-        tsph.scalar_forward(slid, _t(qpos), _t(qvel))
+        tsph.scalar_forward(balled, _t(qpos), _t(qvel))
     # a mesh geom on a floor pair stays unported (frictionloss, boxes and
     # cylinders are the Go1's, ported)
     floor = next(p.geom2 for p in pm.contact_pairs if pm.geoms[p.geom1].gtype == 0)
