@@ -122,7 +122,7 @@ Phases, one JSON line each (with its own `seconds`):
              on go1_collect's coupled plant, planning on the trained
              surrogate through the estimator kernel (bf16) at K=2048, T=32,
              accumulate update, sigma 0.18, the ctrlrange clamp, the FD gait
-             cost, from `home` with the plan seeded at home: 3 warm-up and 20
+             cost, from `home` with the plan seeded at home: 3 warm-up and 10
              timed control steps (T forwards each), 4 split into plan and
              plant ms by CUDA events, one profiled control step (launches by
              kernel, busy share); every row finite, trunk z >= 0.08 m, the
@@ -133,7 +133,7 @@ Phases, one JSON line each (with its own `seconds`):
              estimator kernel (bf16) at ESTIMATOR_CONFIGS["humanoid"] with
              T=25 (K=2048, replace update, sigma 0.4), the walking cost on
              the batched FK of the predicted qpos (f32), state [qpos; foot
-             z]: 3 warm-up and 120 timed control steps, 5 split into plan
+             z]: 3 warm-up and 60 timed control steps, 5 split into plan
              and plant ms by CUDA events, one profiled control step (busy
              share, device launches by kernel) and the device launches of
              one replan (those outside the estimator kernel); T forwards per
@@ -157,7 +157,7 @@ Phases, one JSON line each (with its own `seconds`):
              device launches, one profiled control step; the kernel alone
              beside its plain version and its bound
   main_hopper -- EpisodeRunner("hopper", use_kernel=True) at K=4096,
-             H=100 (artifacts/hopper_k4096.npz's): 5 warm-up and 200 timed
+             H=100 (artifacts/hopper_k4096.npz's): 5 warm-up and 100 timed
              control steps, one launch a step, finite rows; the split, the
              kernel alone, torso z minimum and x progress as main_cartpole
   main_cartpole_pipeline -- two cartpole_collect episodes (K=75, T=100)
@@ -166,9 +166,43 @@ Phases, one JSON line each (with its own `seconds`):
              check_estimator_trained's gates (B=2048 and 253) and timed as
              time_estimator does, then EstimatorRunner("cartpole", ...,
              batched_dynamics=True) at ESTIMATOR_CONFIGS["cartpole"] (K=2048,
-             T=100, bf16): 3 warm-up and 100 timed control steps, T forwards
+             T=100, bf16): 3 warm-up and 50 timed control steps, T forwards
              a step, 5 split into plan and plant ms, one profiled step and
              the replan's device launches outside the estimator kernel
+  check_humanoid_costs -- slice 10: the rollout kernel with humanoid_v1
+             (step periods 4 and 100, T=8: both swing sides inside the
+             rollout at period 4, the terminal at the horizon) and
+             humanoid_hard (humanoid_hard_inputs: lifted, spread and crossed
+             legs, every branch of the cost taken and left at the start and
+             at the end) against its plain version at K=256 and 253, the
+             gates of `check` (humanoid_hard in f32: its 0.99 quantile in
+             place of the max, HARD_F32_QUANTILE, with the plain version's
+             own f32 error beside it); then the array planner's rollouts
+             (rollout_costs_batched over the penalty engine, the kernel's
+             cost on the engine's states) against the kernel's costs on the
+             same noise, f64, K=256, T=16, rtol 1e-8, for humanoid_collect,
+             humanoid and humanoid_hard
+  main_humanoid -- the tasks humanoid (K=50, T=100) and humanoid_hard
+             (K=30, T=75) through EpisodeRunner(use_kernel=True), f32, from
+             qpos0, 100 and 50 control steps: one launch a step, finite
+             55-column rows, root height; 5 steps split into replan and
+             plant ms (CUDA events); each humanoid cost's kernel time at
+             K=8192, T=64 (humanoid, humanoid_v1, humanoid_hard) with its
+             bound, and the new costs' kernel beside their plain version at
+             K=8192, T=8 (cost rel median < 1e-3)
+  main_array_planner -- EpisodeRunner("humanoid_collect", use_kernel=False)
+             at K=50, T=100, f32: make_mppi over the penalty engine batched
+             over K (the JAX package's default planner), 2 warm-up and 3
+             timed control steps (replan and plant ms by CUDA events), one
+             replan traced on the device only (launches, busy share), the
+             PyTorch dispatches of one (count_dispatches), one replan under
+             torch.cuda.set_sync_debug_mode("error"); no rollout-kernel
+             launch (the path has no hand-written kernel, as JAX's has no
+             Pallas one)
+  main_v2py -- collect_humanoid_v2py at K=30, T=75, two replans a control
+             step, 5 steps, saved into a temporary directory and read back:
+             56 / 21 / 1 columns, the first row's FD velocity zero; the
+             PyTorch dispatches of one control step's plan (count_dispatches)
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -745,20 +779,24 @@ def rollout_launch(lib, ro, x, samples_per_block=None, smem_bytes=None):
 
 
 def check_rollout(model, cost_factory, cost_kwargs, params=None, inputs=None,
-                  ctrl_bounds=(None, None)) -> dict:
-    """The rollout kernel against its plain version at K = CHECK_KS, T =
-    CHECK_T, on `inputs(model, K, T, dtype, seed)` (default seeded_inputs),
+                  ctrl_bounds=(None, None), T=CHECK_T, f32_quantile: float = 1.0) -> dict:
+    """The rollout kernel against its plain version at K = CHECK_KS and T
+    (CHECK_T by default), on `inputs(model, K, T, dtype, seed)` (default seeded_inputs),
     f64 to rtol=atol=1e-9, f32 cost relative error median < 1e-3 and max
-    < 1e-2, two launches bit-identical. Returns the errors by dtype and K,
-    and the launch geometry by dtype."""
+    < 1e-2, two launches bit-identical. `f32_quantile` < 1 holds that
+    quantile of the f32 relative error below 1e-2 in place of its max (for
+    a signed cost whose values cross zero, where the per-sample relative
+    error of any f32 evaluation is unbounded); the samples beyond 1e-2 are
+    counted. Returns the errors by dtype and K, and the launch geometry by
+    dtype."""
     from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
 
     inputs = inputs or seeded_inputs
-    ro = rk.build_rollout_kernel(model, cost_factory, CHECK_T, ctrl_low=ctrl_bounds[0],
+    ro = rk.build_rollout_kernel(model, cost_factory, T, ctrl_low=ctrl_bounds[0],
                                  ctrl_high=ctrl_bounds[1], cost_kwargs=cost_kwargs)
     errs = {}
     for K, dtype in ((K, dt) for K in CHECK_KS for dt in (torch.float64, torch.float32)):
-        x = inputs(model, K, CHECK_T, dtype, seed=1)
+        x = inputs(model, K, T, dtype, seed=1)
         p = None if params is None else torch.tensor(params, dtype=dtype, device="cuda")
         n0 = rk.launches
         ck, qk, vk = ro(*x, params=p)
@@ -780,8 +818,13 @@ def check_rollout(model, cost_factory, cost_kwargs, params=None, inputs=None,
         if dtype == torch.float64:
             for a, b, name in ((ck, cp, "costs"), (qk, qp, "qpos_T"), (vk, vp, "qvel_T")):
                 torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9, msg=name)
-        elif not (e["cost_rel_median"] < 1e-3 and e["cost_rel_max"] < 1e-2):
-            raise AssertionError(f"K={K} f32 kernel vs plain: {e}")
+        else:
+            top = e["cost_rel_max"]
+            if f32_quantile < 1.0:
+                top = e[f"cost_rel_q{f32_quantile:g}"] = float(torch.quantile(rel, f32_quantile))
+                e["samples_rel_over_1e-2"] = int((rel > 1e-2).sum())
+            if not (e["cost_rel_median"] < 1e-3 and top < 1e-2):
+                raise AssertionError(f"K={K} f32 kernel vs plain: {e}")
         e["repeat_bit_identical"] = True
         errs[f"{str(dtype).replace('torch.', '')}/K={K}"] = e
     return errs, ro.geometry
@@ -868,11 +911,12 @@ def device_launches(fn, top: int = 0) -> dict:
     return launch_counts(prof, top)
 
 
-def launch_counts(prof, top: int) -> dict:
-    """device_launches' counts from a finished torch.profiler trace."""
+def launch_counts(prof, top: int, events=None) -> dict:
+    """device_launches' counts from a finished torch.profiler trace (or
+    its key_averages(), `events`, when the caller has them)."""
     kernels = copies = 0
     by_name = {}
-    for ev in prof.key_averages():
+    for ev in (prof.key_averages() if events is None else events):
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             if ev.key.startswith(("Memcpy", "Memset")):
                 copies += ev.count
@@ -900,7 +944,7 @@ def collect_phase() -> dict:
     cfg, model = runner.cfg, runner.model
     # collect_humanoid's planner cost (walk weights, the goal in the runtime
     # params) through the kernel against its plain version
-    walk_check, _ = check_rollout(model, runner.spec.cost_factory,
+    walk_check, _ = check_rollout(model, runner.spec.kernel_cost_factory,
                                dict(runner.spec.cost_kwargs, param_target=True),
                                params=np.pad([1.5, 0.2, 1.28], (0, 13)))
     row = _humanoid_state_row(model.body_id("foot_left"), model.body_id("foot_right"))
@@ -1014,10 +1058,10 @@ def go1_replans(task: str, K: int, H: int, params, warmup: int, timed: int,
     from humanoid_mppi_rl_tpu_torch.solver.kernel_mppi import make_kernel_mppi
     from humanoid_mppi_rl_tpu_torch.solver.mppi import MPPIState
 
-    spec, model, cfg, init = load_task(task)
+    spec, model, _, _, _, init, cfg = load_task(task)
     cfg = dataclasses.replace(cfg, n_samples=K, horizon=H)
     kw = dict(spec.cost_kwargs, **(cost_kwargs or {}))
-    plan = make_kernel_mppi(model, spec.cost_factory, cfg, kw)
+    plan = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, kw)
     p = None if params is None else torch.tensor(params, dtype=torch.float32, device="cuda")
     ms = MPPIState.seeded(0, cfg.T, model.nu)
     rk.launches = 0
@@ -1068,8 +1112,8 @@ def go1_phases() -> dict:
     t0 = time.perf_counter()
     errs = {}
     for task, kw in (("go1_collect", dict(param_goal=True, param_gait=True)), ("go1", {})):
-        spec, model, cfg, _ = load_task(task, dtype=torch.float64)
-        e, geometry = check_rollout(model, spec.cost_factory, dict(spec.cost_kwargs, **kw),
+        spec, model, *_, cfg = load_task(task, dtype=torch.float64)
+        e, geometry = check_rollout(model, spec.kernel_cost_factory, dict(spec.cost_kwargs, **kw),
                                     params=params if kw else None, inputs=go1_inputs,
                                     ctrl_bounds=(cfg.ctrl_low, cfg.ctrl_high))
         errs[spec.kernel_cost] = e
@@ -1096,7 +1140,7 @@ def go1_phases() -> dict:
     # plain version and its bound (operations from ops_per_rollout)
     p = torch.tensor(params, dtype=torch.float32, device="cuda")
     timing = {}
-    n_rollout_ops = ops_per_rollout(model, spec.cost_factory, kw, GO1_H, inputs=go1_inputs,
+    n_rollout_ops = ops_per_rollout(model, spec.kernel_cost_factory, kw, GO1_H, inputs=go1_inputs,
                                     ctrl_bounds=(cfg.ctrl_low, cfg.ctrl_high), params=params)
     for K in GO1_TIME_K:
         x = go1_inputs(model, K, GO1_H, torch.float32, seed=2)
@@ -1505,14 +1549,14 @@ CHAIN_EPOCHS, CHAIN_CKPT_EVERY = 10, 5
 CHAIN_EVAL_SPLIT = 0.5
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, TRAIN_SYNC_STEPS = 10, 100, 10
 EST_LOOP_K, EST_LOOP_T = 2048, 32
-# the Go1 loop's depth, cut to leave the run time for the cartpole and
-# hopper phases: 3 warm-up, 20 timed and 4 split steps (5, 50 and 6 before)
-EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 3, 20, 4
+# the Go1 loop's depth, cut to leave the run time for the later phases:
+# 3 warm-up, 10 timed and 4 split steps (5, 50 and 6, then 3, 20 and 4)
+EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 3, 10, 4
 # the humanoid loop (scripts/dev_estimator_walk.py --configs fk): K=2048,
-# T=25; 120 timed control steps, the JAX record's length
+# T=25; 60 timed control steps, half the JAX record's 120, cut for the run
+# time (3 warm-up and 5 split steps: 5 and 10 before)
 HUM_LOOP_K, HUM_LOOP_T = 2048, 25
-# (3 warm-up and 5 split steps: 5 and 10 before, cut for the run time)
-HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 3, 120, 5
+HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 3, 60, 5
 # the JAX record (artifacts/rollout_k_surrogate/estimator_summary.json,
 # closed_loop.fk_cost_K2048_T25, on a TPU, another noise stream)
 HUM_JAX_RECORD = {"steps": 120, "K": 2048, "T": 25, "forward_progress_m": 0.159,
@@ -2079,7 +2123,8 @@ CART_K, CART_STEPS, CART_SETTLE = 256, 400, 40
 CART_SPLIT_STEPS = 20
 # the hopper at artifacts/hopper_k4096.npz's K and H
 # (tests/test_e2e_hopper.py:12-14): 5 warm-up and 200 timed control steps
-HOP_K, HOP_H, HOP_WARMUP, HOP_TIMED, HOP_SPLIT_STEPS = 4096, 100, 5, 200, 10
+# 100 timed steps (200 before), cut for the run time
+HOP_K, HOP_H, HOP_WARMUP, HOP_TIMED, HOP_SPLIT_STEPS = 4096, 100, 5, 100, 10
 # check_hopper's param_gait deltas, slots 4..9: target velocity, landing
 # weight, pitch log-scale, knee weight, hop-clock weight, knee anchor shift
 HOP_GAIT = (0.2, 3.0, 0.3, 2.0, 5.0, -0.1)
@@ -2087,7 +2132,8 @@ HOP_GAIT = (0.2, 3.0, 0.3, 2.0, 5.0, -0.1)
 # the reference's) of 200 steps, PRESET_CONFIGS["cartpole"] cut to 10
 # epochs, then the closed loop at ESTIMATOR_CONFIGS["cartpole"]
 CART_EPISODES, CART_EPISODE_STEPS, CART_TRAIN_EPOCHS = 2, 200, 10
-CART_LOOP_WARMUP, CART_LOOP_TIMED, CART_LOOP_SPLIT = 3, 100, 5
+# 50 timed closed-loop steps (100 before), cut for the run time
+CART_LOOP_WARMUP, CART_LOOP_TIMED, CART_LOOP_SPLIT = 3, 50, 5
 CART_LOOP_CHECK_B = (2048, 253)
 # hopper poses for the rollout checks (sample k in pose k % 4): (name, hip,
 # knee, ankle, the foot's lowest point above the floor (m), vertical
@@ -2182,24 +2228,28 @@ def hopper_gait_terms(qpos, qvel, time, params) -> dict:
             "clock": params[8] * (qpos[1] + 1.0 - zstar) ** 2}
 
 
-def kernel_alone(ro, model, cost_factory, cost_kwargs, K, T, inputs, params=None) -> dict:
+def kernel_alone(ro, model, cost_factory, cost_kwargs, K, T, inputs, params=None,
+                 plain: bool = True) -> dict:
     """The rollout kernel alone at (K, T) in f32 on `inputs` beside its
-    plain version (cost rel median < 1e-3) and its bound: the bytes of the
-    inputs and outputs, and ops_per_rollout's operations at the f32 rate."""
+    plain version (cost rel median < 1e-3; `plain=False` leaves it out:
+    plain_ms is then None) and its bound: the bytes of the inputs and
+    outputs, and ops_per_rollout's operations at the f32 rate."""
     from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
 
     x = inputs(model, K, T, torch.float32, seed=2)
     p = None if params is None else torch.tensor(params, dtype=torch.float32, device="cuda")
     ro(*x, params=p)
     kernel_ms = cuda_ms(lambda: ro(*x, params=p), 5)
-    out = {}
-    plain_ms = cuda_ms(lambda: out.setdefault("plain", ro.plain(*x, params=p)), 1)
-    ck, cp = ro(*x, params=p)[0].double(), out["plain"][0].double()
-    rel = (ck - cp).abs() / cp.abs()
-    vs = {"cost_rel_median": float(rel.median()), "cost_rel_max": float(rel.max()),
-          "cost_max_abs": float((ck - cp).abs().max())}
-    if not (torch.isfinite(ck).all() and vs["cost_rel_median"] < 1e-3):
-        raise AssertionError(f"full-shape f32 kernel vs plain: {vs}")
+    plain_ms, vs = None, None
+    if plain:
+        out = {}
+        plain_ms = cuda_ms(lambda: out.setdefault("plain", ro.plain(*x, params=p)), 1)
+        ck, cp = ro(*x, params=p)[0].double(), out["plain"][0].double()
+        rel = (ck - cp).abs() / cp.abs()
+        vs = {"cost_rel_median": float(rel.median()), "cost_rel_max": float(rel.max()),
+              "cost_max_abs": float((ck - cp).abs().max())}
+        if not (torch.isfinite(ck).all() and vs["cost_rel_median"] < 1e-3):
+            raise AssertionError(f"full-shape f32 kernel vs plain: {vs}")
     n_rollout_ops = ops_per_rollout(model, cost_factory, cost_kwargs, T, inputs=inputs,
                                     params=params)
     n_ops = K * n_rollout_ops
@@ -2252,8 +2302,8 @@ def small_robot_checks() -> dict:
 
     out = {}
     t0 = time.perf_counter()
-    spec, model, cfg, _ = load_task("cartpole", dtype=torch.float64)
-    errs, geometry = check_rollout(model, spec.cost_factory, spec.cost_kwargs,
+    spec, model, *_, cfg = load_task("cartpole", dtype=torch.float64)
+    errs, geometry = check_rollout(model, spec.kernel_cost_factory, spec.cost_kwargs,
                                    inputs=cartpole_inputs)
     x = cartpole_inputs(model, CHECK_KS[0], CHECK_T, torch.float64, seed=1)
     past = int((x[0][0].abs() > 1.0).sum())
@@ -2270,15 +2320,15 @@ def small_robot_checks() -> dict:
     out["cartpole"] = errs
 
     t0 = time.perf_counter()
-    spec, model, cfg, _ = load_task("hopper", dtype=torch.float64)
+    spec, model, *_, cfg = load_task("hopper", dtype=torch.float64)
     kw = dict(spec.cost_kwargs, param_gait=True)
     params = hopper_gait_params()
-    errs, geometry = check_rollout(model, spec.cost_factory, kw, params=params,
+    errs, geometry = check_rollout(model, spec.kernel_cost_factory, kw, params=params,
                                    inputs=hopper_inputs)
     # every param_gait term acts: each nonzero in some sample of the plain
     # rollout's final states at the terminal's time
     x = hopper_inputs(model, CHECK_KS[0], CHECK_T, torch.float64, seed=1)
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, CHECK_T, cost_kwargs=kw)
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, CHECK_T, cost_kwargs=kw)
     _, qT, vT = ro.plain(*x, params=torch.tensor(params, dtype=torch.float64, device="cuda"))
     t_end = (x[2][0] + CHECK_T * model.timestep).cpu().numpy()
     terms = hopper_gait_terms(qT.cpu().numpy(), vT.cpu().numpy(), t_end, params)
@@ -2325,7 +2375,7 @@ def cartpole_phase() -> dict:
                              f"{CART_SETTLE} steps, cart x {cart_x:.3f}")
     split = split_control_steps(runner, CART_SPLIT_STEPS)
     spec, model, cfg = runner.spec, runner.model, runner.cfg
-    alone = kernel_alone(runner.plan.rollouts, model, spec.cost_factory, spec.cost_kwargs,
+    alone = kernel_alone(runner.plan.rollouts, model, spec.kernel_cost_factory, spec.cost_kwargs,
                          cfg.K, cfg.T, cartpole_inputs)
     emit({"phase": "main_cartpole", "task": "cartpole", "K": cfg.K, "T": cfg.T,
           "dtype": "float32", "control_steps": CART_STEPS, "launches": launches,
@@ -2363,7 +2413,7 @@ def hopper_phase() -> dict:
         raise AssertionError(f"hopper rows: {states.shape}, finite {np.isfinite(states).all()}")
     split = split_control_steps(runner, HOP_SPLIT_STEPS)
     spec, model, cfg = runner.spec, runner.model, runner.cfg
-    alone = kernel_alone(runner.plan.rollouts, model, spec.cost_factory, spec.cost_kwargs,
+    alone = kernel_alone(runner.plan.rollouts, model, spec.kernel_cost_factory, spec.cost_kwargs,
                          cfg.K, cfg.T, hopper_inputs)
     torch.cuda.empty_cache()
     emit({"phase": "main_hopper", "task": "hopper", "K": cfg.K, "H": cfg.T, "dtype": "float32",
@@ -2565,6 +2615,450 @@ def small_robot_phases() -> dict:
                              "closed_loop_control_step_ms": pipe["control_step_ms_median"]}}}
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the humanoid's remaining tasks and the array planner
+# ---------------------------------------------------------------------------
+
+# the reference scripts' operating points (envs/tasks): humanoid K=50,
+# T=100 (src/Humanoid_mppi.jl), humanoid_hard K=30, T=75
+# (src/Humanoid_datacollection.py); control steps of each run
+HUM_TASK_STEPS = {"humanoid": 100, "humanoid_hard": 50}
+HUM_TASK_SPLIT_STEPS = 5
+# humanoid_v1's step periods checked: 4 (both sides inside an 8-step
+# rollout) and the task's 100
+V1_PERIODS = (4, 100)
+V1_CHECK_T = 8
+NEW_COST_K, NEW_COST_T = 8192, 64   # each cost's kernel time (humanoid_bench's shape)
+# the new costs' plain version is timed at T=8 (host-bound: its time grows
+# with T, not with K), beside the kernel at the same shape
+NEW_COST_PLAIN_T = 8
+# the array planner: humanoid_collect (K=50, T=100, f32), as EpisodeRunner's
+# default (use_kernel=False) runs it
+ARRAY_TASK, ARRAY_WARMUP, ARRAY_TIMED = "humanoid_collect", 2, 3
+ARRAY_CHECK_K, ARRAY_CHECK_T = 256, 16
+V2PY_STEPS = 5
+# humanoid_hard's -1000 x swing-foot-velocity term makes its values cross
+# zero, so the f32 check holds the 0.99 quantile of the relative error below
+# 1e-2 in place of its max (check_rollout)
+HARD_F32_QUANTILE = 0.99
+# humanoid_hard_inputs' pose classes (k % 5): qpos index -> angle
+HARD_POSES = (("stand", {}), ("lift_left", {18: -1.0, 19: -2.2}),
+              ("lift_right", {12: -1.0, 13: -2.2}), ("spread", {10: -0.35, 16: -0.35}),
+              ("crossed", {10: 0.25, 16: 0.25}))
+
+
+def humanoid_hard_inputs(model, K, T, dtype, seed=0, device="cuda"):
+    """seeded_inputs with sample k in pose HARD_POSES[k % 5], so that every
+    branch of the hard-penalty cost is taken and left somewhere: a lifted
+    leg brings its foot above its knee band, spread and crossed legs put the
+    feet and knees outside the [0.15, 0.21] lateral dead zone."""
+    qpos, qvel, t0, U, noise = seeded_inputs(model, K, T, torch.float64, seed, device="cpu")
+    qpos = qpos.numpy()
+    for k in range(K):
+        for i, v in HARD_POSES[k % len(HARD_POSES)][1].items():
+            qpos[i, k] = v
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    return as_t(qpos), qvel.to(device, dtype), t0.to(device, dtype), U.to(device, dtype), \
+        noise.to(device, dtype)
+
+
+def hard_cost_branches(model, qpos, qvel) -> dict:
+    """Samples on each side of each branch of the hard-penalty cost
+    (ops/kernel_costs.humanoid_hard) at states qpos (nq, K), qvel (nv, K),
+    through the engine's kinematics on their device."""
+    from humanoid_mppi_rl_tpu_torch.costs.base import body_com_linvel
+    from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
+
+    eng = Engine(model, qpos.device, qpos.dtype)
+    st = eng.forward(qpos.T.contiguous(), qvel.T.contiguous())
+    ids = {n: model.body_id(n) for n in ("shin_left", "shin_right", "foot_left", "foot_right")}
+    x = st.xpos
+    left = (body_com_linvel(st, eng, ids["shin_left"])[:, 0]
+            > body_com_linvel(st, eng, ids["shin_right"])[:, 0])
+    pick = lambda a, b: torch.where(left, x[:, ids[a], 2], x[:, ids[b], 2])
+    swing_z, stance_z = pick("foot_left", "foot_right"), pick("foot_right", "foot_left")
+    knee_z = pick("shin_left", "shin_right")
+    leg = (x[:, ids["foot_left"], 1] - x[:, ids["foot_right"], 1]).abs()
+    knee = (x[:, ids["shin_left"], 1] - x[:, ids["shin_right"], 1]).abs()
+    conds = {"left_swing": left, "swing_foot_above_knee_band": swing_z >= knee_z - 0.3,
+             "clearance_below_0.005": swing_z - stance_z < 0.005,
+             "feet_outside_dead_zone": (leg <= 0.15) | (leg >= 0.21),
+             "knees_outside_dead_zone": (knee <= 0.15) | (knee >= 0.21)}
+    return {k: [int(v.sum()), int((~v).sum())] for k, v in conds.items()}
+
+
+def kernel_cost_on_states(model, cost_factory, cost_kwargs, horizon: int):
+    """(running, terminal) over (K,)-batched PhysicsStates that evaluate a
+    rollout kernel cost (ops/kernel_costs) on the array engine's kinematics
+    (xpos, xquat, body velocities), for rollout_costs_batched: the array
+    planner with the kernel's own cost, so that the two planners' costs
+    differ only by their physics. Zero runtime parameters."""
+    import inspect
+    from humanoid_mppi_rl_tpu_torch.ops.scalar_physics import StepContext
+
+    kw = dict(cost_kwargs)
+    if "horizon" in inspect.signature(cost_factory).parameters:
+        kw.setdefault("horizon", horizon)
+    run_k, term_k = cost_factory(model, **kw)
+
+    def ctx(state, u):
+        c = StepContext()
+        col = lambda a, n: [a[:, i] for i in range(n)]
+        c.qpos, c.qvel = col(state.qpos, model.nq), col(state.qvel, model.nv)
+        c.ctrl = col(u, model.nu) if u is not None else [0.0] * model.nu
+        c.time = state.time
+        c.xpos = {b: tuple(state.xpos[:, b, i] for i in range(3)) for b in range(model.nbody)}
+        c.xquat = {b: tuple(state.xquat[:, b, i] for i in range(4)) for b in range(model.nbody)}
+        c.body_vel = {b: tuple(state.body_vel[:, b, i] for i in range(6))
+                      for b in range(model.nbody)}
+        c.params = [torch.zeros_like(state.time)] * 16
+        return c
+
+    return (lambda state, u, t: run_k(ctx(state, u), t),
+            lambda state, t: term_k(ctx(state, None)))
+
+
+def array_vs_kernel(model, cost_factory, cost_kwargs, K: int, T: int) -> dict:
+    """On the card in f64: rollout_costs_batched over the penalty engine
+    (the array planner's rollouts) with the kernel's cost on the engine's
+    states, against the rollout kernel's costs on the same noise, from one
+    perturbed state with the feet in the floor. rtol 1e-8."""
+    from humanoid_mppi_rl_tpu_torch.dynamics.physics import make_physics_dynamics
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+    from humanoid_mppi_rl_tpu_torch.solver.mppi import MPPIConfig, rollout_costs_batched
+
+    dt = torch.float64
+    qpos, qvel, _, U, noise = seeded_inputs(model, K, T, dt, seed=3)
+    q0, v0 = qpos[:, 0].contiguous(), qvel[:, 0].contiguous()
+    dyn = make_physics_dynamics(model, solver="penalty", dtype=dt)
+    x0 = dyn.engine.forward(q0, v0, torch.zeros((), dtype=dt, device="cuda"))
+    running, terminal = kernel_cost_on_states(model, cost_factory, cost_kwargs, T)
+    cfg = MPPIConfig(n_samples=K, horizon=T, clamp_rollout_ctrl=False)
+    a = rollout_costs_batched(dyn, running, terminal, cfg, x0, U, noise.permute(2, 0, 1))
+    ro = rk.build_rollout_kernel(model, cost_factory, T, cost_kwargs=cost_kwargs)
+    b, _, _ = ro(q0[:, None].expand(-1, K).contiguous(), v0[:, None].expand(-1, K).contiguous(),
+                 torch.zeros(1, K, dtype=dt, device="cuda"), U, noise)
+    rel = ((a - b).abs() / b.abs()).max()
+    torch.testing.assert_close(a, b, rtol=1e-8, atol=0.0)
+    return {"K": K, "T": T, "cost_rel_max": float(rel),
+            "cost_max_abs": float((a - b).abs().max())}
+
+
+def humanoid_cost_checks() -> dict:
+    """check_humanoid_costs: the rollout kernel with humanoid_v1 (step
+    periods 4 and 100) and humanoid_hard against its plain version at the
+    gates of `check`; the swing sides and hard-cost branches taken; the
+    array planner's rollouts against the kernel's costs (array_vs_kernel)."""
+    from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+    from humanoid_mppi_rl_tpu_torch.ops import kernel_costs as kc
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    out = {}
+    spec, model, *_ = load_task("humanoid", dtype=torch.float64)
+    for period in V1_PERIODS:
+        t0 = time.perf_counter()
+        kw = dict(spec.cost_kwargs, step_period=period)
+        errs, geometry = check_rollout(model, kc.humanoid_v1, kw, T=V1_CHECK_T)
+        # the gait clock: running steps 0..T-1, the terminal at t = T
+        sides = ["left" if (t // period) % 2 == 0 else "right" for t in range(V1_CHECK_T + 1)]
+        steps = {side: sides.count(side) for side in ("left", "right")}
+        if period < V1_CHECK_T and min(steps.values()) == 0:
+            raise AssertionError(f"humanoid_v1 step_period {period}: sides {steps}")
+        emit({"phase": "check_humanoid_costs", "kernel": "rollout",
+              "cost": f"humanoid_v1, step_period {period}", "K": list(CHECK_KS),
+              "T": V1_CHECK_T, "inputs": "seeded_inputs (feet 0.25 m in the floor)",
+              "gait_clock_steps_by_swing_side": steps,
+              "sample_steps_by_swing_side": {k: v * CHECK_KS[0] for k, v in steps.items()},
+              "tolerance": {"float64": "rtol=atol=1e-9",
+                            "float32": "cost rel median<1e-3, max<1e-2",
+                            "repeat": "two launches bit-identical"},
+              "geometry": {str(d).replace("torch.", ""): g for d, g in geometry.items()},
+              "errors": errs, "seconds": time.perf_counter() - t0})
+        out[f"humanoid_v1/step_period={period}"] = errs
+    t0 = time.perf_counter()
+    spec, model, *_ = load_task("humanoid_hard", dtype=torch.float64)
+    errs, geometry = check_rollout(model, kc.humanoid_hard, spec.cost_kwargs,
+                                   inputs=humanoid_hard_inputs, f32_quantile=HARD_F32_QUANTILE)
+    x = humanoid_hard_inputs(model, CHECK_KS[0], CHECK_T, torch.float64, seed=1)
+    ro = rk.build_rollout_kernel(model, kc.humanoid_hard, CHECK_T, cost_kwargs=spec.cost_kwargs)
+    c64, qT, vT = ro.plain(*x)
+    # the plain version's own f32 error against its f64 result on these
+    # inputs: the per-sample relative error of an f32 evaluation of this
+    # signed cost is not bounded by 1e-2 either
+    c32 = ro.plain(*humanoid_hard_inputs(model, CHECK_KS[0], CHECK_T, torch.float32,
+                                         seed=1))[0].double()
+    plain_rel = (c32 - c64).abs() / c64.abs()
+    plain_f32 = {"cost_rel_max": float(plain_rel.max()),
+                 f"cost_rel_q{HARD_F32_QUANTILE:g}": float(torch.quantile(plain_rel,
+                                                                          HARD_F32_QUANTILE)),
+                 "cost_abs_min_f64": float(c64.abs().min()),
+                 "cost_abs_median_f64": float(c64.abs().median())}
+    branches = {"initial": hard_cost_branches(model, x[0], x[1]),
+                "final": hard_cost_branches(model, qT, vT)}
+    for when, br in branches.items():
+        if min(min(v) for v in br.values()) == 0:
+            raise AssertionError(f"hard-cost branches at the {when} states: {br}")
+    emit({"phase": "check_humanoid_costs", "kernel": "rollout", "cost": "humanoid_hard",
+          "K": list(CHECK_KS), "T": CHECK_T,
+          "inputs": "humanoid_hard_inputs: poses " + ", ".join(p[0] for p in HARD_POSES),
+          "samples_taking_and_not_taking_each_branch": branches,
+          "tolerance": {"float64": "rtol=atol=1e-9",
+                        "float32": f"cost rel median<1e-3, {HARD_F32_QUANTILE:g} quantile<1e-2 "
+                                   "(a signed cost: values cross zero)",
+                        "repeat": "two launches bit-identical"},
+          "plain_f32_vs_plain_f64_K256": plain_f32,
+          "geometry": {str(d).replace("torch.", ""): g for d, g in geometry.items()},
+          "errors": errs, "seconds": time.perf_counter() - t0})
+    out["humanoid_hard"] = errs
+
+    t0 = time.perf_counter()
+    cases = {}
+    for task in ("humanoid_collect", "humanoid", "humanoid_hard"):
+        spec, model, *_ = load_task(task, dtype=torch.float64)
+        cases[task] = array_vs_kernel(model, spec.kernel_cost_factory, spec.cost_kwargs,
+                                      ARRAY_CHECK_K, ARRAY_CHECK_T)
+    emit({"phase": "check_humanoid_costs", "kernel": "rollout",
+          "check": "the array planner's rollouts (rollout_costs_batched over the penalty "
+                   "engine, the kernel's cost on the engine's states) against the kernel's "
+                   "costs, same noise, f64", "tolerance": "rtol 1e-8",
+          "cases": cases, "seconds": time.perf_counter() - t0})
+    out["array_vs_kernel"] = cases
+    return out
+
+
+def humanoid_task_phase() -> dict:
+    """main_humanoid: the tasks humanoid and humanoid_hard through
+    EpisodeRunner(use_kernel=True) at their operating points, f32, from
+    qpos0; then each humanoid cost's kernel time at K=8192, T=64."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
+    from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+    from humanoid_mppi_rl_tpu_torch.ops import kernel_costs as kc
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    out = {"paths": {}}
+    for task, steps in HUM_TASK_STEPS.items():
+        t0 = time.perf_counter()
+        runner = EpisodeRunner(task, use_kernel=True)
+        rk.launches = 0
+        h0 = time.perf_counter()
+        res = runner.run(max_steps=steps, chunk=50)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - h0
+        launches = rk.launches
+        if launches != steps:
+            raise AssertionError(f"{task}: {launches} kernel launches for {steps} steps")
+        states, actions, _ = res.logger.arrays()
+        if states.shape != (steps, 55) or not (np.isfinite(states).all()
+                                               and np.isfinite(actions).all()):
+            raise AssertionError(f"{task} rows: {states.shape}, finite "
+                                 f"{np.isfinite(states).all()}")
+        split = split_control_steps(runner, HUM_TASK_SPLIT_STEPS)
+        cfg = runner.cfg
+        emit({"phase": "main_humanoid", "task": task, "K": cfg.K, "T": cfg.T, "dtype": "float32",
+              "cost": runner.spec.kernel_cost, "control_steps": steps, "launches": launches,
+              "control_step_ms_mean": wall / steps * 1e3,
+              "root_z_min": float(states[:, 2].min()), "root_z_final": float(states[-1, 2]),
+              "x_progress_m": float(states[-1, 0] - states[0, 0]),
+              **split, "seconds": time.perf_counter() - t0})
+        out["paths"][f"{task} episode"] = {"launches": launches, "control_steps": steps}
+        out[task] = {"replan_ms_median": split["replan_ms_median"],
+                     "plant_ms_median": split["plant_ms_median"]}
+    t0 = time.perf_counter()
+    spec, model, *_ = load_task("humanoid_bench")
+    costs = {}
+    for name, factory, kw, inputs in (
+            ("humanoid", kc.humanoid, spec.cost_kwargs, seeded_inputs),
+            ("humanoid_v1", kc.humanoid_v1, {}, seeded_inputs),
+            ("humanoid_hard", kc.humanoid_hard, {}, humanoid_hard_inputs)):
+        ro = rk.build_rollout_kernel(model, factory, NEW_COST_T, cost_kwargs=kw)
+        costs[name] = kernel_alone(ro, model, factory, kw, NEW_COST_K, NEW_COST_T, inputs,
+                                   plain=False)
+        if name != "humanoid":   # the humanoid cost's plain time is the `time` phase's
+            ro = rk.build_rollout_kernel(model, factory, NEW_COST_PLAIN_T, cost_kwargs=kw)
+            costs[name]["beside_plain"] = kernel_alone(ro, model, factory, kw, NEW_COST_K,
+                                                       NEW_COST_PLAIN_T, inputs)
+    emit({"phase": "main_humanoid", "kernel": "rollout", "K": NEW_COST_K, "T": NEW_COST_T,
+          "dtype": "float32", "kernel_alone_by_cost": costs,
+          "seconds": time.perf_counter() - t0})
+    out["kernel_by_cost"] = costs
+    return out
+
+
+def kernel_profile(fn, top: int) -> dict:
+    """device_profile and device_launches for a call of ~10^5 launches:
+    one call of fn under torch.profiler tracing the device only (the
+    host-side op events of such a call take minutes to aggregate), one
+    aggregation. Its own `seconds` is the whole measurement's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(ev.self_device_time_total for ev in events
+                  if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    if not busy_ms:
+        raise AssertionError("the device-only trace recorded no device time")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+            "device_launches": launch_counts(prof, top, events),
+            "seconds": time.perf_counter() - t_all}
+
+
+def count_dispatches(fn) -> int:
+    """PyTorch operator dispatches of one call of fn (TorchDispatchMode):
+    the same count on the CPU and on the card, an upper bound of its
+    device launches (views launch nothing)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def array_planner_phase() -> dict:
+    """main_array_planner: EpisodeRunner(ARRAY_TASK, use_kernel=False), the
+    JAX package's default planner (make_mppi over the penalty engine,
+    batched over K), at K=50, T=100, f32 on the card."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    t0 = time.perf_counter()
+    runner = EpisodeRunner(ARRAY_TASK)
+    rk.launches = 0
+    ms = runner.fresh_controller(0)
+    plant = runner.init_state
+    plan_ms, plant_ms, host_ms = [], [], []
+    for i in range(ARRAY_WARMUP + ARRAY_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        h = time.perf_counter()
+        ev[0].record()
+        action, ms, diag = runner.plan(ms, plant)
+        ev[1].record()
+        plant = runner.plant_dyn(plant, action, 0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if i >= ARRAY_WARMUP:
+            host_ms.append((time.perf_counter() - h) * 1e3)
+            plan_ms.append(ev[0].elapsed_time(ev[1]))
+            plant_ms.append(ev[1].elapsed_time(ev[2]))
+    for name, v in (("action", action), ("U", ms.U), ("qpos", plant.qpos), ("beta", diag.beta)):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"array planner: non-finite {name}")
+    prof = kernel_profile(lambda: runner.plan(ms, plant), top=8)
+    dispatches = count_dispatches(lambda: runner.plan(ms, plant))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.plan(ms, plant)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if rk.launches:
+        raise AssertionError(f"the array planner launched the rollout kernel {rk.launches} times")
+    cfg = runner.cfg
+    emit({"phase": "main_array_planner", "task": ARRAY_TASK, "K": cfg.K, "T": cfg.T,
+          "dtype": "float32", "planner": "make_mppi over the penalty engine (use_kernel=False)",
+          "warmup_steps": ARRAY_WARMUP, "timed_steps": ARRAY_TIMED,
+          "replan_ms": plan_ms, "replan_ms_median": statistics.median(plan_ms),
+          "plant_ms": plant_ms, "control_step_host_ms": host_ms,
+          "launches_per_replan": prof["device_launches"],
+          "pytorch_dispatches_per_replan": dispatches,
+          "profiled_replan": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                   "device_busy_share")},
+          "profiled_replan_seconds": prof["seconds"],
+          "sync_free_replan": True, "rollout_kernel_launches": rk.launches,
+          "root_z": float(plant.qpos[2]), "seconds": time.perf_counter() - t0})
+    return {"replan_ms_median": statistics.median(plan_ms),
+            "launches_per_replan": prof["device_launches"]["kernels"],
+            "device_busy_share": prof["device_busy_share"]}
+
+
+def v2py_phase() -> dict:
+    """main_v2py: collect_humanoid_v2py at the task's width (K=30, T=75, two
+    replans a control step, the array planner) for V2PY_STEPS steps, saved
+    into a temporary directory and read back."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner, collect_humanoid_v2py
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+    from humanoid_mppi_rl_tpu_torch.utils.trajio import read_csv
+
+    t0 = time.perf_counter()
+    runner = EpisodeRunner("humanoid_collect_v2py")
+    ms = runner.fresh_controller(0)
+    runner.plan(ms, runner.init_state)
+    dispatches = count_dispatches(lambda: runner.plan(ms, runner.init_state))
+    with tempfile.TemporaryDirectory() as out_dir:
+        rk.launches = 0
+        h0 = time.perf_counter()
+        out = collect_humanoid_v2py(out_dir=out_dir, max_steps=V2PY_STEPS, chunk=V2PY_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - h0
+        if out != [(0, V2PY_STEPS)]:
+            raise AssertionError(f"collect_humanoid_v2py: {out}")
+        (run,) = os.listdir(out_dir)
+        arrays = {k: read_csv(os.path.join(out_dir, run, f"{k}.csv")).reshape(V2PY_STEPS, -1)
+                  for k in ("states", "actions", "times")}
+    shapes = {k: v.shape[1] for k, v in arrays.items()}
+    if shapes != {"states": 56, "actions": 21, "times": 1}:
+        raise AssertionError(f"v2py columns: {shapes}")
+    st = arrays["states"]
+    if not (np.isfinite(st).all() and np.isfinite(arrays["actions"]).all()):
+        raise AssertionError("v2py rows are not finite")
+    if np.abs(st[0, 28:]).max() != 0.0:
+        raise AssertionError("v2py: the first row's FD velocity is not zero")
+    fd_err = float(np.abs(st[2, 28:] - (st[2, :28] - st[1, :28]) / 0.005).max())
+    emit({"phase": "main_v2py", "task": "humanoid_collect_v2py", "K": 30, "T": 75,
+          "replans_per_step": 2, "dtype": "float32", "control_steps": V2PY_STEPS,
+          "control_step_ms_mean": wall / V2PY_STEPS * 1e3, "columns": shapes,
+          "pytorch_dispatches_per_control_step_plan": dispatches,
+          "fd_velocity_row2_max_abs_err": fd_err, "rollout_kernel_launches": rk.launches,
+          "root_z_min": float(st[:, 2].min()), "seconds": time.perf_counter() - t0})
+    return {"control_step_ms_mean": wall / V2PY_STEPS * 1e3}
+
+
+def humanoid_task_phases() -> dict:
+    """check_humanoid_costs, main_humanoid, main_array_planner and
+    main_v2py (slice 10); returns the numbers they add to the `kernels`
+    line."""
+    errs = humanoid_cost_checks()
+    tasks = humanoid_task_phase()
+    array = array_planner_phase()
+    v2py = v2py_phase()
+    f32 = lambda e, key: max(v[key] for k, v in e.items() if "float32" in k)
+    f64 = lambda e, key: max(v[key] for k, v in e.items() if "float64" in k)
+    by_cost = {}
+    for name, e in (("humanoid_v1", {**errs["humanoid_v1/step_period=4"],
+                                     **{k + "/p100": v for k, v in
+                                        errs["humanoid_v1/step_period=100"].items()}}),
+                    ("humanoid_hard", errs["humanoid_hard"])):
+        k = tasks["kernel_by_cost"][name]
+        p = k["beside_plain"]
+        by_cost[name] = {"ms": k["kernel_ms"], "bound_ms": k["bound_ms"],
+                         "bound_by": k["bound_by"], "at": {"K": k["K"], "T": k["T"]},
+                         "plain_ms": p["plain_ms"], "ms_beside_plain": p["kernel_ms"],
+                         "plain_at": {"K": p["K"], "T": p["T"]},
+                         "ops_per_rollout": k["ops_per_rollout"],
+                         "max_abs_err": f32(e, "cost_max_abs"),
+                         "max_abs_err_f64": f64(e, "cost_max_abs"),
+                         "cost_rel_median_f32": f32(e, "cost_rel_median")}
+    hum = tasks["kernel_by_cost"]["humanoid"]
+    return {"paths": tasks["paths"], "humanoid_costs": by_cost,
+            "humanoid_cost_ms_beside": {"ms": hum["kernel_ms"], "bound_ms": hum["bound_ms"],
+                                        "at": {"K": hum["K"], "T": hum["T"]}},
+            "humanoid_tasks": {t: tasks[t] for t in HUM_TASK_STEPS},
+            "array_vs_kernel": errs["array_vs_kernel"],
+            "array_planner": array, "v2py": v2py}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2607,8 +3101,8 @@ def main() -> int:
 
     # ---- check: kernel against its plain version on the card -------------
     t0 = time.perf_counter()
-    spec, model, cfg, _ = load_task("humanoid_bench", dtype=torch.float64)
-    errs, geometry = check_rollout(model, spec.cost_factory, spec.cost_kwargs)
+    spec, model, *_, cfg = load_task("humanoid_bench", dtype=torch.float64)
+    errs, geometry = check_rollout(model, spec.kernel_cost_factory, spec.cost_kwargs)
     trig = sincos_check()
     emit({"phase": "check", "kernel": "rollout", "K": list(CHECK_KS), "T": CHECK_T,
           "tolerance": {"float64": "rtol=atol=1e-9",
@@ -2619,8 +3113,8 @@ def main() -> int:
 
     # ---- main path at full width -------------------------------------------
     t0 = time.perf_counter()
-    spec, model, cfg, init = load_task("humanoid_bench")
-    plan = make_kernel_mppi(model, spec.cost_factory, cfg, spec.cost_kwargs)
+    spec, model, _, _, _, init, cfg = load_task("humanoid_bench")
+    plan = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, spec.cost_kwargs)
     ms = MPPIState.seeded(0, cfg.T, model.nu)
     rk.launches = 0
     times = []
@@ -2668,7 +3162,7 @@ def main() -> int:
             "cost_max_abs": float((ck - cp).abs().max())}
     if not (torch.isfinite(ck).all() and full["cost_rel_median"] < 1e-3):
         raise AssertionError(f"full-shape f32 kernel vs plain: {full}")
-    n_ops = cfg.K * ops_per_rollout(model, spec.cost_factory, spec.cost_kwargs, cfg.T)
+    n_ops = cfg.K * ops_per_rollout(model, spec.kernel_cost_factory, spec.cost_kwargs, cfg.T)
     n_bytes = 4 * (cfg.K * (2 * model.nq + 2 * model.nv + 1)
                    + cfg.T * model.nu * (cfg.K + 1) + rk.NP)
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_OPS_PER_S * 1e3
@@ -2698,6 +3192,7 @@ def main() -> int:
     est["sass_hgmma"] = hgmma_of["estimator_kernel.cu"]
     loop = learning_phases(collected)
     small = small_robot_phases()
+    humanoid = humanoid_task_phases()
     est["paths"] = {"estimator replan": {"launches": est["launches"],
                                          "replans": EST_WARMUP + EST_TIMED},
                     **loop.pop("paths"), **small["estimator"].pop("paths")}
@@ -2710,13 +3205,16 @@ def main() -> int:
         "source": "humanoid_mppi_rl_tpu_torch/ops/csrc/rollout_kernel.cu",
         "replaces": "humanoid_mppi_rl_tpu/ops/rollout_kernel.py:86",
         "launches": main_launches,
-        "robots": {"humanoid": ["humanoid"], "go1": ["quadruped", "quadruped_jl"],
+        "robots": {"humanoid": ["humanoid", "humanoid_v1", "humanoid_hard"],
+                   "go1": ["quadruped", "quadruped_jl"],
                    "cartpole": ["cartpole"], "hopper": ["hopper"]},
         "paths": {"humanoid_bench replan": {"launches": main_launches,
                                             "replans": WARMUP + TIMED},
                   "humanoid_walk collect": {"launches": collect["launches_collect"],
                                             "control_steps": collect["control_steps"]},
-                  **go1.pop("paths"), **small["rollout"].pop("paths")},
+                  **go1.pop("paths"), **small["rollout"].pop("paths"),
+                  **humanoid.pop("paths")},
+        **humanoid,
         "collect_control_step_ms": collect["collect_control_step_ms"],
         "go1": go1,
         **small["rollout"],

@@ -1,6 +1,9 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the constant
+vectors that steps and replans read on the device."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -20,3 +23,11 @@ def resolve_device(device) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype, device) -> torch.Tensor:
+    """A constant vector on the device, made once per (values, dtype,
+    device): copied from the host at every call, it would make the host
+    wait for the device at every step or replan."""
+    return torch.as_tensor(values, dtype=dtype, device=device)

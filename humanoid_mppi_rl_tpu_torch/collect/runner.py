@@ -1,16 +1,22 @@
 """Receding-horizon episode loop, humanoid and Go1 data collection
 (collect/runner.py counterpart).
 
-- `EpisodeRunner.run()` (any task of envs/tasks, the cartpole and hopper
-  ones included; the default row is [qpos; qvel]): plan with the CUDA
-  rollout kernel (solver/kernel_mppi), step the coupled plant
-  (envs/tasks.load_plant), log, check goal and fall. Rows, actions, times and goal/fall flags stay on the
+- `EpisodeRunner.run()` (any task of envs/tasks; the default row is
+  [qpos; qvel]): plan, step the coupled plant (envs/tasks.load_plant), log,
+  check goal and fall. The planner is the CUDA rollout kernel
+  (solver/kernel_mppi, use_kernel=True) or, as in the JAX package by
+  default, `make_mppi` over the array engine's penalty tier batched over K
+  (use_kernel=False). Rows, actions, times and goal/fall flags stay on the
   device and cross to the host once per chunk.
 - `collect_humanoid()`: the reference's src/Humanoid_datacollection_v2.jl:
   randomized pose and goal, goal-gated saving, 57-column states with the
   foot heights, episodes sharded across processes.
 - `collect_humanoid_jl()`: the reference's src/Humanoid_datacollection.jl:
   the stand start, an advancing goal, 55-column [qpos; qvel] rows.
+- `collect_humanoid_v2py()`: the reference's
+  src/Humanoid_datacollection_v2.py: the FD-velocity cost on a GaitFDState
+  carried through plant and rollouts, two replans a control step, the goal
+  advance, 56-column rows (qpos, then its FD velocity).
 - `collect_quadruped()`: the reference's src/quadruped_datacollection.py:
   the Go1 goal ladder, fall abort, per-run save dirs of 37-column
   [qpos; qvel] rows, only reached goals kept.
@@ -21,8 +27,8 @@ on the state after it; a chunk always runs `chunk` steps, logs the rows up
 to and including the first terminating step, and leaves the plant (final
 qpos, sim time) at the chunk's end.
 
-The batched array planner (use_kernel=False, planner_solver) is ROADMAP
-A3; until it exists those options raise.
+Planning on the coupled tier (planner_solver="coupled", a batched Newton
+over K) is ROADMAP A3; until it exists that option raises.
 """
 
 from __future__ import annotations
@@ -36,10 +42,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..costs.humanoid import advance_goal_v2py
 from ..envs.tasks import load_plant, load_task
-from ..physics.state import PhysicsState
 from ..solver.kernel_mppi import make_kernel_mppi
-from ..solver.mppi import MPPIState
+from ..solver.mppi import MPPIState, make_mppi
 from ..utils.metrics import JSONLWriter
 from .logging import TrajectoryLogger
 
@@ -59,7 +65,8 @@ class EpisodeResult:
 
 class EpisodeRunner:
     """One task, cost and MPPI configuration, reusable across episodes: the
-    kernel planner and the coupled plant on `device` in `dtype`."""
+    planner (the rollout kernel, or make_mppi over the penalty engine) and
+    the coupled plant on `device` in `dtype`."""
 
     def __init__(self, task_name: str, seed: int = 0,
                  cost_kwargs_override: Optional[dict] = None,
@@ -67,16 +74,18 @@ class EpisodeRunner:
                  use_kernel: bool = False,
                  planner_solver: Optional[str] = None,
                  device="cuda", dtype=torch.float32):
-        if not use_kernel:
-            raise NotImplementedError(
-                "use_kernel=False plans on the batched array engine, which is not "
-                "ported yet (ROADMAP A3): pass use_kernel=True")
+        """`planner_solver="coupled"` (rollouts on the coupled tier, JAX's
+        array-engine option) is not ported: it raises."""
         if planner_solver not in (None, "penalty"):
+            if use_kernel:
+                raise ValueError("the kernel planner implements the penalty tier only; "
+                                 "coupled planning is the array engine's")
             raise NotImplementedError(
-                f'planner_solver="{planner_solver}" plans on the batched array engine, '
+                f'planner_solver="{planner_solver}" plans on a batched coupled engine, '
                 "which is not ported yet (ROADMAP A3)")
         self.device, self.dtype = resolve_device(device), dtype
-        spec, model, cfg, init_state = load_task(task_name, device=self.device, dtype=dtype)
+        spec, model, dynamics, running, terminal, init_state, cfg = load_task(
+            task_name, device=self.device, dtype=dtype)
         kw = dict(spec.cost_kwargs)
         if cost_kwargs_override:
             kw.update(cost_kwargs_override)
@@ -85,25 +94,38 @@ class EpisodeRunner:
         self.spec, self.model, self.cfg = spec, model, cfg
         self.init_state = init_state
         self.seed = seed
+        self.use_kernel = use_kernel
         # environment plant: the coupled tier with body-body contacts; the
-        # planner's rollouts keep the penalty tier of the rollout kernel
+        # planner's rollouts keep the penalty tier
         self.plant_model, self.plant_dyn = load_plant(task_name, init_state, self.device, dtype)
-        self.plan = make_kernel_mppi(model, spec.cost_factory, cfg, cost_kwargs=kw,
-                                     device=self.device)
+        if use_kernel:
+            self.plan = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, cost_kwargs=kw,
+                                         device=self.device)
+        else:
+            if cost_kwargs_override:
+                running, terminal = spec.cost_factory(model, **kw)
+            self.plan = make_mppi(dynamics, running, cfg, terminal_fn=terminal)
 
     def fresh_controller(self, seed: Optional[int] = None) -> MPPIState:
         return MPPIState.seeded(self.seed if seed is None else seed, self.cfg.T,
                                 self.model.nu, device=self.device, dtype=self.dtype)
 
-    def control_step(self, ms: MPPIState, plant: PhysicsState, params, noise=None):
-        """Plan, then step the plant: (action, ms', plant', diag)."""
-        action, ms, diag = self.plan(ms, plant, params=params, noise=noise)
+    def control_step(self, ms: MPPIState, plant, params, noise=None):
+        """Plan, then step the plant: (action, ms', plant', diag). `noise`
+        (T, nu, K) replaces the planner's draw (the array planner reads it
+        as (K, T, nu)); `params` are the kernel cost's runtime parameters
+        (the array costs take theirs at construction)."""
+        if self.use_kernel:
+            action, ms, diag = self.plan(ms, plant, params=params, noise=noise)
+        else:
+            action, ms, diag = self.plan(ms, plant,
+                                         None if noise is None else noise.permute(2, 0, 1))
         return action, ms, self.plant_dyn(plant, action, 0), diag
 
     def run(
         self,
         max_steps: int = 1000,
-        init_state: Optional[PhysicsState] = None,
+        init_state=None,
         seed: Optional[int] = None,
         state_row_fn: Optional[Callable] = None,
         goal_fn: Optional[Callable] = None,
@@ -266,14 +288,16 @@ def collect_humanoid(
     dtype=torch.float32,
 ):
     """Goal-gated humanoid episode collection. Episode i runs on shard
-    i % num_shards. The goal is a runtime kernel parameter (params[0:3],
-    `param_target=True`), so one runner serves every episode. `retries`
+    i % num_shards. On the kernel planner the goal is a runtime parameter
+    (params[0:3], `param_target=True`), so one runner serves every episode;
+    the array planner (use_kernel=False) bakes it into each episode's cost
+    (the goal check reads params either way). `retries`
     re-runs an episode that missed its goal with a reseeded noise stream.
     Only successful episodes are saved (reference :268-275). `chunk` is
     EpisodeRunner.run's (the JAX function always runs chunks of 50)."""
     results = []
     runner = EpisodeRunner(task_name, use_kernel=use_kernel,
-                           cost_kwargs_override={"param_target": True},
+                           cost_kwargs_override={"param_target": True} if use_kernel else None,
                            mppi_override=mppi_override, device=device, dtype=dtype)
     model = runner.model
     state_row = _humanoid_state_row(model.body_id("foot_left"), model.body_id("foot_right"))
@@ -285,6 +309,10 @@ def collect_humanoid(
             continue
         rng = np.random.default_rng(seed + ep * 7919)
         goal = random_humanoid_goal(rng)
+        if not use_kernel:
+            # the array cost bakes the goal in: a planner per episode
+            runner = EpisodeRunner(task_name, cost_kwargs_override={"target": tuple(goal)},
+                                   mppi_override=mppi_override, device=device, dtype=dtype)
         qpos, qvel = randomize_humanoid_pose(model, rng)
         init = engine.forward(as_t(qpos), as_t(qvel))
         steps_executed = attempts = 0
@@ -348,8 +376,9 @@ def collect_humanoid_jl(
     the goal at (1, 0)). The goal is a runtime kernel parameter
     (`param_target=True`). Logs 55-column [qpos; qvel] rows and saves every
     episode into out_dir/<timestamp>_<ep>/{states,actions,times}.csv.
-    Returns [(episode, steps)]. use_kernel=False (the goal fixed at
-    (1, 0, 1.28) on the array engine) waits for ROADMAP A3."""
+    Returns [(episode, steps)]. use_kernel=False plans on the array engine
+    with the goal of the cost fixed at (1, 0, 1.28): the advance then moves
+    only the logged params (the JAX package's documented deviation)."""
     from datetime import datetime
 
     results = []
@@ -364,6 +393,64 @@ def collect_humanoid_jl(
         res = runner.run(max_steps=max_steps, seed=seed + ep,
                          params=np.array([1.0, 0.0, 1.28, 0.0]), params_update_fn=advance,
                          metrics_path=metrics_path, chunk=chunk)
+        if save:
+            ts = datetime.now().strftime("%Y-%m-%d_%H%M%S") + f"_{ep:03d}"
+            res.logger.save_run_dir(os.path.join(out_dir, ts))
+        results.append((ep, res.steps))
+    return results
+
+
+def _v2py_state_row(inv_dt: float):
+    def state_row(st):
+        # 56-column layout: [qpos; (qpos - prev_qpos) / dt], the FD velocity
+        # estimate of qpos (nq-sized, not qvel) that the reference logs
+        # (src/Humanoid_datacollection_v2.py:68-83); the first row has
+        # prev == qpos, so zeros, as the reference's None guard gives
+        return torch.cat([st.phys.qpos, (st.phys.qpos - st.prev_qpos) * inv_dt])
+    return state_row
+
+
+def _v2py_plant_update(plant, params):
+    return advance_goal_v2py(plant)
+
+
+def collect_humanoid_v2py(
+    n_episodes: int = 1,
+    out_dir: str = "data",
+    seed: int = 0,
+    max_steps: int = 2000,
+    save: bool = True,
+    shard_index: int = 0,
+    num_shards: int = 1,
+    mppi_override: Optional[dict] = None,
+    chunk: int = 50,
+    device="cuda",
+    dtype=torch.float32,
+    noise_fn: Optional[Callable] = None,
+):
+    """Reference src/Humanoid_datacollection_v2.py collection: the
+    FD-velocity cost on the array planner (the task has no kernel cost),
+    the hysteresis gait phase threaded through the control steps, TWO
+    replans per executed action, the goal advance (+ (2, 0, 0) within 0.15
+    m of the full 3D goal), 56-column rows saved unconditionally into
+    out_dir/<timestamp>_<ep>/{states,actions,times}.csv. Returns
+    [(episode, steps)].
+
+    As in the JAX package: one row per control step (the reference logs
+    three per plant step, duplicating timestamps), and `max_steps` steps
+    (the reference runs until its viewer closes). `chunk` and `noise_fn`
+    are EpisodeRunner.run's (noise injection needs replans_per_step=1)."""
+    from datetime import datetime
+
+    results = []
+    runner = EpisodeRunner("humanoid_collect_v2py", mppi_override=mppi_override,
+                           device=device, dtype=dtype)
+    state_row = _v2py_state_row(1.0 / runner.model.timestep)
+    for ep in range(n_episodes):
+        if ep % num_shards != shard_index:
+            continue
+        res = runner.run(max_steps=max_steps, seed=seed + ep, state_row_fn=state_row,
+                         plant_update_fn=_v2py_plant_update, chunk=chunk, noise_fn=noise_fn)
         if save:
             ts = datetime.now().strftime("%Y-%m-%d_%H%M%S") + f"_{ep:03d}"
             res.logger.save_run_dir(os.path.join(out_dir, ts))
@@ -416,10 +503,12 @@ def collect_quadruped(
     missed goal is retried `retries` times with a reseeded noise stream
     (seed + i + attempt * 65537), and only reached goals are saved, each in
     <out_base>/run_<i>/{states,actions,times}.csv. Run i goes to shard
-    i % num_shards. The goal rides in the runtime cost params (slots 0-1,
-    `param_goal=True`), so one runner serves every run; `gait_params`
-    (kernel_costs.quadruped's slots 4..12, e.g. costs.quadruped.GAIT_TUNED)
-    adds the gait deltas (`param_gait=True`). `chunk` and `noise_fn` are
+    i % num_shards. On the kernel planner the goal rides in the runtime
+    cost params (slots 0-1, `param_goal=True`), so one runner serves every
+    run, and `gait_params` (kernel_costs.quadruped's slots 4..12, e.g.
+    costs.quadruped.GAIT_TUNED) adds the gait deltas (`param_gait=True`);
+    the array planner (use_kernel=False) bakes the goal into each run's
+    cost and has no gait deltas. `chunk` and `noise_fn` are
     EpisodeRunner.run's. Returns one dict per run: goal, steps_saved,
     steps_executed (every logged step of every attempt), attempts and the
     outcome ("goal", "fell", "stalled" or "cap")."""
@@ -432,9 +521,13 @@ def collect_quadruped(
         if i % num_shards != shard_index:
             continue
         goal_xy = (i + 2.0, 0.0) if goal_for_run is None else goal_for_run(i)
-        if runner is None:
+        if not use_kernel:
+            # the array cost bakes the goal in: a planner per run
+            runner = EpisodeRunner("go1_collect", cost_kwargs_override={"goal_xy": goal_xy},
+                                   mppi_override=mppi_override, device=device, dtype=dtype)
+        elif runner is None:
             runner = EpisodeRunner("go1_collect", cost_kwargs_override=kw,
-                                   use_kernel=use_kernel, mppi_override=mppi_override,
+                                   use_kernel=True, mppi_override=mppi_override,
                                    device=device, dtype=dtype)
         params = np.asarray(goal_xy, np.float32)
         if gait_params is not None:

@@ -2,10 +2,10 @@
 counterpart). Each factory returns (running(ctx, t) -> (K,),
 terminal(ctx) -> (K,)) over StepContext views, with ctrl read from ctx.
 
-Ported: `humanoid` (the humanoid tasks), `quadruped` and `quadruped_jl`
-(the Go1 tasks), `cartpole` and `hopper`; the CUDA kernel carries the same
-formulas as device functions (csrc/rollout_body.cuh). The other costs of
-the JAX registry (humanoid_v1, humanoid_hard, arm5) are ROADMAP B1.
+Ported: `humanoid`, `humanoid_v1` and `humanoid_hard` (the humanoid
+tasks), `quadruped` and `quadruped_jl` (the Go1 tasks), `cartpole` and
+`hopper`; the CUDA kernel carries the same formulas as device functions
+(csrc/rollout_body.cuh). The JAX registry's `arm5` is ROADMAP B1.
 """
 
 from __future__ import annotations
@@ -164,6 +164,114 @@ def humanoid(model: PhysicsModel, target=(2.0, 0.0, 1.28), target_vel=(0.3, 0.0)
     return running, terminal
 
 
+def humanoid_v1(model: PhysicsModel, target=(2.0, 0.0), target_vel=0.5,
+                step_period: int = 100, horizon: int = 0):
+    """Time-phased-gait cost (reference src/Humanoid_mppi.jl:31-121; the
+    array oracle is costs/humanoid.make_costs_v1): a square-wave gait clock
+    alternates the swing side every `step_period` rollout steps. `horizon`
+    is injected by build_rollout_kernel, so that the terminal's gait clock
+    reads t = T as the array solver's does."""
+    id_foot_l = model.body_id("foot_left")
+    id_foot_r = model.body_id("foot_right")
+    tx, ty = [float(v) for v in target]
+
+    def running(ctx: StepContext, t):
+        q, v, u = ctx.qpos, ctx.qvel, ctx.ctrl
+        roll, pitch, yaw = _rpy((q[3], q[4], q[5], q[6]))
+        cost = 5.0 * (roll * roll + pitch * pitch) + 0.1 * yaw * yaw
+        dx, dy = q[0] - tx, q[1] - ty
+        cost = cost + 10.0 * torch.sqrt(dx * dx + dy * dy + 1e-12)
+        cost = cost + 5.0 * torch.abs(1.28 - q[2])
+        cost = cost + 1.0 * torch.abs(v[0] - target_vel)
+
+        left = float((int(t) // step_period) % 2 == 0)
+        fl, fr = ctx.xpos[id_foot_l], ctx.xpos[id_foot_r]
+        swing_z = left * fl[2] + (1.0 - left) * fr[2]
+        stance_z = left * fr[2] + (1.0 - left) * fl[2]
+        clearance = swing_z - stance_z
+        cost = cost + torch.where(clearance < 0.05, 5.0 * (0.05 - clearance) ** 2, 0.0)
+        cost = cost + 0.01 * _sumsq(u)
+        return cost
+
+    def terminal(ctx: StepContext):
+        # the array oracle's terminal_fn(final_state, T) at zero control: the
+        # gait clock reads the horizon
+        saved = ctx.ctrl
+        ctx.ctrl = [torch.zeros_like(ctx.qpos[0])] * model.nu
+        c = 10.0 * running(ctx, horizon)
+        ctx.ctrl = saved
+        return c
+
+    return running, terminal
+
+
+def humanoid_hard(model: PhysicsModel, target=(2.0, 0.0, 1.28), target_vel=(0.3, 0.0)):
+    """Hard-penalty gait cost (reference src/Humanoid_datacollection.py:57-186;
+    array oracle costs/humanoid.make_costs_hard_penalty), with the
+    reference's [sic] LINEAR height term and its [0.15, 0.21] lateral
+    dead-zone bands."""
+    id_shin_l = model.body_id("shin_left")
+    id_shin_r = model.body_id("shin_right")
+    id_foot_l = model.body_id("foot_left")
+    id_foot_r = model.body_id("foot_right")
+    tx, ty, tz = [float(v) for v in target]
+    tvx, tvy = [float(v) for v in target_vel]
+
+    def _run(ctx: StepContext, u):
+        q, v = ctx.qpos, ctx.qvel
+        roll, pitch, yaw = _rpy((q[3], q[4], q[5], q[6]))
+        cost = 5.0 * (roll * roll + pitch * pitch) + 0.075 * yaw * yaw
+        dx, dy = q[0] - tx, q[1] - ty
+        cost = cost + 12.5 * torch.sqrt(dx * dx + dy * dy + 1e-12)
+        cost = cost + 5.0 * (tz - q[2])          # [sic] linear, not abs
+        vx, vy = v[0] - tvx, v[1] - tvy
+        cost = cost + 1.0 * torch.sqrt(vx * vx + vy * vy + 1e-12)
+
+        vxl = ctx.body_com_linvel(model, id_shin_l)[0]
+        vxr = ctx.body_com_linvel(model, id_shin_r)[0]
+        left = (vxl > vxr).to(q[0].dtype)
+
+        def sel(a, b):
+            return left * a + (1.0 - left) * b
+
+        foot_tx = q[0] + 0.5
+        fl, fr = ctx.xpos[id_foot_l], ctx.xpos[id_foot_r]
+        sl, sr = ctx.xpos[id_shin_l], ctx.xpos[id_shin_r]
+        swing_x = sel(fl[0], fr[0])
+        swing_z = sel(fl[2], fr[2])
+        stance_z = sel(fr[2], fl[2])
+        cost = cost + 8.0 * torch.abs(swing_x - foot_tx)
+
+        vfl = ctx.body_com_linvel(model, id_foot_l)[0]
+        vfr = ctx.body_com_linvel(model, id_foot_r)[0]
+        cost = cost - 1000.0 * sel(vfl, vfr)
+
+        knee_x = sel(sl[0], sr[0])
+        cost = cost + 3.0 * (knee_x - foot_tx) ** 2
+
+        swing_knee_z = sel(sl[2], sr[2])
+        cost = cost + torch.where(swing_z >= swing_knee_z - 0.3,
+                                  10000.0 * (swing_z - swing_knee_z) ** 2, 0.0)
+        clearance = swing_z - stance_z
+        cost = cost + torch.where(clearance < 0.005, 100.0 * clearance ** 2, 0.0)
+
+        leg_cl = torch.abs(fl[1] - fr[1])
+        cost = cost + torch.where((leg_cl <= 0.15) | (leg_cl >= 0.21), 100.0 * leg_cl ** 2, 0.0)
+        knee_cl = torch.abs(sl[1] - sr[1])
+        cost = cost + torch.where((knee_cl <= 0.15) | (knee_cl >= 0.21),
+                                  100.0 * knee_cl ** 2, 0.0)
+        cost = cost + 0.01 * _sumsq(u)
+        return cost
+
+    def running(ctx: StepContext, t):
+        return _run(ctx, ctx.ctrl)
+
+    def terminal(ctx: StepContext):
+        return 10.0 * _run(ctx, [torch.zeros_like(ctx.qpos[0])] * model.nu)
+
+    return running, terminal
+
+
 def _fmod(x: torch.Tensor, m: float):
     """x % m with the sign of m (jnp.remainder: fmod, then + m where the
     signs differ), exact where x >= 0."""
@@ -306,6 +414,8 @@ KERNEL_COSTS = {
     "cartpole": cartpole,
     "hopper": hopper,
     "humanoid": humanoid,
+    "humanoid_hard": humanoid_hard,
+    "humanoid_v1": humanoid_v1,
     "quadruped": quadruped,
     "quadruped_jl": quadruped_jl,
 }

@@ -13,9 +13,10 @@ fallback from one to the other.
 The kernel is table-driven: the model and the cost constants are packed
 once into a flat struct (`pack_tables`, mirrored field for field from
 rollout_body.cuh with ctypes) that the kernel loops over. It carries the
-costs of `KERNEL_COSTS` (humanoid, quadruped, quadruped_jl, cartpole,
-hopper) by a cost id and each cost's constants; a model or cost it cannot
-carry raises NotImplementedError naming its ROADMAP item (B1).
+costs of `KERNEL_COSTS` (humanoid, humanoid_v1, humanoid_hard, quadruped,
+quadruped_jl, cartpole, hopper) by a cost id and each cost's constants; a
+model or cost it cannot carry raises NotImplementedError naming its
+ROADMAP item (B1).
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ _COST_W = ("tx", "ty", "tz", "tvx", "tvy", "w_orient", "w_goal_xy", "w_height",
 _COST_PARAM_TARGET, _COST_PARAM_GAIT = 1, 2
 # hmr::COST_* ids of the costs the kernel carries
 _COST_ID = {kernel_costs.humanoid: 0, kernel_costs.quadruped: 1, kernel_costs.quadruped_jl: 2,
-            kernel_costs.cartpole: 3, kernel_costs.hopper: 4}
+            kernel_costs.cartpole: 3, kernel_costs.hopper: 4, kernel_costs.humanoid_v1: 5,
+            kernel_costs.humanoid_hard: 6}
 # the hopper cost's constants, in hmr::HopW order
 _HOPPER_W = ("target_vel_x", "target_height", "w_pitch", "w_pitch_rate")
 _PAIR_SPHERE, _PAIR_CAPSULE, _PAIR_CYLINDER, _PAIR_BOX = 0, 1, 2, 3
@@ -227,27 +229,38 @@ def _cost_constants(cost_factory: Callable, model: PhysicsModel, kw: dict):
     a.apply_defaults()
     c = a.arguments
     bodies, vals = [0] * 4, []
+    flags = 0
+    if cost_factory in (kernel_costs.humanoid, kernel_costs.humanoid_v1,
+                        kernel_costs.humanoid_hard):
+        bodies = [model.body_id(n) for n in
+                  ("shin_left", "shin_right", "foot_left", "foot_right")]
     if cost_factory is kernel_costs.humanoid:
         flags = (_COST_PARAM_TARGET * bool(c["param_target"])
                  | _COST_PARAM_GAIT * bool(c["param_gait"]))
-        bodies = [model.body_id(n) for n in
-                  ("shin_left", "shin_right", "foot_left", "foot_right")]
         w = dict(zip(("tx", "ty", "tz"), [float(v) for v in c["target"]]))
         w.update(zip(("tvx", "tvy"), [float(v) for v in c["target_vel"]]))
         w.update({k: float(c[k]) for k in _COST_W if k.startswith("w_")})
         vals = [w[k] for k in _COST_W]
+    elif cost_factory is kernel_costs.humanoid_hard:
+        vals = [float(v) for v in c["target"]] + [float(v) for v in c["target_vel"]]
+    elif cost_factory is kernel_costs.humanoid_v1:
+        if int(c["step_period"]) < 1:
+            raise ValueError(f"step_period {c['step_period']} < 1")
+        vals = [float(v) for v in c["target"]] + [float(c["target_vel"]),
+                                                  float(int(c["step_period"])),
+                                                  float(int(c["horizon"]))]
     elif cost_factory is kernel_costs.hopper:
         flags = _COST_PARAM_GAIT * bool(c["param_gait"])
         vals = [float(c[k]) for k in _HOPPER_W]
     elif cost_factory is kernel_costs.cartpole:
-        flags = 0
+        pass
     elif cost_factory is kernel_costs.quadruped:
         flags = (_COST_PARAM_TARGET * bool(c["param_goal"])
                  | _COST_PARAM_GAIT * bool(c["param_gait"]))
         home = np.asarray(dict(model.keyframes)["home"])[7:19]
         vals = [float(v) for v in c["goal_xy"]] + [float(x) for x in home]
     else:
-        flags, vals = 0, [float(c["target_vel_x"])]
+        vals = [float(c["target_vel_x"])]
     return _COST_ID[cost_factory], flags, bodies, vals + [0.0] * (NCOSTW - len(vals))
 
 

@@ -16,10 +16,17 @@ aref = -b vn + d(r) k pen, with b = 2/(dmax tau), k = d(r)/(dmax^2 tau^2
 zeta^2), (tau, zeta) the pair's solref and d(r) the solimp impedance of the
 penetration; physics/newton.py builds its rows from these.
 
+`contact_terms` is the planner ("penalty") tier's decoupled per-row law,
+fn = max(d(r) m_eff (d(r) k pen - b vn), 0) capped at the restitution
+cap, with the implicit damping matrix G = J^T C J; the plane rows take a
+leading K batch for it (the self rows stay one-sample).
+
 Mesh contacts are refused (ROADMAP A8).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,6 +47,9 @@ RESTITUTION_VCAP_ENV = 2.0
 
 # rows kept of the self-contact candidates, ranked by penetration
 SELF_TOPK = 8
+
+# tangential velocity regularisation (m/s) of the penalty tier's Coulomb slope
+_VT_EPS = 5e-3
 
 # plane-row kinds, and the (cos, sin) of an exact cylinder's three rim
 # points per cap (the downhill extreme and two at +-120 deg)
@@ -137,6 +147,7 @@ def _self_pair_static(model: PhysicsModel):
         solref=np.stack([p.solref for p in prs]), solimp=np.stack([p.solimp for p in prs]),
         capcap=iscap1 & iscap2, margin=np.array([p.margin for p in prs]),
         condim=np.array([p.condim for p in prs], dtype=np.int64),
+        meff=np.array([p.m_eff for p in prs]),
         friction5=np.stack([_friction5(p) for p in prs]))
 
 
@@ -213,6 +224,7 @@ class ContactTables:
             self.plane = dict(mu=t(self.mu_plane_static), k_base=t(kb), b_ref=t(br),
                               invw=t([p.invw0 for p in pairs]),
                               fri5=t(np.stack([_friction5(p) for p in pairs])))
+            self.plane_meff = t([p.m_eff for p in pairs])
             self.row_margin = t([p.margin for p in pairs])
             self.plane_imp = Impedance([p.solimp for p in pairs], device, dtype)
         else:
@@ -227,7 +239,7 @@ class ContactTables:
             kb, br = solref_kb(st["solref"], st["solimp"])
             self.s = {k: t(st[k]) for k in ("pos1", "quat1", "pos2", "quat2", "h1", "h2",
                                               "r1", "r2", "margin", "mu", "invw",
-                                              "friction5")}
+                                              "friction5", "meff")}
             self.s.update(b1=ix(st["b1"]), b2=ix(st["b2"]), k_base=t(kb), b_ref=t(br),
                           rr=t(st["r1"] + st["r2"]),
                           capcap=torch.as_tensor(st["capcap"], device=device)[:, None])
@@ -246,70 +258,93 @@ def _make_frame_tangent(ct: ContactTables, n: torch.Tensor) -> torch.Tensor:
 
 
 def geom_world(ct: ContactTables, state):
-    """World position (G, 3) and rotation (G, 3, 3) of the tables' geoms."""
-    R_b = sp.quat_to_mat(state.xquat[ct.geom_body])
-    pos = state.xpos[ct.geom_body] + torch.einsum("gij,gj->gi", R_b, ct.geom_pos)
+    """World position (..., G, 3) and rotation (..., G, 3, 3) of the
+    tables' geoms, for a state with or without a leading K axis."""
+    R_b = sp.quat_to_mat(state.xquat[..., ct.geom_body, :])
+    pos = state.xpos[..., ct.geom_body, :] + torch.einsum("...gij,gj->...gi", R_b, ct.geom_pos)
     return pos, R_b @ ct.geom_rot
 
 
-def _jacobian_rows(ct, S, p, Arel, n, t1, t2, elliptic):
-    """Contact-frame rows of the relative point jacobian at points p."""
-    S_ang, S_lin = S[:, :3], S[:, 3:]
-    Jp = (S_lin[None] + sp.cross(S_ang[None, :, :], p[:, None, :])) * Arel[:, :, None]
-    out = dict(JpN=torch.sum(Jp * n[:, None, :], -1), Jt1=torch.sum(Jp * t1[:, None, :], -1),
-               Jt2=torch.sum(Jp * t2[:, None, :], -1))
+def _jacobian_rows(ct, S, p, Arel, n, t1, t2, elliptic, penalty=False):
+    """Contact-frame rows of the relative point jacobian at points p (the
+    point jacobian itself too for the penalty tier)."""
+    S_ang, S_lin = S[..., :3], S[..., 3:]
+    Jp = (S_lin[..., None, :, :] + sp.cross(S_ang[..., None, :, :], p[..., :, None, :])) \
+        * Arel[:, :, None]
+    out = dict(JpN=torch.sum(Jp * n[..., :, None, :], -1),
+               Jt1=torch.sum(Jp * t1[..., :, None, :], -1),
+               Jt2=torch.sum(Jp * t2[..., :, None, :], -1))
     if elliptic:
         # angular rows for condim >= 4 torsional/rolling friction
-        Jw = S_ang[None] * Arel[:, :, None]
-        out.update(JwN=torch.sum(Jw * n[:, None, :], -1), Jwt1=torch.sum(Jw * t1[:, None, :], -1),
-                   Jwt2=torch.sum(Jw * t2[:, None, :], -1))
+        Jw = S_ang[..., None, :, :] * Arel[:, :, None]
+        out.update(JwN=torch.sum(Jw * n[..., :, None, :], -1),
+                   Jwt1=torch.sum(Jw * t1[..., :, None, :], -1),
+                   Jwt2=torch.sum(Jw * t2[..., :, None, :], -1))
+    if penalty:
+        out["Jp"] = Jp
     return out
 
 
-def _plane_rows(ct: ContactTables, state, S):
+def _penalty_fields(rows, n, v_pt, meff):
+    """What the penalty law adds to a block of rows: the normal, the
+    tangential velocity and its regularised norm, m_eff and the normal
+    damping c_n = m_eff d(r) b."""
+    vt = v_pt - rows["vn"][..., None] * n
+    rows.update(n=n, vt=vt, vt_norm=torch.sqrt(torch.sum(vt * vt, -1) + _VT_EPS * _VT_EPS),
+                meff=meff, c_n=meff * rows["d_r"] * rows["b_ref"])
+
+
+def _plane_rows(ct: ContactTables, state, S, penalty=False):
     gpos, gR = geom_world(ct, state)
-    p_pos, n = gpos[ct.row_plane], gR[ct.row_plane][:, :, 2]
-    g_pos, gRr = gpos[ct.row_geom], gR[ct.row_geom]
-    axis = gRr[:, :, 2]
+    p_pos, n = gpos[..., ct.row_plane, :], gR[..., ct.row_plane, :, 2]
+    g_pos, gRr = gpos[..., ct.row_geom, :], gR[..., ct.row_geom, :, :]
+    axis = gRr[..., :, 2]
     r = ct.row_radius
     # the point's centre: a sphere's centre, a capsule's end, a box corner,
     # a cylinder's cap centre
-    c_end = g_pos + torch.einsum("pij,pj->pi", gRr, ct.row_off)
+    c_end = g_pos + torch.einsum("...pij,pj->...pi", gRr, ct.row_off)
     if ct.has_cylinder:
         # rim points: the cap's downhill direction d = -(n - (a.n) a), or the
         # cylinder's x-axis where |d| <= 1e-6 (standing), and its normal
         d = -(n - torch.sum(axis * n, -1, keepdim=True) * axis)
         dn = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-        dhat = torch.where(dn > 1e-6, d / torch.clamp(dn, min=1e-30), gRr[:, :, 0])
+        dhat = torch.where(dn > 1e-6, d / torch.clamp(dn, min=1e-30), gRr[..., :, 0])
         dhat = dhat / torch.linalg.vector_norm(dhat, dim=-1, keepdim=True)
         perp = sp.cross(axis, dhat)
         c_end = c_end + (ct.row_rim[:, 0:1] * dhat + ct.row_rim[:, 1:2] * perp)
     phi = torch.sum(n * (c_end - p_pos), -1) - r
     # contact position midway between the surfaces (MuJoCo contact.pos)
-    p = c_end - n * (r + 0.5 * phi)[:, None]
+    p = c_end - n * (r + 0.5 * phi)[..., None]
     # capsule frame: t1 = the axis projected onto the plane (makeFrame when
     # the capsule stands perpendicular); the other kinds: makeFrame
     mft = _make_frame_tangent(ct, n)
     proj = axis - torch.sum(axis * n, -1, keepdim=True) * n
     pn = torch.linalg.vector_norm(proj, dim=-1)
-    t_cap = torch.where((pn > 1e-8)[:, None], proj / torch.clamp(pn, min=1e-30)[:, None], mft)
+    t_cap = torch.where((pn > 1e-8)[..., None], proj / torch.clamp(pn, min=1e-30)[..., None],
+                        mft)
     t1 = torch.where(ct.row_capsule[:, None], t_cap, mft)
     t2 = sp.cross(n, t1)
-    V, Vo = state.body_vel[ct.row_body], state.body_vel[ct.row_other]
-    v_pt = V[:, 3:] + sp.cross(V[:, :3], p) - Vo[:, 3:] - sp.cross(Vo[:, :3], p)
+    V, Vo = state.body_vel[..., ct.row_body, :], state.body_vel[..., ct.row_other, :]
+    v_pt = V[..., 3:] + sp.cross(V[..., :3], p) - Vo[..., 3:] - sp.cross(Vo[..., :3], p)
     pen = torch.clamp(ct.row_margin - phi, min=0.0)
     rows = dict(pen=pen, active=(phi < ct.row_margin).to(phi.dtype),
                 vn=torch.sum(n * v_pt, -1), vt1=torch.sum(t1 * v_pt, -1),
                 vt2=torch.sum(t2 * v_pt, -1), d_r=ct.plane_imp(pen), **ct.plane)
-    rows.update(_jacobian_rows(ct, S, p, ct.row_arel, n, t1, t2, ct.elliptic))
+    rows.update(_jacobian_rows(ct, S, p, ct.row_arel, n, t1, t2, ct.elliptic, penalty))
+    if penalty:
+        _penalty_fields(rows, n, v_pt, ct.plane_meff)
     return rows
 
 
-def _self_rows(ct: ContactTables, state, S):
+def _self_rows(ct: ContactTables, state, S, penalty=False):
     """The SELF_TOPK deepest self-contact rows: clamped segment-segment
     closest points (two refinement passes), contact frame by the MuJoCo
     conventions (capsule-capsule t1 = normalize(n x axis2), otherwise
-    Gram-Schmidt of world z against n), relative point jacobians."""
+    Gram-Schmidt of world z against n), relative point jacobians. One
+    sample only: the planner models carry floor pairs alone."""
+    if state.qpos.dim() != 1:
+        raise NotImplementedError(
+            "body-body contact rows of a K batch (the planner models carry floor pairs only)")
     s = ct.s
 
     def world(bids, lpos, lquat):
@@ -362,23 +397,72 @@ def _self_rows(ct: ContactTables, state, S):
                 mu=s["mu"][sel], k_base=s["k_base"][sel], b_ref=s["b_ref"][sel],
                 invw=s["invw"][sel], fri5=s["friction5"][sel])
     Arel = ct.A[bid2] - ct.A[bid1]
-    rows.update(_jacobian_rows(ct, S, pos_k, Arel, n_k, t1_k, t2_k, ct.elliptic))
+    rows.update(_jacobian_rows(ct, S, pos_k, Arel, n_k, t1_k, t2_k, ct.elliptic, penalty))
+    if penalty:
+        _penalty_fields(rows, n_k, v_rel, s["meff"][sel])
     return rows
 
 
 ROW_FIELDS = ("pen", "active", "vn", "vt1", "vt2", "d_r", "mu", "k_base", "b_ref", "invw",
               "fri5", "JpN", "Jt1", "Jt2", "JwN", "Jwt1", "Jwt2")
+# the fields the penalty law reads besides
+PENALTY_FIELDS = ("n", "vt", "vt_norm", "Jp", "meff", "c_n")
 
 
-def collect_contact_rows(ct: ContactTables, state, S: torch.Tensor):
+def collect_contact_rows(ct: ContactTables, state, S: torch.Tensor, penalty: bool = False):
     """All contact rows of the state, plane rows first, then the SELF_TOPK
     self rows: a dict of (P, ...) tensors (the fields of ROW_FIELDS that the
-    model's cone needs), or None when the model has no contact pair."""
+    model's cone needs, and PENALTY_FIELDS when `penalty`), or None when
+    the model has no contact pair. A state with a leading K axis (floor
+    pairs only) gives (K, P, ...) rows; the static per-pair fields (mu,
+    k_base, b_ref, invw, fri5, meff) stay (P, ...)."""
     blocks = []
     if ct.n_plane:
-        blocks.append(_plane_rows(ct, state, S))
+        blocks.append(_plane_rows(ct, state, S, penalty))
     if ct.n_self:
-        blocks.append(_self_rows(ct, state, S))
+        blocks.append(_self_rows(ct, state, S, penalty))
     if not blocks:
         return None
-    return {k: torch.cat([b[k] for b in blocks], 0) for k in ROW_FIELDS if k in blocks[0]}
+    keys = [k for k in ROW_FIELDS + (PENALTY_FIELDS if penalty else ()) if k in blocks[0]]
+    if len(blocks) == 1:
+        return {k: blocks[0][k] for k in keys}
+    return {k: torch.cat([b[k] for b in blocks], 0) for k in keys}
+
+
+def contact_force_terms(rows, fn: torch.Tensor):
+    """Generalized contact force tau = sum_p J_p^T f_p (normal fn plus the
+    regularised Coulomb friction; J the relative point jacobian) and the
+    implicit damping matrix G = J^T C J, C = c_n n n^T + c_t (1 - n n^T),
+    for rows with or without a leading K axis (JAX contact_force_terms)."""
+    c_t = rows["mu"] * fn / rows["vt_norm"]              # Coulomb slope
+    ft = -c_t[..., None] * rows["vt"]
+    f = fn[..., None] * rows["n"] + ft                    # (..., P, 3) world force
+    tau = torch.einsum("...pni,...pi->...n", rows["Jp"], f)
+    cn_eff = rows["c_n"] * rows["active"]
+    ct_eff = c_t * rows["active"]
+    JpN, Jp = rows["JpN"], rows["Jp"]
+    # J^T C J = (c_n - c_t) (Jn)(Jn)^T + c_t J J^T
+    G = torch.einsum("...p,...pn,...pm->...nm", cn_eff - ct_eff, JpN, JpN)
+    G = G + torch.einsum("...p,...pni,...pmi->...nm", ct_eff, Jp, Jp)
+    return tau, G
+
+
+def contact_terms(ct: Optional[ContactTables], state, S: torch.Tensor, h: float):
+    """The penalty tier's decoupled per-row contact forces and implicit
+    damping (JAX contact_terms, the forward reading with a0 dropped):
+
+        fn = max(d(r) m_eff (d(r) k_base pen - b vn), 0) * active
+
+    capped so that the impulse fn h pushes a row out at most at
+    RESTITUTION_VCAP: fn <= m_eff max(VCAP - vn, 0) / h. Returns (tau
+    (..., nv), G (..., nv, nv)), zeros when the model has no pair."""
+    rows = None if ct is None else collect_contact_rows(ct, state, S, penalty=True)
+    if rows is None:
+        z = torch.zeros_like(state.qvel)
+        return z, torch.diag_embed(z)
+    d_r, meff = rows["d_r"], rows["meff"]
+    gain = meff * d_r
+    fn = torch.clamp(gain * (d_r * rows["k_base"] * rows["pen"] - rows["b_ref"] * rows["vn"]),
+                     min=0.0) * rows["active"]
+    fn = torch.minimum(fn, meff * torch.clamp(RESTITUTION_VCAP - rows["vn"], min=0.0) / h)
+    return contact_force_terms(rows, fn)

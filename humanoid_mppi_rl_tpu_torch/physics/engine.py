@@ -1,7 +1,9 @@
-"""Rigid-body dynamics for one sample (physics/engine.py counterpart): the
-environment plant that the collection loop steps. The kinematics (`fk`,
-`body_velocities`, `Engine.forward`) also take a leading K batch, for
-costs scored on K predicted states.
+"""Rigid-body dynamics (physics/engine.py counterpart): the environment
+plant that the collection loop steps (`step(solver="coupled")`, one
+sample), and the planner tier that the array planner rolls out
+(`step(solver="penalty")`, one sample or a leading K batch). The
+kinematics (`fk`, `body_velocities`, `Engine.forward`) and every piece of
+the penalty step take the leading K batch.
 
 Formulation as in the JAX engine: world-frame ("origin" Plucker) algebra.
 Forward kinematics walks the body tree one depth level at a time and gives
@@ -15,7 +17,10 @@ ancestor mask A (nbody, nv) everything downstream is dense tensor algebra:
 
 `step(solver="coupled")` resolves contacts, joint and tendon limits and dof
 friction jointly by the primal Newton solver of physics/newton.py, as the
-JAX environment tier does.
+JAX environment tier does. `step(solver="penalty")` is the decoupled
+per-row law that the rollout kernel implements (ops/scalar_physics): limit
+and contact forces with their implicit damping folded into the Euler
+matrix, no a0 compensation, no coupling between rows.
 
 An `Engine` holds every constant of one model on one device in one dtype,
 built once. A step copies nothing from the host and reads nothing back: the
@@ -69,8 +74,9 @@ def _full_f32():
 class Engine:
     """The engine's constants for `model` on `device` in `dtype`.
 
-    Kinematics (`forward`) needs only a planner snapshot; dynamics (`step`)
-    needs a plant snapshot (physics/model.py: `plant=True`)."""
+    Kinematics (`forward`) needs only the scalar step's fields; dynamics
+    (`step`) needs the engine's too (physics/model.py: `plant=True`, which
+    every committed snapshot carries)."""
 
     def __init__(self, model: PhysicsModel, device="cuda", dtype=torch.float32):
         _refuse(model)
@@ -175,12 +181,34 @@ class Engine:
         self.hs_springref = t([j.springref for j in hs])
         self.frictionloss = t(model.dof_frictionloss)
         self.free_adr = [(int(q), int(d)) for q, d in zip(model.free_qposadr, model.free_dofadr)]
-        has_limits = bool(any(j.limited for j in hs) or np.any(model.tendon_limited))
+        self.has_limits = bool(any(j.limited for j in hs) or np.any(model.tendon_limited))
         has_fl = bool(np.any(np.asarray(model.dof_frictionloss) > 0))
-        self.newton_mode = bool(model.contact_pairs) or has_limits or has_fl
+        self.newton_mode = bool(model.contact_pairs) or self.has_limits or has_fl
+        if self.has_limits:
+            self._build_limits(model, hs)
         self.contact = (contact.ContactTables(model, self.device, self.dtype)
                         if model.contact_pairs else None)
         self.rows = newton.RowTables(model, self.contact, self.device, self.dtype)
+
+    def _build_limits(self, model: PhysicsModel, hs) -> None:
+        """The penalty tier's joint- and fixed-tendon-limit constants
+        (JAX _limit_constraint_forces reads them from the model)."""
+        t = self.t
+        self.lim_hs = dict(lo=t([j.range[0] for j in hs]), hi=t([j.range[1] for j in hs]),
+                           lim=t([float(j.limited) for j in hs]),
+                           meff=t(model.hs_limit_meff),
+                           **_solref_tables([j.solref for j in hs], [j.solimp for j in hs],
+                                            self.device, self.dtype)) if hs else None
+        nt = model.tendon_coef.shape[0]
+        self.lim_ten = None
+        if nt:
+            self.lim_ten = dict(coef=t(model.tendon_coef), lo=t(model.tendon_range[:, 0]),
+                                hi=t(model.tendon_range[:, 1]),
+                                lim=t(np.asarray(model.tendon_limited, dtype=np.float64)),
+                                meff=t(model.tendon_limit_meff),
+                                **_solref_tables(model.tendon_limit_solref,
+                                                 model.tendon_limit_solimp,
+                                                 self.device, self.dtype))
 
     # ---- kinematics --------------------------------------------------------
 
@@ -205,16 +233,25 @@ class Engine:
         Euler. solver="coupled": the smooth acceleration qacc0 first, then
         the constraint rows resolved jointly by primal Newton
         (newton.newton_constraint_forces), then the damped system solved
-        again. `info`, when a dict, receives the Newton solve's iteration
-        count and row counts (device tensors)."""
-        if solver in ("penalty", "coupled_pgs"):
-            raise NotImplementedError(
-                f'solver="{solver}" is not ported yet (ROADMAP A3)')
-        if solver != "coupled":
+        again; one sample. solver="penalty": the decoupled per-row limit
+        and contact law (the rollout kernel's), one sample or a state whose
+        fields carry a leading K axis with ctrl (K, nu). `info`, when a
+        dict, receives the Newton solve's iteration count and row counts
+        (device tensors)."""
+        if solver == "coupled_pgs":
+            raise NotImplementedError(f'solver="{solver}" is not ported yet (ROADMAP A3)')
+        if solver not in ("coupled", "penalty"):
             raise ValueError(f"unknown solver {solver!r}")
         if not self.has_dynamics:
-            raise ValueError("step needs a plant snapshot (export_model_arrays(plant=True))")
+            raise ValueError("step needs a snapshot with the engine's fields "
+                             "(export_model_arrays(plant=True))")
+        if solver == "coupled" and state.qpos.dim() != 1:
+            raise NotImplementedError(
+                'solver="coupled" steps one sample; a K batch plans on solver="penalty" '
+                "(batched coupled planning is ROADMAP A3)")
         with _full_f32():
+            if solver == "penalty":
+                return self._step_penalty(state, ctrl)
             return self._step(state, ctrl, n_iter, info)
 
     def _step(self, state, ctrl, n_iter, info):
@@ -234,6 +271,33 @@ class Engine:
             qacc0 = cho_solve(M, f)
             f = f + newton.newton_constraint_forces(self, state, S, qacc0, M,
                                                     n_iter=n_iter, info=info)
+        qacc = cho_solve(Mh, f)
+        qvel_new = qvel + h * qacc
+        qpos_new = integrate_qpos(self, qpos, qvel_new, h)
+        return self.forward(qpos_new, qvel_new, state.time + h)
+
+    def _step_penalty(self, state, ctrl):
+        """JAX step(solver="penalty"): the smooth terms with the tanh
+        frictionloss, then the limit and contact forces, each with its
+        implicit damping h G added to the Euler matrix, one Cholesky."""
+        h = self.h
+        qpos, qvel, S = state.qpos, state.qvel, state.S
+        I, _ = spatial_inertias(self, state.xpos, state.xquat)
+        M = mass_matrix(self, S, I)
+        bias = bias_forces(self, S, I, state.body_vel, qvel)
+        tau = actuator_forces(self, qpos, qvel, ctrl)
+        tau_p, G_p = passive_forces(self, qpos, qvel, frictionloss=True)
+        tau = tau + tau_p
+        Mh = M + h * torch.diag(self.damping) + h * G_p
+        f = tau - bias
+        if self.has_limits:
+            tau_l, G_l = limit_constraint_forces(self, qpos, qvel)
+            f = f + tau_l
+            Mh = Mh + h * G_l
+        if self.contact is not None:
+            tau_ct, G_c = contact.contact_terms(self.contact, state, S, h)
+            f = f + tau_ct
+            Mh = Mh + h * G_c
         qacc = cho_solve(Mh, f)
         qvel_new = qvel + h * qacc
         qpos_new = integrate_qpos(self, qpos, qvel_new, h)
@@ -295,20 +359,20 @@ def fk(eng: Engine, qpos: torch.Tensor):
 
 
 def spatial_inertias(eng: Engine, xpos, xquat):
-    """Per-body spatial inertia about the world origin: (I (nbody,6,6),
-    xipos (nbody,3))."""
+    """Per-body spatial inertia about the world origin: (I (..., nbody,6,6),
+    xipos (..., nbody,3))."""
     R_b = sp.quat_to_mat(xquat)
-    xipos = xpos + torch.einsum("bij,bj->bi", R_b, eng.body_ipos)
+    xipos = xpos + torch.einsum("...bij,bj->...bi", R_b, eng.body_ipos)
     iR = sp.quat_to_mat(sp.quat_mul(xquat, eng.body_iquat))
     return sp.spatial_inertia_origin(eng.body_mass, eng.body_inertia, xipos, iR), xipos
 
 
 def mass_matrix(eng: Engine, S: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
-    """Joint-space mass matrix (nv, nv), through (nbody, nv, 6) masked body
-    jacobians J_b = diag(A_b) S."""
-    J = eng.A[:, :, None] * S[None, :, :]
-    JI = torch.einsum("bni,bij->bnj", J, I)
-    M = torch.einsum("bnj,bmj->nm", JI, J)
+    """Joint-space mass matrix (..., nv, nv), through (..., nbody, nv, 6)
+    masked body jacobians J_b = diag(A_b) S."""
+    J = eng.A[:, :, None] * S[..., None, :, :]
+    JI = torch.einsum("...bni,...bij->...bnj", J, I)
+    M = torch.einsum("...bnj,...bmj->...nm", JI, J)
     return M + torch.diag(eng.armature)
 
 
@@ -320,41 +384,42 @@ def body_velocities(eng: Engine, S: torch.Tensor, qvel: torch.Tensor) -> torch.T
 
 
 def bias_forces(eng: Engine, S, I, V, qvel) -> torch.Tensor:
-    """qfrc_bias (nv,): Coriolis/centrifugal + gravity (M qacc + bias = f).
-    Sdot_j qd_j = (V_pred(j) x S_j) qd_j, V_pred(j) the velocity of the frame
-    S_j is fixed in; free-translation dofs have world-fixed S."""
-    V_pred = torch.einsum("jd,d,di->ji", eng.P, qvel, S)
-    W = sp.motion_cross(V_pred, S) * (qvel * eng.live)[:, None]
-    a_bias = torch.einsum("bn,ni->bi", eng.A, W) + eng.a_g
-    IV = torch.einsum("bij,bj->bi", I, V)
-    F = torch.einsum("bij,bj->bi", I, a_bias) + sp.motion_cross_force(V, IV)
+    """qfrc_bias (..., nv): Coriolis/centrifugal + gravity (M qacc + bias =
+    f). Sdot_j qd_j = (V_pred(j) x S_j) qd_j, V_pred(j) the velocity of the
+    frame S_j is fixed in; free-translation dofs have world-fixed S."""
+    V_pred = torch.einsum("jd,...d,...di->...ji", eng.P, qvel, S)
+    W = sp.motion_cross(V_pred, S) * (qvel * eng.live)[..., :, None]
+    a_bias = torch.einsum("bn,...ni->...bi", eng.A, W) + eng.a_g
+    IV = torch.einsum("...bij,...bj->...bi", I, V)
+    F = torch.einsum("...bij,...bj->...bi", I, a_bias) + sp.motion_cross_force(V, IV)
     return project_forces(eng, S, F)
 
 
 def project_forces(eng: Engine, S: torch.Tensor, F_body: torch.Tensor) -> torch.Tensor:
     """Per-body origin-frame spatial forces into joint space:
     tau_n = S_n . sum_b A_bn F_b."""
-    return torch.einsum("bn,bi,ni->n", eng.A, F_body, S)
+    return torch.einsum("bn,...bi,...ni->...n", eng.A, F_body, S)
 
 
 def actuator_forces(eng: Engine, qpos, qvel, ctrl) -> torch.Tensor:
-    """qfrc_actuator of single-dof joint transmissions (mujoco gain/bias)."""
-    qfrc = torch.zeros(eng.model.nv, dtype=qpos.dtype, device=qpos.device)
+    """qfrc_actuator (..., nv) of single-dof joint transmissions (mujoco
+    gain/bias)."""
+    qfrc = torch.zeros(qpos.shape[:-1] + (eng.model.nv,), dtype=qpos.dtype, device=qpos.device)
     if eng.model.nu == 0:
         return qfrc
     gear = eng.act_gear
     u = torch.clamp(ctrl, eng.act_ctrl_lo, eng.act_ctrl_hi)
-    length = gear * qpos[eng.act_qposadr]
-    velocity = gear * qvel[eng.act_dofadr]
+    length = gear * qpos[..., eng.act_qposadr]
+    velocity = gear * qvel[..., eng.act_dofadr]
     bias = eng.act_bias
     force = (eng.act_gain * u + bias[:, 0] + bias[:, 1] * length + bias[:, 2] * velocity)
     force = torch.clamp(force, eng.act_force_lo, eng.act_force_hi)
-    return qfrc.index_add(0, eng.act_dofadr, gear * force)
+    return qfrc.index_add(-1, eng.act_dofadr, gear * force)
 
 
 def passive_forces(eng: Engine, qpos, qvel, frictionloss: bool = True):
     """Damping, smooth friction loss (frictionloss=True: the penalty tier's
-    tanh) and joint springs. Returns (tau, G) with G (nv, nv) the
+    tanh) and joint springs. Returns (tau, G) with G (..., nv, nv) the
     velocity-derivative of the friction term, for the implicit Euler matrix."""
     tau = -eng.damping * qvel
     g_diag = torch.zeros_like(qvel)
@@ -364,9 +429,66 @@ def passive_forces(eng: Engine, qpos, qvel, frictionloss: bool = True):
         sech2 = 1.0 - torch.tanh(qvel / w_fl) ** 2
         g_diag = g_diag + eng.frictionloss / w_fl * sech2
     if eng.hs_qposadr.shape[0]:
-        f = -eng.hs_stiffness * (qpos[eng.hs_qposadr] - eng.hs_springref)
-        tau = tau.index_add(0, eng.hs_dofadr, f)
-    return tau, torch.diag(g_diag)
+        f = -eng.hs_stiffness * (qpos[..., eng.hs_qposadr] - eng.hs_springref)
+        tau = tau.index_add(-1, eng.hs_dofadr, f)
+    return tau, torch.diag_embed(g_diag)
+
+
+def _solref_tables(solref, solimp, device, dtype) -> dict:
+    """(k_base, b_ref) and the impedance of rows with static solref/solimp."""
+    kb, br = contact.solref_kb(solref, solimp)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return dict(k_base=t(kb), b_ref=t(br), imp=contact.Impedance(solimp, device, dtype))
+
+
+def _limit_force(tab: dict, viol, pos_dot, h: float):
+    """The limit law of the penalty tier (JAX _limit_force, forward reading
+    with a0 dropped): f = max(m_eff d(r) (d(r) k_base viol - b pos_dot), 0)
+    on active rows, capped so that the row pushes out at most at
+    RESTITUTION_VCAP; and the implicit damping coefficient m_eff d(r) b.
+    pos_dot is the velocity in the push-back direction."""
+    active = (viol > 0).to(viol.dtype) * tab["lim"]
+    d_r = tab["imp"](viol)
+    me = tab["meff"]
+    f_c = torch.clamp(me * d_r * (d_r * tab["k_base"] * viol - tab["b_ref"] * pos_dot),
+                      min=0.0) * active
+    f_c = torch.minimum(f_c, me * torch.clamp(contact.RESTITUTION_VCAP - pos_dot, min=0.0) / h)
+    return f_c, me * d_r * tab["b_ref"] * active
+
+
+def limit_constraint_forces(eng: Engine, qpos, qvel):
+    """Joint-limit and fixed-tendon-limit forces of the penalty tier (JAX
+    _limit_constraint_forces with qacc0 = 0 and the restitution cap):
+    (tau (..., nv), G (..., nv, nv)) with G = diag(c) over the joints plus
+    sum_t c_t coef_t coef_t^T over the tendons."""
+    tau = torch.zeros_like(qvel)
+    g_diag = torch.zeros_like(qvel)
+    G_extra = None
+    if eng.lim_hs is not None:
+        tab = eng.lim_hs
+        q = qpos[..., eng.hs_qposadr]
+        v = qvel[..., eng.hs_dofadr]
+        below = torch.clamp(tab["lo"] - q, min=0.0)
+        above = torch.clamp(q - tab["hi"], min=0.0)
+        s = torch.sign(below - above)        # push-back direction in dof space
+        f_c, c_l = _limit_force(tab, below + above, s * v, eng.h)
+        tau = tau.index_add(-1, eng.hs_dofadr, s * f_c)
+        g_diag = g_diag.index_add(-1, eng.hs_dofadr, c_l)
+    if eng.lim_ten is not None:
+        tab = eng.lim_ten
+        coef = tab["coef"]
+        # fixed tendon length L = coef . (qpos gathered at the hinge/slide dofs)
+        qd = torch.zeros_like(qvel).index_copy(-1, eng.hs_dofadr, qpos[..., eng.hs_qposadr])
+        L = qd @ coef.T
+        Ldot = qvel @ coef.T
+        below = torch.clamp(tab["lo"] - L, min=0.0)
+        above = torch.clamp(L - tab["hi"], min=0.0)
+        s = torch.sign(below - above)
+        f_c, c_t = _limit_force(tab, below + above, s * Ldot, eng.h)
+        tau = tau + (s * f_c) @ coef
+        G_extra = torch.einsum("...t,tn,tm->...nm", c_t, coef, coef)
+    G = torch.diag_embed(g_diag)
+    return tau, G if G_extra is None else G + G_extra
 
 
 def integrate_qpos(eng: Engine, qpos, qvel, h: float) -> torch.Tensor:
@@ -374,8 +496,9 @@ def integrate_qpos(eng: Engine, qpos, qvel, h: float) -> torch.Tensor:
     linearly and quaternion by the local exponential map."""
     out = qpos.clone()
     if eng.hs_qposadr.shape[0]:
-        out[eng.hs_qposadr] = qpos[eng.hs_qposadr] + h * qvel[eng.hs_dofadr]
+        out[..., eng.hs_qposadr] = qpos[..., eng.hs_qposadr] + h * qvel[..., eng.hs_dofadr]
     for qa, da in eng.free_adr:
-        out[qa:qa + 3] = qpos[qa:qa + 3] + h * qvel[da:da + 3]
-        out[qa + 3:qa + 7] = sp.quat_integrate(qpos[qa + 3:qa + 7], qvel[da + 3:da + 6], h)
+        out[..., qa:qa + 3] = qpos[..., qa:qa + 3] + h * qvel[..., da:da + 3]
+        out[..., qa + 3:qa + 7] = sp.quat_integrate(qpos[..., qa + 3:qa + 7],
+                                                    qvel[..., da + 3:da + 6], h)
     return out

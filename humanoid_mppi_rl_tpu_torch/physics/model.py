@@ -6,14 +6,16 @@ by `export_model_arrays`, and committed as a snapshot (assets/*.json) that
 `load_model` reads. A test regenerates the snapshot from the MJCF so it
 cannot go stale.
 
-Two snapshots are kept per robot. assets/<robot>.json, the planner's model
-(humanoid, go1, cartpole, hopper), carries the fields that the scalar step
-(ops/scalar_physics) and the kernel costs read, keyframes included (go1
-starts from `home`). Joints are free, slide or hinge (Joint.jtype); the
-array engine derives its per-dof type masks (JAX dof_type_*) from them.
-assets/<robot>_plant.json, the environment plant (built with the body-body
-pairs, envs/tasks.load_plant), also carries what the array engine, its
-contacts and its Newton solver read (`export_model_arrays(m, plant=True)`).
+Two snapshots are kept per robot, both `export_model_arrays(m,
+plant=True)`: the fields that the scalar step (ops/scalar_physics) and the
+kernel costs read, keyframes included (go1 starts from `home`), and what
+the array engine, its contacts and its Newton solver read. assets/
+<robot>.json is the planner's model (humanoid, go1, cartpole, hopper; floor
+pairs only), which the rollout kernel and the array engine's penalty tier
+step; assets/<robot>_plant.json the environment plant, built with the
+body-body pairs (envs/tasks.load_plant). Joints are free, slide or hinge
+(Joint.jtype); the array engine derives its per-dof type masks (JAX
+dof_type_*) from them.
 Features the port does not cover yet (ball joints' springs/limits, spatial
 tendons, mesh geoms, multi-dof / tendon / site actuator transmissions) are
 refused by the export rather than dropped.
@@ -96,7 +98,7 @@ class ContactPair:
     condim: int
     margin: float
     m_eff: float          # normal effective inertia at qpos0
-    # plant snapshots only: the summed translational invweight0 of the two
+    # engine fields (plant=True): the summed translational invweight0 of the two
     # bodies (the Newton rows' regularizer base) and mjContact.friction
     invw0: float = 1.0
     friction5: np.ndarray = None  # (5,) slide, slide, torsion, roll, roll
@@ -137,8 +139,8 @@ class PhysicsModel:
     qpos0: np.ndarray                         # (nq,)
     hs_dofadr: np.ndarray                     # (nhs,) single-dof joint dofs
     hs_limit_meff: np.ndarray                 # (nhs,) limit effective inertia
-    # plant snapshots only (None in the planner's): what the array engine,
-    # contacts and Newton solver read beyond the scalar step
+    # engine fields (plant=True; None in an export without them): what the
+    # array engine, contacts and Newton solver read beyond the scalar step
     pred_mask: np.ndarray = None              # (nv, nv) Sdot predecessor mask
     sdot_zero: np.ndarray = None              # (nv,) 1.0 where Sdot == 0
     hs_qposadr: np.ndarray = None             # (nhs,) single-dof joint qpos

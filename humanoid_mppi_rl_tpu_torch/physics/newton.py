@@ -114,11 +114,12 @@ class RowTables:
 
 
 def cho_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A^-1 b for symmetric positive definite A by Cholesky and two
-    triangular solves (no error check, so no wait for the device)."""
+    """A^-1 b for symmetric positive definite A (..., n, n) by Cholesky and
+    two triangular solves (no error check, so no wait for the device, and
+    no guard that jax.scipy's cho_factor lacks)."""
     L = torch.linalg.cholesky_ex(A).L
-    y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
 
 
 def _cap_aref(aref, v_row, h):

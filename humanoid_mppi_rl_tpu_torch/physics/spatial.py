@@ -157,7 +157,7 @@ def spatial_inertia_origin(mass: torch.Tensor, inertia_diag: torch.Tensor,
     R = rot_world
     Ic = torch.einsum("...ij,...j,...kj->...ik", R, inertia_diag, R)
     cx = skew(com_world)
-    m = mass[..., None, None]
+    m = mass[..., None, None].expand(cx.shape[:-2] + (1, 1))
     eye = torch.eye(3, dtype=Ic.dtype, device=Ic.device)
     top = torch.cat([Ic - m * (cx @ cx), m * cx], dim=-1)
     bot = torch.cat([-m * cx, m * eye], dim=-1)

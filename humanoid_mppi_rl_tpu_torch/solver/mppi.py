@@ -1,6 +1,7 @@
 """MPPI solver core (solver/mppi.py counterpart): the pieces the kernel
-planner uses, and `make_mppi` for dynamics that step the whole (K, nx)
-batch (the learned surrogates).
+planner uses, and `make_mppi` for dynamics that step the whole K batch:
+the learned surrogates on (K, nx) tensors, and the array engine's penalty
+tier on a PhysicsState (or a GaitFDState) whose fields carry the K axis.
 
 The algorithm per replan:
 
@@ -20,12 +21,11 @@ numbers from one seed, so parity tests inject the same noise into both.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Optional
 
 import torch
 
-from .._device import resolve_device
+from .._device import device_constant, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,19 +84,10 @@ class MPPIDiagnostics:
     update_norm: torch.Tensor
 
 
-@functools.lru_cache(maxsize=None)
-def _ctrl_bounds(lo: tuple, hi: tuple, dtype, device):
-    """Control bounds as tensors on the device, made once per (bounds,
-    dtype, device): copied from the host at every call, they would make the
-    host wait for the device at every replan."""
-    return (torch.as_tensor(lo, dtype=dtype, device=device),
-            torch.as_tensor(hi, dtype=dtype, device=device))
-
-
 def _clip_ctrl(u: torch.Tensor, cfg: MPPIConfig) -> torch.Tensor:
     if cfg.ctrl_low is not None and cfg.ctrl_high is not None:
-        return torch.clamp(u, *_ctrl_bounds(tuple(cfg.ctrl_low), tuple(cfg.ctrl_high),
-                                            u.dtype, u.device))
+        return torch.clamp(u, device_constant(tuple(cfg.ctrl_low), u.dtype, u.device),
+                           device_constant(tuple(cfg.ctrl_high), u.dtype, u.device))
     return u
 
 
@@ -130,18 +121,33 @@ def diagnostics(costs: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
     )
 
 
+def broadcast_state(x0, K: int):
+    """x0 with every tensor field broadcast over a leading K axis: a tensor,
+    or a dataclass state (PhysicsState, GaitFDState) field by field, nested
+    states included (JAX tree_map of broadcast_to)."""
+    if x0 is None:
+        return None
+    if torch.is_tensor(x0):
+        return x0.expand(K, *x0.shape)
+    if dataclasses.is_dataclass(x0):
+        return type(x0)(**{f.name: broadcast_state(getattr(x0, f.name), K)
+                           for f in dataclasses.fields(x0)})
+    raise TypeError(f"cannot broadcast a state of type {type(x0).__name__}")
+
+
 def rollout_costs_batched(dynamics_fn: Callable, cost_fn: Callable,
                           terminal_fn: Optional[Callable], cfg: MPPIConfig,
-                          x0: torch.Tensor, U: torch.Tensor,
+                          x0, U: torch.Tensor,
                           noise: torch.Tensor) -> torch.Tensor:
     """Cost of each of K perturbed plans, noise (K, T, nu) -> costs (K,).
 
-    dynamics_fn(x (K, nx), u (K, nu), t) -> (K, nx) and cost_fn(x, u, t) ->
-    (K,) take the K batch natively. The running cost is taken on the
-    post-step state with the (clipped) applied control; the terminal cost
-    at t = T."""
+    x0 is one state: a tensor (nx,) or a dataclass state, broadcast over K
+    (`broadcast_state`). dynamics_fn(x, u (K, nu), t) -> x and cost_fn(x,
+    u, t) -> (K,) take the K batch natively. The running cost is taken on
+    the post-step state with the (clipped) applied control; the terminal
+    cost at t = T."""
     K = noise.shape[0]
-    x = x0.expand(K, *x0.shape)
+    x = broadcast_state(x0, K)
     acc = 0.0
     for t in range(cfg.T):
         u = U[t] + noise[:, t]
@@ -162,16 +168,16 @@ def make_mppi(dynamics_fn: Callable, cost_fn: Callable, cfg: MPPIConfig,
               update_op: Optional[Callable] = None):
     """plan(mppi_state, x0, noise=None) -> (action, state', diag).
 
-    Rollouts go through `rollout_costs_batched`: the dynamics (e.g. a
-    learned surrogate through ops/estimator_kernel) and the costs take the
-    K batch natively. `update_op(costs, noise) -> (update, (w, beta))`
+    Rollouts go through `rollout_costs_batched`: the dynamics (a learned
+    surrogate through ops/estimator_kernel, or the array engine's penalty
+    step) and the costs take the K batch natively. `update_op(costs, noise) -> (update, (w, beta))`
     replaces the plain weighting. `noise` (K, T, nu), when given, replaces
     the sigma-scaled draw from the state's generator: the matched-noise
     hook the parity tests use; it requires replans_per_step=1."""
     if cfg.noise_block is not None:
         raise NotImplementedError("noise_block (sharding-invariant noise) is not ported")
 
-    def plan(mppi_state: MPPIState, x0: torch.Tensor, noise: Optional[torch.Tensor] = None):
+    def plan(mppi_state: MPPIState, x0, noise: Optional[torch.Tensor] = None):
         if noise is not None and cfg.replans_per_step != 1:
             raise ValueError("noise injection requires replans_per_step=1")
         U = mppi_state.U
@@ -181,7 +187,8 @@ def make_mppi(dynamics_fn: Callable, cost_fn: Callable, cfg: MPPIConfig,
         # the last pass's diagnostics survive
         for _ in range(cfg.replans_per_step):
             if injected is None:
-                sigma = torch.as_tensor(cfg.sigma, dtype=U.dtype, device=U.device)
+                sigma = (float(cfg.sigma) if isinstance(cfg.sigma, (int, float))
+                         else device_constant(tuple(cfg.sigma), U.dtype, U.device))
                 noise = sigma * torch.randn((cfg.K, cfg.T, nu), generator=mppi_state.generator,
                                             dtype=U.dtype, device=U.device)
             elif tuple(injected.shape) != (cfg.K, cfg.T, nu):

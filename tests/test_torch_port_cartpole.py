@@ -60,14 +60,14 @@ def test_cartpole_snapshots_equal_fresh_mjcf_export(name, plant):
     """assets/cartpole{,_plant}.json equal a fresh export of build_from_mjcf
     and survive a round trip: the slide joint and its limit, no geom pair."""
     jm = build = jax_models("cartpole")[int(plant)]
-    fresh = snapshot_json(export_model_arrays(build, plant=plant))
+    fresh = snapshot_json(export_model_arrays(build, plant=True))
     with open(snapshot_path(name)) as f:
         assert f.read() == fresh, (
             f"assets/{name}.json is stale: regenerate it with snapshot_json(export_model_arrays("
-            f"build_from_mjcf(cartpole.xml, include_self_collisions={plant}), plant={plant}))")
+            f"build_from_mjcf(cartpole.xml, include_self_collisions={plant}), plant=True))")
     m = load_model(name)
     assert snapshot_json(export_model_arrays(model_from_arrays(
-        export_model_arrays(m, plant=plant)), plant=plant)) == fresh
+        export_model_arrays(m, plant=True)), plant=True)) == fresh
     assert (m.nq, m.nv, m.nu, m.nbody) == (2, 2, 1, 3) and not m.contact_pairs
     assert [jt.jtype for jt in m.joints] == [2, 3] and m.joints[0].limited
     np.testing.assert_array_equal(m.joints[0].range, [-1.0, 1.0])
@@ -186,9 +186,9 @@ def test_cartpole_tables():
     """The cartpole in the kernel's tables: a slide then a hinge, the
     slider's limit and its solref-derived constants, no pair, the
     cartpole cost's id and no constants."""
-    spec, model, cfg, _ = load_task("cartpole", device="cpu", dtype=torch.float64)
+    spec, model, *_, cfg = load_task("cartpole", device="cpu", dtype=torch.float64)
     tab = rk.tables_struct(torch.float64).from_buffer_copy(
-        rk.pack_tables(model, spec.cost_factory, {}, None, None, True, torch.float64))
+        rk.pack_tables(model, spec.kernel_cost_factory, {}, None, None, True, torch.float64))
     assert list(tab.jnt_type[:2]) == [2, 3] and (tab.npair, tab.nxpair, tab.nten) == (0, 0, 0)
     assert list(tab.jnt_limited[:2]) == [1, 0] and list(tab.jnt_range[0]) == [-1.0, 1.0]
     assert tab.jnt_kbase[0] > 0 and tab.jnt_meff[0] > 0
@@ -200,7 +200,7 @@ def test_cartpole_task_registry_matches_jax():
     """cartpole, cartpole_collect and cartpole_pr1: the JAX registry's MPPI
     constants, cost and start (0, pi) (envs/tasks.py:72-77, 143-146)."""
     for name in ("cartpole", "cartpole_collect", "cartpole_pr1"):
-        spec, model, cfg, init = load_task(name, device="cpu", dtype=torch.float64)
+        spec, model, _, _, _, init, cfg = load_task(name, device="cpu", dtype=torch.float64)
         js = JTASKS[name]
         for f in ("n_samples", "horizon", "temperature", "sigma", "tail_decay"):
             assert getattr(cfg, f) == getattr(js.mppi, f), (name, f)

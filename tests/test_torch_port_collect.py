@@ -322,7 +322,13 @@ def test_logger_layouts_and_metrics(tmp_path):
 
 
 def test_unported_planners_raise():
+    """Planning on the coupled tier (a batched Newton over K) is not ported:
+    the array planner refuses it, the kernel planner never had it. The
+    default, the array planner on the penalty tier, is ported."""
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        prunner.EpisodeRunner(TASK, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        prunner.EpisodeRunner(TASK, planner_solver="coupled", device="cpu")
+    with pytest.raises(ValueError, match="penalty tier only"):
         prunner.EpisodeRunner(TASK, use_kernel=True, planner_solver="coupled", device="cpu")
+    runner = prunner.EpisodeRunner(TASK, mppi_override=dict(n_samples=2, horizon=2),
+                                   device="cpu")
+    assert not runner.use_kernel and not hasattr(runner.plan, "rollouts")

@@ -21,6 +21,7 @@ from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
 from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+from humanoid_mppi_rl_tpu_torch.ops.kernel_costs import KERNEL_COSTS
 from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
 from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
 from humanoid_mppi_rl_tpu_torch.physics.model import load_model
@@ -34,9 +35,9 @@ def test_cuda_kernel_matches_plain_rollout(dtype, K):
     the last sample's inputs and write nothing)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    spec, model, cfg, _ = load_task("humanoid_bench", dtype=dtype)
+    spec, model, *_, cfg = load_task("humanoid_bench", dtype=dtype)
     T = 4
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, T, cost_kwargs=spec.cost_kwargs)
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, T, cost_kwargs=spec.cost_kwargs)
     x = seeded_inputs(model, K, T, dtype, seed=6)
     n0 = rk.launches
     got = ro(*x)
@@ -58,9 +59,9 @@ def test_cuda_kernel_launches_are_bit_identical(dtype):
     on the same inputs give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    spec, model, cfg, _ = load_task("humanoid_bench", dtype=dtype)
+    spec, model, *_, cfg = load_task("humanoid_bench", dtype=dtype)
     T = 4
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, T, cost_kwargs=spec.cost_kwargs)
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, T, cost_kwargs=spec.cost_kwargs)
     x = seeded_inputs(model, 253, T, dtype, seed=8)
     first, second = ro(*x), ro(*x)
     torch.cuda.synchronize()
@@ -74,8 +75,8 @@ def test_cuda_tensors_never_take_the_plain_path():
     the plain version on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    spec, model, cfg, _ = load_task("humanoid_bench", device="cpu")
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, 2, device="cpu")
+    spec, model, *_, cfg = load_task("humanoid_bench", device="cpu")
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, 2, device="cpu")
     with pytest.raises(ValueError, match="built for cpu"):
         ro(*seeded_inputs(model, 8, 2, torch.float32))
 
@@ -237,14 +238,14 @@ def test_cuda_go1_kernel_matches_plain_rollout(dtype, task):
     chip_smoke.check_rollout; two launches bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    spec, model, cfg, _ = load_task(task, dtype=dtype)
+    spec, model, *_, cfg = load_task(task, dtype=dtype)
     kw = dict(spec.cost_kwargs, **(dict(param_goal=True, param_gait=True)
                                    if task == "go1_collect" else {}))
     p = np.zeros(16)
     if task == "go1_collect":
         p[0:2], p[4:13] = (2.0, 0.0), GAIT_TUNED
     T = 4
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, T, ctrl_low=cfg.ctrl_low,
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, T, ctrl_low=cfg.ctrl_low,
                                  ctrl_high=cfg.ctrl_high, cost_kwargs=kw)
     x = go1_inputs(model, 61, T, dtype, seed=9)
     params = torch.tensor(p, dtype=dtype, device="cuda")
@@ -412,11 +413,11 @@ def test_cuda_small_robot_kernel_matches_plain_rollout(dtype, robot):
     launches bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    spec, model, cfg, _ = load_task(robot, dtype=dtype)
+    spec, model, *_, cfg = load_task(robot, dtype=dtype)
     kw, inputs = (({}, cartpole_inputs) if robot == "cartpole"
                   else (dict(param_gait=True), hopper_inputs))
     T = 4
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, T, cost_kwargs=kw)
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, T, cost_kwargs=kw)
     x = inputs(model, 256, T, dtype, seed=9)
     params = torch.tensor(hopper_gait_params(), dtype=dtype, device="cuda")
     n0 = rk.launches
@@ -448,3 +449,79 @@ def test_cuda_small_robot_runs(task, K, H, ncol):
     states, actions, _ = res.logger.arrays()
     assert rk.launches == n0 + 20 and res.steps == 20
     assert states.shape == (20, ncol) and np.isfinite(states).all() and np.isfinite(actions).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [256, 253])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cost, kw", [("humanoid_v1", {"step_period": 4}), ("humanoid_v1", {}),
+                                      ("humanoid_hard", {})],
+                         ids=["v1_period4", "v1_period100", "hard"])
+def test_cuda_humanoid_costs_match_plain_rollout(cost, kw, dtype, K):
+    """humanoid_v1 (both swing sides in T=8 at step period 4) and
+    humanoid_hard (humanoid_hard_inputs: every branch both ways) in the
+    rollout kernel against its plain version, the gates of chip_smoke's
+    `check`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from chip_smoke import humanoid_hard_inputs
+
+    model = load_model("humanoid")
+    T = 8 if cost == "humanoid_v1" else 4
+    inputs = humanoid_hard_inputs if cost == "humanoid_hard" else seeded_inputs
+    ro = rk.build_rollout_kernel(model, KERNEL_COSTS[cost], T, cost_kwargs=kw)
+    x = inputs(model, K, T, dtype, seed=9)
+    got, again = ro(*x), ro(*x)
+    want = ro.plain(*x)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if dtype == torch.float64:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+    else:
+        # humanoid_hard's values cross zero (its -1000 x swing-foot velocity
+        # term): its 0.99 quantile stands in for the max (chip_smoke's
+        # HARD_F32_QUANTILE)
+        rel = ((got[0] - want[0]).abs() / want[0].abs()).double()
+        q = 0.99 if cost == "humanoid_hard" else 1.0
+        assert float(rel.median()) < 1e-3 and float(torch.quantile(rel, q)) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["humanoid", "go1"])
+def test_cuda_penalty_step_matches_cpu(robot):
+    """The batched penalty step on the card against the CPU in f64: feet in
+    the floor, random joint velocities and controls, K=64, three steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    model = load_model(robot)
+    x = (go1_inputs if robot == "go1" else seeded_inputs)(model, 64, 3, torch.float64, seed=10,
+                                                         device="cpu")
+    qpos, qvel, noise = x[0].T.contiguous(), x[1].T.contiguous(), x[4]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(model, dev, torch.float64)
+        st = eng.forward(qpos.to(dev), qvel.to(dev), torch.zeros(64, dtype=torch.float64,
+                                                                  device=dev))
+        for t in range(3):
+            st = eng.step(st, noise[t].T.contiguous().to(dev), solver="penalty")
+        out[dev] = st
+    torch.testing.assert_close(out["cuda"].qpos.cpu(), out["cpu"].qpos, rtol=0, atol=1e-10)
+    torch.testing.assert_close(out["cuda"].qvel.cpu(), out["cpu"].qvel, rtol=0, atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task, use_kernel", [("humanoid", True), ("humanoid_hard", True),
+                                              ("humanoid_collect", False)])
+def test_cuda_humanoid_tasks_run(task, use_kernel):
+    """Short runs at small K of the new tasks on the kernel planner and of
+    the array planner (make_mppi over the penalty engine): finite rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    runner = EpisodeRunner(task, use_kernel=use_kernel,
+                           mppi_override=dict(n_samples=32, horizon=8))
+    n0 = rk.launches
+    res = runner.run(max_steps=3, chunk=3)
+    states, actions, _ = res.logger.arrays()
+    assert states.shape == (3, 55) and np.isfinite(states).all() and np.isfinite(actions).all()
+    assert rk.launches - n0 == (3 if use_kernel else 0)

@@ -77,14 +77,14 @@ def test_go1_snapshots_equal_fresh_mjcf_export(name, plant):
     (plant: 697 candidate pairs) equal a fresh export of build_from_mjcf,
     the `home` keyframe included, and survive a round trip."""
     jm = build_from_mjcf(GO1_XML, include_self_collisions=plant)
-    fresh = snapshot_json(export_model_arrays(jm, plant=plant))
+    fresh = snapshot_json(export_model_arrays(jm, plant=True))
     with open(snapshot_path(name)) as f:
         assert f.read() == fresh, (
             f"assets/{name}.json is stale: regenerate it with snapshot_json(export_model_arrays("
-            f"build_from_mjcf(go1.xml, include_self_collisions={plant}), plant={plant}))")
+            f"build_from_mjcf(go1.xml, include_self_collisions={plant}), plant=True))")
     m = load_model(name)
     assert snapshot_json(export_model_arrays(model_from_arrays(
-        export_model_arrays(m, plant=plant)), plant=plant)) == fresh
+        export_model_arrays(m, plant=True)), plant=True)) == fresh
     assert (m.nq, m.nv, m.nu, m.nbody) == (19, 18, 12, 14)
     assert len(m.contact_pairs) == (697 if plant else 42)
     assert [k for k, _ in m.keyframes] == ["home"]
@@ -246,7 +246,7 @@ def test_go1_kernel_mppi_plan_matches_jax_reference(models, task):
     weights' diagnostics to 1e-8."""
     jm, _ = models
     kw, pkind = _PLAN_CASES[task]
-    spec, model, cfg, init = load_task(task, device="cpu", dtype=torch.float64)
+    spec, model, _, _, _, init, cfg = load_task(task, device="cpu", dtype=torch.float64)
     kw = dict(spec.cost_kwargs, **kw)
     K, T = 16, 3
     cfg = dataclasses.replace(cfg, n_samples=K, horizon=T)
@@ -259,7 +259,7 @@ def test_go1_kernel_mppi_plan_matches_jax_reference(models, task):
     params = _gait_params() if pkind else np.zeros(16)
     noise = cfg.sigma * np.exp(params[11]) * rng.normal(0, scale, (T, model.nu, K))
     t0 = 1.234
-    plan = make_kernel_mppi(model, spec.cost_factory, cfg, kw, device="cpu")
+    plan = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, kw, device="cpu")
     st = MPPIState(U=torch.tensor(U), generator=torch.Generator())
     plant = PhysicsState(torch.tensor(qpos), torch.tensor(qvel),
                          torch.tensor(t0, dtype=torch.float64))
@@ -287,7 +287,7 @@ def test_go1_task_registry_matches_jax():
     from humanoid_mppi_rl_tpu.envs.tasks import TASKS as JTASKS
 
     for name, clamp in (("go1", "abs"), ("go1_collect", "range")):
-        spec, model, cfg, init = load_task(name, device="cpu", dtype=torch.float64)
+        spec, model, _, _, _, init, cfg = load_task(name, device="cpu", dtype=torch.float64)
         js = JTASKS[name]
         for f in ("n_samples", "horizon", "temperature", "sigma", "tail_decay"):
             assert getattr(cfg, f) == getattr(js.mppi, f), (name, f)
@@ -327,15 +327,15 @@ def test_go1_kernel_body_on_host_matches_plain_rollout(host_lib, task, K):
     rollouts_plain, f64, T=3, on go1_inputs (the seven poses, t0 in [0, 24]
     s), with the task's clamp; K=9 is ragged against the seven poses."""
     kw, pkind = _PLAN_CASES[task]
-    spec, model, cfg, _ = load_task(task, device="cpu", dtype=torch.float64)
+    spec, model, *_, cfg = load_task(task, device="cpu", dtype=torch.float64)
     kw = dict(spec.cost_kwargs, **kw)
     T = 3
     x = go1_inputs(model, K, T, torch.float64, seed=7, device="cpu")
     p = torch.tensor(_gait_params() if pkind else np.zeros(16))
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, T, ctrl_low=cfg.ctrl_low,
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, T, ctrl_low=cfg.ctrl_low,
                                  ctrl_high=cfg.ctrl_high, cost_kwargs=kw, device="cpu")
     cost, qpos_T, qvel_T = ro(*x, params=p)
-    tables = rk.pack_tables(model, spec.cost_factory, kw, cfg.ctrl_low, cfg.ctrl_high, True,
+    tables = rk.pack_tables(model, spec.kernel_cost_factory, kw, cfg.ctrl_low, cfg.ctrl_high, True,
                             torch.float64)
     assert host_lib.hmr_tables_size(1) == len(tables)
     buf = ctypes.create_string_buffer(tables, len(tables))
@@ -355,10 +355,10 @@ def test_go1_tables_and_workspace():
     spheres: 140 points), frictionloss on the 12 leg dofs, the quadruped
     cost's id, flags and constants, and a workspace with its start-time
     slot inside ws_size."""
-    spec, model, cfg, _ = load_task("go1_collect", device="cpu", dtype=torch.float64)
+    spec, model, *_, cfg = load_task("go1_collect", device="cpu", dtype=torch.float64)
     kw = dict(spec.cost_kwargs, param_goal=True, param_gait=True)
     t = rk.tables_struct(torch.float64).from_buffer_copy(
-        rk.pack_tables(model, spec.cost_factory, kw, cfg.ctrl_low, cfg.ctrl_high, True,
+        rk.pack_tables(model, spec.kernel_cost_factory, kw, cfg.ctrl_low, cfg.ctrl_high, True,
                        torch.float64))
     kinds = list(t.pair_type[:t.npair])
     points = {0: 1, 1: 2, 2: 6, 3: 8}     # sphere, capsule, cylinder, box

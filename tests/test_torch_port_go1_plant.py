@@ -147,7 +147,7 @@ def reference(jax_plant):
     actions, times, and the plant qpos after each step."""
     jpm, jfwd, jstep = jax_plant
     jm = build_from_mjcf(GO1_XML)
-    spec, model, cfg, _ = load_task("go1_collect", device="cpu", dtype=torch.float64)
+    spec, model, *_, cfg = load_task("go1_collect", device="cpu", dtype=torch.float64)
     cfg = dataclasses.replace(cfg, **TINY)
     kw = dict(spec.cost_kwargs, param_goal=True, param_gait=True)
     params = _params()
@@ -264,6 +264,13 @@ def test_collect_quadruped_falls_retries_and_shards(tmp_path, monkeypatch):
         == {"states": 37, "actions": 12, "times": 1}
 
 
-def test_collect_quadruped_needs_the_kernel_planner():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        prunner.collect_quadruped(n_runs=1, use_kernel=False, device="cpu", save=False)
+def test_collect_quadruped_needs_the_kernel_planner(tmp_path):
+    """use_kernel=False plans on the array engine (make_mppi over the penalty
+    tier, the goal baked into each run's cost, as the JAX collector does): one
+    runner per run, the goal check still on params."""
+    out = prunner.collect_quadruped(n_runs=2, out_base=str(tmp_path), use_kernel=False,
+                                    mppi_override=dict(n_samples=2, horizon=2), max_steps=1,
+                                    chunk=1, goal_tolerance=1e9, device="cpu")
+    assert [(r["run"], r["outcome"], r["steps_saved"]) for r in out] == [(0, "goal", 1),
+                                                                         (1, "goal", 1)]
+    assert sorted(os.listdir(tmp_path)) == ["run_000", "run_001"]

@@ -55,14 +55,14 @@ def test_hopper_snapshots_equal_fresh_mjcf_export(name, plant):
     and survive a round trip: rootx, rootz (slides) and rooty (hinge) on
     the torso, 6 floor pairs (15 pairs with the self pairs)."""
     jm = jax_models("hopper")[int(plant)]
-    fresh = snapshot_json(export_model_arrays(jm, plant=plant))
+    fresh = snapshot_json(export_model_arrays(jm, plant=True))
     with open(snapshot_path(name)) as f:
         assert f.read() == fresh, (
             f"assets/{name}.json is stale: regenerate it with snapshot_json(export_model_arrays("
-            f"build_from_mjcf(hopper.xml, include_self_collisions={plant}), plant={plant}))")
+            f"build_from_mjcf(hopper.xml, include_self_collisions={plant}), plant=True))")
     m = load_model(name)
     assert snapshot_json(export_model_arrays(model_from_arrays(
-        export_model_arrays(m, plant=plant)), plant=plant)) == fresh
+        export_model_arrays(m, plant=True)), plant=True)) == fresh
     assert (m.nq, m.nv, m.nu, m.nbody) == (7, 7, 4, 6)
     assert [jt.jtype for jt in m.joints] == [2, 2, 3, 3, 3, 3, 3]
     assert m.body_joints[1] == (0, 1, 2) and len(m.contact_pairs) == (15 if plant else 6)
@@ -194,9 +194,9 @@ def test_hopper_tables():
     slide, hinge), seven dofs in one chain (six in the top block), 6
     capsule floor pairs, limits on the four leg hinges, the hopper cost's
     id, param_gait flag and constants."""
-    spec, model, cfg, _ = load_task("hopper", device="cpu", dtype=torch.float64)
+    spec, model, *_, cfg = load_task("hopper", device="cpu", dtype=torch.float64)
     tab = rk.tables_struct(torch.float64).from_buffer_copy(
-        rk.pack_tables(model, spec.cost_factory, dict(GAIT, target_vel_x=0.7), None, None, True,
+        rk.pack_tables(model, spec.kernel_cost_factory, dict(GAIT, target_vel_x=0.7), None, None, True,
                        torch.float64))
     assert list(tab.jnt_type[:7]) == [2, 2, 3, 3, 3, 3, 3]
     assert (tab.body_jnt_adr[1], tab.body_jnt_num[1]) == (0, 3)
@@ -208,7 +208,7 @@ def test_hopper_tables():
 
 
 def test_hopper_task_registry_matches_jax():
-    spec, model, cfg, init = load_task("hopper", device="cpu", dtype=torch.float64)
+    spec, model, _, _, _, init, cfg = load_task("hopper", device="cpu", dtype=torch.float64)
     js = JTASKS["hopper"]
     for f in ("n_samples", "horizon", "temperature", "sigma", "tail_decay"):
         assert getattr(cfg, f) == getattr(js.mppi, f), f

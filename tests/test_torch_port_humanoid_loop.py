@@ -394,5 +394,8 @@ def test_collect_humanoid_jl_writes_its_csvs(tmp_path):
     shapes = {k: read_csv(os.path.join(tmp_path, run, f"{k}.csv")).reshape(2, -1).shape[1]
               for k in ("states", "actions", "times")}
     assert shapes == {"states": 55, "actions": 21, "times": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        prunner.collect_humanoid_jl(use_kernel=False, device="cpu", save=False)
+    # the array planner (the goal of the cost fixed at (1, 0, 1.28))
+    out = prunner.collect_humanoid_jl(out_dir=str(tmp_path / "array"), max_steps=1,
+                                      mppi_override=dict(n_samples=2, horizon=2), chunk=1,
+                                      use_kernel=False, device="cpu")
+    assert out == [(0, 1)] and len(os.listdir(tmp_path / "array")) == 1

@@ -17,7 +17,8 @@ from humanoid_mppi_rl_tpu.physics.model import build_from_mjcf
 from humanoid_mppi_rl_tpu_torch.collect.estimator import (
     ESTIMATOR_CONFIGS, EstimatorRunner, make_cartpole_estimator, quadruped_estimator_costs)
 from humanoid_mppi_rl_tpu_torch.collect.runner import (EpisodeRunner, collect_humanoid,
-                                                       collect_humanoid_jl, collect_quadruped)
+                                                       collect_humanoid_jl,
+                                                       collect_humanoid_v2py, collect_quadruped)
 from humanoid_mppi_rl_tpu_torch.learning.train import TrainConfig, train_model
 from humanoid_mppi_rl_tpu_torch.models.convert import load_trained
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_plant, load_task
@@ -35,11 +36,14 @@ HUMANOID_XML = os.path.join(ROOT, "humanoid_mppi_rl_tpu", "assets", "humanoid.xm
 
 
 def test_snapshot_equals_fresh_mjcf_export():
-    fresh = snapshot_json(export_model_arrays(build_from_mjcf(HUMANOID_XML)))
+    """The planner's snapshot carries the array engine's fields too (the
+    penalty-tier planner steps it), without the body-body pairs."""
+    fresh = snapshot_json(export_model_arrays(build_from_mjcf(HUMANOID_XML), plant=True))
     with open(snapshot_path("humanoid")) as f:
         assert f.read() == fresh, (
             "assets/humanoid.json is stale: regenerate it with "
-            "snapshot_json(export_model_arrays(build_from_mjcf(...)))")
+            "snapshot_json(export_model_arrays(build_from_mjcf(...), plant=True))")
+    assert load_model("humanoid").pred_mask is not None
 
 
 def test_export_round_trips():
@@ -62,9 +66,9 @@ import chip_smoke
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
 from humanoid_mppi_rl_tpu_torch.solver.kernel_mppi import make_kernel_mppi
 from humanoid_mppi_rl_tpu_torch.solver.mppi import MPPIState
-spec, model, cfg, init = load_task("humanoid_bench", device="cpu")
+spec, model, _, _, _, init, cfg = load_task("humanoid_bench", device="cpu")
 cfg = dataclasses.replace(cfg, n_samples=16, horizon=2)
-plan = make_kernel_mppi(model, spec.cost_factory, cfg, spec.cost_kwargs, device="cpu")
+plan = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, spec.cost_kwargs, device="cpu")
 st = MPPIState.seeded(0, cfg.T, model.nu, device="cpu")
 action, st, diag = plan(st, init)
 assert action.shape == (model.nu,) and bool(torch.isfinite(st.U).all())
@@ -102,9 +106,9 @@ assert read_csv(states[0]).shape == (1, 57)
 from humanoid_mppi_rl_tpu_torch.collect.runner import collect_quadruped
 from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
 for task in ("go1", "go1_collect"):
-    spec, model, cfg, init = load_task(task, device="cpu")
+    spec, model, _, _, _, init, cfg = load_task(task, device="cpu")
     cfg = dataclasses.replace(cfg, n_samples=4, horizon=2)
-    plan = make_kernel_mppi(model, spec.cost_factory, cfg, spec.cost_kwargs, device="cpu")
+    plan = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, spec.cost_kwargs, device="cpu")
     action, st, diag = plan(MPPIState.seeded(0, cfg.T, model.nu, device="cpu"), init)
     assert action.shape == (12,) and bool(torch.isfinite(st.U).all())
 quad_dir = tempfile.mkdtemp()
@@ -133,7 +137,7 @@ out = train_model(os.path.join(quad_dir, "flat", "states"),
                   os.path.join(quad_dir, "flat", "actions"), cfg, device="cpu")
 assert np.isfinite(out["best_eval_loss"]) and os.path.exists(out["best_checkpoint"])
 net = load_trained("quad_pipeline_best", device="cpu")
-spec, model, cfg, init = load_task("go1_collect", device="cpu")
+spec, model, _, _, _, init, cfg = load_task("go1_collect", device="cpu")
 home = dict(model.keyframes)["home"]
 cfg = dataclasses.replace(ESTIMATOR_CONFIGS["quadruped"], n_samples=4, horizon=2,
                           update_mode="accumulate", ctrl_low=cfg.ctrl_low,
@@ -173,6 +177,21 @@ for runner in (make_cartpole_estimator(make_model("cartpole_attention", hidden_d
                                *make_costs_flat(), batched_dynamics=True, device="cpu")):
     states, actions, times = runner.run(n_steps=1, init_qpos=(0.0, 3.14)).arrays()
     assert states.shape == (1, 4) and np.isfinite(actions).all()
+from humanoid_mppi_rl_tpu_torch.collect.runner import collect_humanoid_v2py
+spec, model, dyn, running, terminal, init, cfg = load_task("humanoid", device="cpu")
+assert spec.kernel_cost == "humanoid_v1" and (cfg.K, cfg.T) == (50, 100)
+for task in ("humanoid", "humanoid_hard"):
+    res = EpisodeRunner(task, use_kernel=True, mppi_override=tiny, device="cpu").run(
+        max_steps=1, chunk=1)
+    assert np.isfinite(res.final_qpos).all()
+res = EpisodeRunner("humanoid_collect", use_kernel=False, mppi_override=tiny,
+                    device="cpu").run(max_steps=2, chunk=2)
+assert res.steps == 2 and np.isfinite(res.final_qpos).all()
+v2_dir = tempfile.mkdtemp()
+assert collect_humanoid_v2py(out_dir=v2_dir, max_steps=2, mppi_override=tiny, chunk=2,
+                             device="cpu") == [(0, 2)]
+states = [os.path.join(d, f) for d, _, fs in os.walk(v2_dir) for f in fs if "states" in f]
+assert read_csv(states[0]).shape == (2, 56)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
@@ -196,11 +215,12 @@ def test_port_runs_without_jax_mujoco_or_the_jax_package():
                                    "collect_quadruped", "EstimatorRunner", "train_model",
                                    "load_trained", "collect_humanoid_jl",
                                    "make_cartpole_estimator", "EpisodeRunner_cartpole",
-                                   "EpisodeRunner_hopper"])
+                                   "EpisodeRunner_hopper", "EpisodeRunner_array",
+                                   "collect_humanoid_v2py"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    spec, model, cfg, _ = load_task("humanoid_bench", device="cpu")
+    spec, model, *_, cfg = load_task("humanoid_bench", device="cpu")
     calls = {
         "load_task": lambda: load_task("humanoid_bench"),
         "make_kernel_mppi": lambda: make_kernel_mppi(
@@ -225,6 +245,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
             make_model("cartpole_attention")),
         "EpisodeRunner_cartpole": lambda: EpisodeRunner("cartpole", use_kernel=True),
         "EpisodeRunner_hopper": lambda: EpisodeRunner("hopper", use_kernel=True),
+        "EpisodeRunner_array": lambda: EpisodeRunner("humanoid_collect"),
+        "collect_humanoid_v2py": lambda: collect_humanoid_v2py(save=False),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

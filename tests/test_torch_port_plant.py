@@ -260,14 +260,20 @@ def test_one_step_replay_of_walk_seed(jax_plant, port_model):
 
 
 def test_unported_solvers_and_features_raise(port_model):
+    """coupled_pgs and a K batch on the coupled tier stay unported; a model
+    without the engine's fields cannot step (the planner snapshots carry
+    them since the penalty tier plans on them)."""
     eng = _engine(port_model)
     st = eng.forward(torch.tensor(port_model.qpos0), torch.zeros(port_model.nv))
-    for solver in ("penalty", "coupled_pgs"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            eng.step(st, torch.zeros(port_model.nu), solver=solver)
-    planner = load_model("humanoid")      # no plant fields
-    with pytest.raises(ValueError, match="plant snapshot"):
-        peng.Engine(planner, device="cpu", dtype=torch.float64).step(st, torch.zeros(21))
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        eng.step(st, torch.zeros(port_model.nu), solver="coupled_pgs")
+    batch = eng.forward(torch.tensor(port_model.qpos0).expand(2, -1),
+                        torch.zeros(2, port_model.nv), torch.zeros(2, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        eng.step(batch, torch.zeros(2, port_model.nu))
+    no_fields = dataclasses.replace(load_model("humanoid"), pred_mask=None)
+    with pytest.raises(ValueError, match="engine's fields"):
+        peng.Engine(no_fields, device="cpu", dtype=torch.float64).step(st, torch.zeros(21))
     # a mesh geom stays unported (boxes and cylinders are the Go1's, ported)
     meshed = dataclasses.replace(port_model, geoms=tuple(
         dataclasses.replace(g, gtype=7, gtype_orig=7) if i == 3 else g

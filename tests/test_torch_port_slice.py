@@ -114,7 +114,7 @@ def jax_model():
 def test_kernel_mppi_plan_matches_jax_reference(jax_model, case):
     task = "humanoid_walk" if case == "walk_replace" else "humanoid_bench"
     kw_override, pkind, mode = _CASES[case]
-    spec, model, cfg, _ = load_task(task, device="cpu", dtype=torch.float64)
+    spec, model, *_, cfg = load_task(task, device="cpu", dtype=torch.float64)
     kw = spec.cost_kwargs if kw_override is None else kw_override
     cfg = dataclasses.replace(cfg, n_samples=K, horizon=3, update_mode=mode)
     rng = np.random.default_rng(11)
@@ -124,7 +124,7 @@ def test_kernel_mppi_plan_matches_jax_reference(jax_model, case):
     sigma = cfg.sigma * (1.0 if params is None else np.exp(params[11]))
     noise = sigma * rng.normal(0, 1, (cfg.T, model.nu, K))
 
-    plan = make_kernel_mppi(model, spec.cost_factory, cfg, kw, device="cpu")
+    plan = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, kw, device="cpu")
     st = MPPIState(U=torch.tensor(U), generator=torch.Generator())
     plant = PhysicsState(torch.tensor(qpos), torch.tensor(qvel),
                          torch.zeros((), dtype=torch.float64))
@@ -180,7 +180,7 @@ _HOST_CASES = [(case, K) for case in _CASES] + [("bench", 7)]
 @pytest.mark.parametrize("case, K", _HOST_CASES,
                          ids=[c if k == K else f"{c}-K{k}" for c, k in _HOST_CASES])
 def test_kernel_body_on_host_matches_plain_rollout(host_lib, case, K):
-    spec, model, cfg, _ = load_task("humanoid_walk" if case == "walk_replace"
+    spec, model, *_, cfg = load_task("humanoid_walk" if case == "walk_replace"
                                     else "humanoid_bench", device="cpu",
                                     dtype=torch.float64)
     kw_override, pkind, _ = _CASES[case]
@@ -189,12 +189,12 @@ def test_kernel_body_on_host_matches_plain_rollout(host_lib, case, K):
     qpos, qvel, U, noise, rng = _rollout_inputs(model, T, seed=4, K=K)
     params = _params(pkind, rng)
     p = np.zeros(16) if params is None else params
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, T, cost_kwargs=kw, device="cpu")
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, T, cost_kwargs=kw, device="cpu")
     tt = lambda a: torch.tensor(np.ascontiguousarray(a))
     cost, qpos_T, qvel_T = ro(tt(qpos), tt(qvel), torch.zeros(1, K, dtype=torch.float64),
                               tt(U), tt(noise), params=tt(p))
 
-    tables = rk.pack_tables(model, spec.cost_factory, kw, None, None, True, torch.float64)
+    tables = rk.pack_tables(model, spec.kernel_cost_factory, kw, None, None, True, torch.float64)
     assert host_lib.hmr_tables_size(1) == len(tables)
     buf = ctypes.create_string_buffer(tables, len(tables))
     ins = [np.ascontiguousarray(a, dtype=np.float64) for a in (qpos, qvel, np.zeros((1, K)), U,
@@ -223,8 +223,8 @@ def _schedule(tables) -> dict:
 
 
 def _humanoid_tables(dtype=torch.float64):
-    spec, model, _, _ = load_task("humanoid_bench", device="cpu", dtype=torch.float64)
-    raw = rk.pack_tables(model, spec.cost_factory, spec.cost_kwargs, None, None, True, dtype)
+    spec, model, *_ = load_task("humanoid_bench", device="cpu", dtype=torch.float64)
+    raw = rk.pack_tables(model, spec.kernel_cost_factory, spec.cost_kwargs, None, None, True, dtype)
     return model, raw, rk.tables_struct(dtype).from_buffer_copy(raw)
 
 
@@ -316,13 +316,13 @@ def test_pallas_interpret_kernel_matches_plain_rollout(jax_model):
     them (pytest -m slow)."""
     from humanoid_mppi_rl_tpu.ops.rollout_kernel import build_rollout_kernel as jbuild
 
-    spec, model, _, _ = load_task("humanoid_bench", device="cpu", dtype=torch.float64)
+    spec, model, *_ = load_task("humanoid_bench", device="cpu", dtype=torch.float64)
     Kp, T = 2, 1
     qpos, qvel, U, noise, _ = _rollout_inputs(model, T, seed=9, K=Kp)
     jro = jbuild(jax_model, jkc.humanoid, T, block_k=Kp, cost_kwargs=spec.cost_kwargs,
                  interpret=True)
     jc, jq, jv = jro(*[jnp.asarray(a) for a in (qpos, qvel, np.zeros((1, Kp)), U, noise)])
-    ro = rk.build_rollout_kernel(model, spec.cost_factory, T, cost_kwargs=spec.cost_kwargs,
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, T, cost_kwargs=spec.cost_kwargs,
                                  device="cpu")
     tt = lambda a: torch.tensor(np.ascontiguousarray(a))
     c, q, v = ro(tt(qpos), tt(qvel), torch.zeros(1, Kp, dtype=torch.float64), tt(U), tt(noise))
