@@ -203,6 +203,30 @@ Phases, one JSON line each (with its own `seconds`):
              step, 5 steps, saved into a temporary directory and read back:
              56 / 21 / 1 columns, the first row's FD velocity zero; the
              PyTorch dispatches of one control step's plan (count_dispatches)
+  check_arm5 -- slice 11: the rollout kernel against its plain version on
+             arm5 (the arm5 cost; arm5_inputs: the crate in the air, the
+             shoulder past its 70 deg limit, the crate resting with a few
+             vertices in the floor and face down with six, both ball
+             springs loaded with the elbow past its limit; every motor
+             driven) at the gates of `check` (K=256 and 253, T=4), each term
+             switched on in some sample; then the transmission models
+             (assets/site_act_plant.json: three site motors;
+             assets/tendon_act_plant.json: a motor and a servo on fixed
+             tendons) the same way with the cartpole cost
+  time_arm5 -- the kernel alone with the arm5 cost at the task's K=64 and
+             at K=8192, T=40, f32, beside its plain version and its bound;
+             geometry, ptxas registers/stack/spills, the occupancy sweep and
+             the step's cycles by phase
+  main_arm5 -- arm5_reach through EpisodeRunner(use_kernel=True) (K=64,
+             T=40, f32) for 100 control steps from qpos0: one launch a step,
+             finite rows, the hand's distance to the target at the start and
+             the end; 5 steps split into plan and plant ms (CUDA events),
+             the plant step's device launches, one profiled control step,
+             one plant step under set_sync_debug_mode("error")
+  main_arm5_array -- arm5_reach on the array planner (use_kernel=False):
+             2 warm-up and 3 timed replans, launches and busy share of one
+             replan traced on the device, one replan under
+             set_sync_debug_mode("error"), no rollout-kernel launch
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -447,21 +471,23 @@ def go1_plant_state(model, case: str, seed: int = 0):
 
 
 def device_profile(fn, launches_top: Optional[int] = None) -> dict:
-    """One call of fn under torch.profiler: device time by kernel, its sum,
-    the call's wall time and the device's busy share (the profiler's own
-    launch overhead lengthens the wall time a little). With `launches_top`,
-    also the call's device launches (device_launches' counts) from the same
-    trace."""
+    """One call of fn under torch.profiler, tracing the device only (the
+    host-side op events of a call of 10^4-10^5 launches take a minute or
+    more to aggregate): device time by kernel, its sum, the call's wall time
+    and the device's busy share (the profiler's own launch overhead
+    lengthens the wall time a little). With `launches_top`, also the call's
+    device launches (device_launches' counts) from the same trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     by_kernel = {}
-    for ev in prof.key_averages():
+    for ev in events:
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
             name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
             name = name.split("(")[0].split("<")[0]
@@ -470,7 +496,7 @@ def device_profile(fn, launches_top: Optional[int] = None) -> dict:
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
            "device_ms_by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]))}
     if launches_top is not None:
-        out["device_launches"] = launch_counts(prof, launches_top)
+        out["device_launches"] = launch_counts(prof, launches_top, events)
     return out
 
 
@@ -846,16 +872,18 @@ def sincos_check() -> dict:
     return {"floats": tried.value, "mismatches": 0}
 
 
-def rollout_diagnostics(model, ro, T) -> dict:
+def rollout_diagnostics(model, ro, T, inputs=None) -> dict:
     """(1) Occupancy sweep: one block of S samples per SM (the shared memory
     request forced to the largest block's), K = SMs * S, so each SM runs S
     warps: flat times mean each warp's own latency bounds the kernel,
     times growing with S mean the SM's instruction throughput does. (2) The kernel's
-    time split by phase at the main path's K, from the profiling build."""
+    time split by phase at the main path's K, from the profiling build.
+    On `inputs(model, K, T, dtype, seed)` (default seeded_inputs)."""
     import ctypes
     from humanoid_mppi_rl_tpu_torch.ops import _build
     from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
 
+    inputs = inputs or seeded_inputs
     lib = rk._rollout_lib()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     geo = ro.geometry[torch.float32]
@@ -868,7 +896,7 @@ def rollout_diagnostics(model, ro, T) -> dict:
     for S in (1, 2, 4, 8, 16, geo["samples_per_block"]):
         if lib.hmr_rollout_occupancy(0, S, smem) < 1:
             continue
-        x = seeded_inputs(model, sms * S, T, torch.float32, seed=2)
+        x = inputs(model, sms * S, T, torch.float32, seed=2)
         rollout_launch(lib, ro, x, S, smem)
         sweep[S] = cuda_ms(lambda: rollout_launch(lib, ro, x, S, smem), 3)
     prof_lib = _build.load_library("rollout_profile.cu")
@@ -888,9 +916,9 @@ def rollout_diagnostics(model, ro, T) -> dict:
             cycles[name] = ((sums[b] - sums[a]) % 2 ** 64) / counts[a]
         return cycles
 
-    cycles = phase_cycles(seeded_inputs(model, 8192, T, torch.float32, seed=2))
+    cycles = phase_cycles(inputs(model, 8192, T, torch.float32, seed=2))
     # the same with one sample per SM: each phase's own latency
-    alone = phase_cycles(seeded_inputs(model, sms, T, torch.float32, seed=2), 1, smem)
+    alone = phase_cycles(inputs(model, sms, T, torch.float32, seed=2), 1, smem)
     total = sum(cycles.values())
     return {"one_block_per_sm_ms_by_S": sweep, "sms": sms,
             "phase_cycles_per_sample_step": cycles,
@@ -900,12 +928,13 @@ def rollout_diagnostics(model, ro, T) -> dict:
 
 def device_launches(fn, top: int = 0) -> dict:
     """Device work items (kernels, and memcpy/memset apart) of one call of
-    fn, from torch.profiler; None where it traced no device activity. With
-    `top`, also the `top` most launched kernel names and their counts."""
+    fn, from torch.profiler tracing the device only; None where it traced no
+    device activity. With `top`, also the `top` most launched kernel names
+    and their counts."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return launch_counts(prof, top)
@@ -3059,6 +3088,278 @@ def humanoid_task_phases() -> dict:
             "array_planner": array, "v2py": v2py}
 
 
+# ---------------------------------------------------------------------------
+# slice 11: arm5 (ball joints, multi-dof/site/tendon motors, plane-vs-mesh)
+# ---------------------------------------------------------------------------
+
+# arm5 poses for the rollout checks, one per sample class (k % 5): "air"
+# the crate high above the floor; "limit" the shoulder turned 1.3-1.6 rad
+# about a random axis (past its 70 deg = 1.2217 rad limit); "rest" the
+# crate at z = 0.097 (tests/test_kernel.py's pose: a few vertices in the
+# floor); "deep" the crate face down with its centre at z = 0.015 (six
+# vertices in the floor: more than the array tiers' 4 rows); "springs" both
+# balls turned 0.6-0.8 rad and the elbow past its upper limit
+ARM5_POSES = ("air", "limit", "rest", "deep", "springs")
+ARM5_LIMIT = 70 * np.pi / 180
+ARM5_TASK_STEPS, ARM5_SPLIT_STEPS = 100, 5
+ARM5_TIME_K, ARM5_T = (64, 8192), 40   # the task's K and the sweep's, T = the task's
+ARM5_ARRAY_WARMUP, ARM5_ARRAY_TIMED = 2, 3
+# the transmission test models (tests/test_engine_generality.py's
+# SITE_ACT_XML and TENDON_ACT_XML), checked with the cartpole cost
+TRANSMISSION_MODELS = ("site_act_plant", "tendon_act_plant")
+
+
+def _axis_angle_quat(v) -> np.ndarray:
+    a = float(np.linalg.norm(v))
+    return np.concatenate([[np.cos(a / 2)], np.asarray(v) / max(a, 1e-12) * np.sin(a / 2)])
+
+
+def _quat_mat(q) -> np.ndarray:
+    w, x, y, z = q
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def arm5_face_down(model) -> np.ndarray:
+    """The crate's quaternion that turns the face of its mesh at vertex 0
+    and its two nearest neighbours down onto the floor."""
+    g = next(g for g in model.geoms if g.bodyid == model.body_id("crate"))
+    v = np.asarray(g.mesh_verts)
+    j, k = np.argsort(np.linalg.norm(v - v[0], axis=1))[1:3]
+    n = v[0] + v[j] + v[k]
+    n = n / np.linalg.norm(n)
+    a = np.cross(n, [0.0, 0.0, -1.0])
+    return _axis_angle_quat(a / np.linalg.norm(a) * np.arccos(np.clip(-n[2], -1.0, 1.0)))
+
+
+def arm5_states(model, K: int, seed: int = 0):
+    """qpos (nq, K), qvel (nv, K) numpy arrays: sample k in pose
+    ARM5_POSES[k % 5] with small random ball rotations, elbow angles and
+    crate tilts, velocities N(0, 0.3)."""
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(np.asarray(model.qpos0, dtype=np.float64)[:, None], (1, K))
+    qvel = rng.normal(0, 0.3, (model.nv, K))
+    down = arm5_face_down(model)
+    small = lambda mag: _axis_angle_quat(rng.normal(size=3) * mag)
+    for k in range(K):
+        pose = ARM5_POSES[k % len(ARM5_POSES)]
+        qpos[0:4, k] = small(0.2)
+        qpos[4, k] = rng.uniform(-0.8, 0.0)
+        qpos[5:9, k] = small(0.3)
+        qpos[9:11, k] = (0.6, 0.3) + rng.normal(0, 0.02, 2)
+        qpos[11, k] = 1.0 + rng.uniform(0, 0.3)
+        qpos[12:16, k] = small(0.1)
+        if pose == "limit":
+            ax = rng.normal(size=3)
+            qpos[0:4, k] = _axis_angle_quat(ax / np.linalg.norm(ax) * rng.uniform(1.3, 1.6))
+        elif pose == "rest":
+            qpos[11, k] = 0.097
+        elif pose == "deep":
+            qpos[11, k] = 0.015
+            qpos[12:16, k] = down
+        elif pose == "springs":
+            qpos[0:4, k] = _axis_angle_quat(rng.normal(size=3) * 0.35)
+            qpos[5:9, k] = _axis_angle_quat(rng.normal(size=3) * 0.45)
+            qpos[4, k] = 0.3
+    return qpos, qvel
+
+
+def arm5_inputs(model, K, T, dtype, seed=0, device="cuda"):
+    """Rollout inputs on the poses of arm5_states: a plan N(0, 1) and noise
+    N(0, 2) that drive every motor (each into its ctrlrange somewhere),
+    start times in [0, 5] s."""
+    qpos, qvel = arm5_states(model, K, seed)
+    rng = np.random.default_rng(seed + 1)
+    U = rng.normal(0, 1.0, (T, model.nu))
+    noise = rng.normal(0, 2.0, (T, model.nu, K))
+    t0 = rng.uniform(0, 5.0, (1, K))
+    as_t = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    return tuple(as_t(a) for a in (qpos, qvel, t0, U, noise))
+
+
+def arm5_terms(model, qpos: np.ndarray) -> dict:
+    """Per sample, on the CPU: the shoulder's rotation angle past its limit,
+    each ball's spring rotation, and the crate's and the hand's mesh
+    vertices below the floor (the candidates of the contact tables)."""
+    from humanoid_mppi_rl_tpu_torch.physics import contact as pcontact
+    from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
+
+    eng = Engine(model, device="cpu", dtype=torch.float64)
+    st = eng.forward(torch.tensor(qpos.T), torch.zeros(qpos.shape[1], model.nv,
+                                                       dtype=torch.float64))
+    _, phi = pcontact._candidates(eng.contact, *pcontact.geom_world(eng.contact, st))
+    ang = lambda q: 2 * np.arctan2(np.linalg.norm(q[1:4], axis=0), np.abs(q[0]))
+    per_pair = [(phi[:, a:a + n] < 0).sum(-1).numpy() for a, n, _, _ in eng.contact.segments]
+    return {"shoulder_past_limit": ang(qpos[0:4]) > ARM5_LIMIT,
+            "shoulder_angle": ang(qpos[0:4]), "wrist_angle": ang(qpos[5:9]),
+            "hand_vertices_in": per_pair[0], "crate_vertices_in": per_pair[1]}
+
+
+def transmission_inputs(model, K, T, dtype, seed=0, device="cuda"):
+    """Inputs for the transmission models: qpos0 perturbed by N(0, 0.1)
+    (the free joint's quaternion normalised), velocities N(0, 0.5), a plan
+    N(0, 1) and noise N(0, 3)."""
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(np.asarray(model.qpos0)[:, None], (1, K)) + rng.normal(0, 0.1, (model.nq, K))
+    for j in model.joints:
+        if j.jtype == 0:
+            q = qpos[j.qposadr + 3:j.qposadr + 7]
+            qpos[j.qposadr + 3:j.qposadr + 7] = q / np.linalg.norm(q, axis=0)
+    qvel = rng.normal(0, 0.5, (model.nv, K))
+    U = rng.normal(0, 1.0, (T, model.nu))
+    noise = rng.normal(0, 3.0, (T, model.nu, K))
+    as_t = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    return tuple(as_t(a) for a in (qpos, qvel, np.zeros((1, K)), U, noise))
+
+
+def hand_distance(model, qpos, target) -> float:
+    """|hand - target| at qpos (the port's kinematics on the CPU)."""
+    from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
+
+    f64 = torch.float64
+    st = Engine(model, device="cpu", dtype=f64).forward(
+        torch.tensor(np.asarray(qpos), dtype=f64), torch.zeros(model.nv, dtype=f64))
+    return float(np.linalg.norm(st.xpos[model.body_id("hand")].numpy() - np.asarray(target)))
+
+
+def arm5_phase(builds: dict) -> dict:
+    """main_arm5: the rollout kernel against its plain version on arm5 and
+    on the transmission models, the arm5 kernel alone, arm5_reach through
+    EpisodeRunner on the kernel planner and on the array planner. Returns
+    the numbers for the `kernels` line."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
+    from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+    from humanoid_mppi_rl_tpu_torch.ops import kernel_costs
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+    from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+
+    t0 = time.perf_counter()
+    spec, model, *_, cfg = load_task("arm5_reach", dtype=torch.float64)
+    errs, geometry = check_rollout(model, spec.kernel_cost_factory, spec.cost_kwargs,
+                                   inputs=arm5_inputs)
+    x = arm5_inputs(model, CHECK_KS[0], CHECK_T, torch.float64, seed=1, device="cpu")
+    terms = arm5_terms(model, x[0].numpy())
+    lo, hi = model.ctrl_range()
+    u = (x[3][:, :, None] + x[4]).numpy()
+    on = {"shoulder_past_limit": int(terms["shoulder_past_limit"].sum()),
+          "crate_vertices_in_floor": int((terms["crate_vertices_in"] > 0).sum()),
+          "crate_more_than_4_in_floor": int((terms["crate_vertices_in"] > 4).sum()),
+          "springs_loaded": int(((terms["shoulder_angle"] > 0.3)
+                                 & (terms["wrist_angle"] > 0.3)).sum()),
+          "motors_driven": [int((u[:, i] != 0).sum()) for i in range(model.nu)],
+          "motors_past_ctrlrange": [int(((u[:, i] < lo[i]) | (u[:, i] > hi[i])).sum())
+                                    for i in range(model.nu)]}
+    if (min(v for k, v in on.items() if not k.startswith("motors")) == 0
+            or min(on["motors_driven"]) == 0 or not sum(on["motors_past_ctrlrange"])):
+        raise AssertionError(f"arm5 check inputs leave a term off: {on}")
+    trn = {}
+    for name in TRANSMISSION_MODELS:
+        m = load_model(name)
+        e, _ = check_rollout(m, kernel_costs.cartpole, {}, inputs=transmission_inputs)
+        trn[name] = {"actuators": [("site" if a.site_bodyid >= 0 else "tendon")
+                                   for a in m.actuators], "errors": e}
+    emit({"phase": "check_arm5", "kernel": "rollout", "K": list(CHECK_KS), "T": CHECK_T,
+          "cost": "arm5", "inputs": "arm5_inputs: poses " + ", ".join(ARM5_POSES)
+                                    + "; plan N(0, 1), noise N(0, 2)",
+          "samples_with_term_on": on,
+          "tolerance": {"float64": "rtol=atol=1e-9", "float32": "cost rel median<1e-3, max<1e-2",
+                        "repeat": "two launches bit-identical"},
+          "geometry": {str(dt).replace("torch.", ""): geo for dt, geo in geometry.items()},
+          "errors": errs, "transmission_models": trn, "seconds": time.perf_counter() - t0})
+
+    t1 = time.perf_counter()
+    spec, model, *_, cfg = load_task("arm5_reach")
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, ARM5_T,
+                                 cost_kwargs=spec.cost_kwargs)
+    alone = {K: kernel_alone(ro, model, spec.kernel_cost_factory, spec.cost_kwargs, K, ARM5_T,
+                             arm5_inputs) for K in ARM5_TIME_K}
+    ptxas = {k: v for k, v in ptxas_stats(builds["rollout_kernel.cu"]["log"]).items()
+             if "rollout" in k}
+    emit({"phase": "time_arm5", "kernel": "rollout", "cost": "arm5", "T": ARM5_T,
+          "kernel_alone": {str(K): a for K, a in alone.items()},
+          "geometry": ro.geometry.get(torch.float32), "ptxas": ptxas,
+          "diagnostics": rollout_diagnostics(model, ro, ARM5_T, arm5_inputs),
+          "seconds": time.perf_counter() - t1})
+
+    t1 = time.perf_counter()
+    runner = EpisodeRunner("arm5_reach", use_kernel=True)
+    target = runner.spec.cost_kwargs.get("target", (0.35, 0.15, 0.55))
+    rk.launches = 0
+    res = runner.run(max_steps=ARM5_TASK_STEPS, chunk=50)
+    torch.cuda.synchronize()
+    launches = rk.launches
+    if launches != ARM5_TASK_STEPS:
+        raise AssertionError(f"arm5_reach: {launches} launches for {ARM5_TASK_STEPS} steps")
+    states, actions, _ = res.logger.arrays()
+    if states.shape != (ARM5_TASK_STEPS, model.nq + model.nv) or not (
+            np.isfinite(states).all() and np.isfinite(actions).all()):
+        raise AssertionError(f"arm5_reach rows: {states.shape}, finite {np.isfinite(states).all()}")
+    d0 = hand_distance(runner.plant_model, states[0, :model.nq], target)
+    d1 = hand_distance(runner.plant_model, res.final_qpos, target)
+    split = split_control_steps(runner, ARM5_SPLIT_STEPS)
+    plant = runner.init_state
+    action = torch.zeros(model.nu, device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.plant_dyn(plant, action, 0)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    emit({"phase": "main_arm5", "task": "arm5_reach", "K": runner.cfg.K, "T": runner.cfg.T,
+          "dtype": "float32", "control_steps": ARM5_TASK_STEPS, "launches": launches,
+          "hand_to_target_m": {"start": d0, "end": d1}, "sync_free_plant_step": True,
+          **split, "seconds": time.perf_counter() - t1})
+
+    t1 = time.perf_counter()
+    arr = EpisodeRunner("arm5_reach")
+    rk.launches = 0
+    ms = arr.fresh_controller(0)
+    plant = arr.init_state
+    plan_ms = []
+    for i in range(ARM5_ARRAY_WARMUP + ARM5_ARRAY_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        action, ms, diag = arr.plan(ms, plant)
+        ev[1].record()
+        plant = arr.plant_dyn(plant, action, 0)
+        torch.cuda.synchronize()
+        if i >= ARM5_ARRAY_WARMUP:
+            plan_ms.append(ev[0].elapsed_time(ev[1]))
+    for name, v in (("action", action), ("U", ms.U), ("qpos", plant.qpos)):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"arm5 array planner: non-finite {name}")
+    prof = kernel_profile(lambda: arr.plan(ms, plant), top=8)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        arr.plan(ms, plant)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if rk.launches:
+        raise AssertionError(f"the array planner launched the rollout kernel {rk.launches} times")
+    emit({"phase": "main_arm5_array", "task": "arm5_reach", "K": arr.cfg.K, "T": arr.cfg.T,
+          "dtype": "float32", "planner": "make_mppi over the penalty engine (use_kernel=False)",
+          "warmup_steps": ARM5_ARRAY_WARMUP, "timed_steps": ARM5_ARRAY_TIMED,
+          "replan_ms": plan_ms, "replan_ms_median": statistics.median(plan_ms),
+          "launches_per_replan": prof["device_launches"],
+          "profiled_replan": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                   "device_busy_share")},
+          "sync_free_replan": True, "seconds": time.perf_counter() - t1})
+    f32 = lambda key: max(v[key] for k, v in errs.items() if "float32" in k)
+    a64 = alone[ARM5_TIME_K[0]]
+    return {"launches": launches, "control_steps": ARM5_TASK_STEPS,
+            "ms": a64["kernel_ms"], "plain_ms": a64["plain_ms"], "bound_ms": a64["bound_ms"],
+            "bound_by": a64["bound_by"], "at": {"K": a64["K"], "T": a64["T"]},
+            "ms_K8192": alone[ARM5_TIME_K[1]]["kernel_ms"],
+            "bound_ms_K8192": alone[ARM5_TIME_K[1]]["bound_ms"],
+            "plain_ms_K8192": alone[ARM5_TIME_K[1]]["plain_ms"],
+            "replan_ms_median": split["replan_ms_median"],
+            "plant_ms_median": split["plant_ms_median"],
+            "array_replan_ms_median": statistics.median(plan_ms),
+            "max_abs_err": f32("cost_max_abs"), "cost_rel_median_f32": f32("cost_rel_median")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3193,6 +3494,7 @@ def main() -> int:
     loop = learning_phases(collected)
     small = small_robot_phases()
     humanoid = humanoid_task_phases()
+    arm5 = arm5_phase(builds)
     est["paths"] = {"estimator replan": {"launches": est["launches"],
                                          "replans": EST_WARMUP + EST_TIMED},
                     **loop.pop("paths"), **small["estimator"].pop("paths")}
@@ -3207,17 +3509,20 @@ def main() -> int:
         "launches": main_launches,
         "robots": {"humanoid": ["humanoid", "humanoid_v1", "humanoid_hard"],
                    "go1": ["quadruped", "quadruped_jl"],
-                   "cartpole": ["cartpole"], "hopper": ["hopper"]},
+                   "cartpole": ["cartpole"], "hopper": ["hopper"], "arm5": ["arm5"]},
         "paths": {"humanoid_bench replan": {"launches": main_launches,
                                             "replans": WARMUP + TIMED},
                   "humanoid_walk collect": {"launches": collect["launches_collect"],
                                             "control_steps": collect["control_steps"]},
                   **go1.pop("paths"), **small["rollout"].pop("paths"),
-                  **humanoid.pop("paths")},
+                  **humanoid.pop("paths"),
+                  "arm5_reach": {"launches": arm5["launches"],
+                                 "control_steps": arm5["control_steps"]}},
         **humanoid,
         "collect_control_step_ms": collect["collect_control_step_ms"],
         "go1": go1,
         **small["rollout"],
+        "arm5": arm5,
         "max_abs_err": max(e["cost_max_abs"] for k, e in errs.items() if "float32" in k),
         "max_abs_err_f64": max(e["cost_max_abs"] for k, e in errs.items() if "float64" in k),
         "cost_rel_median_f32": max(e["cost_rel_median"] for k, e in errs.items()

@@ -1,12 +1,10 @@
-"""Task registry (envs/tasks.py counterpart): the JAX registry's humanoid,
-Go1, cartpole and hopper tasks with the same constants (envs/tasks.py:
-69-151), each with its array cost (`cost_factory`, batched over K) and,
-where it has one, its kernel cost (`kernel_cost`); `load_task` builds the
-planner tier (the penalty engine, floor pairs only) and `load_plant` the
-environment plant (the coupled tier with the body-body pairs).
-
-The JAX registry's arm5_reach needs kernel and engine features the port
-does not have yet (ROADMAP A7, B1).
+"""Task registry (envs/tasks.py counterpart): every task of the JAX
+registry (the humanoid, Go1, cartpole, hopper and arm5 tasks) with the same
+constants (envs/tasks.py:69-151), each with its array cost (`cost_factory`,
+batched over K) and, where it has one, its kernel cost (`kernel_cost`);
+`load_task` builds the planner tier (the penalty engine, floor pairs only)
+and `load_plant` the environment plant (the coupled tier with the
+body-body pairs).
 """
 
 from __future__ import annotations
@@ -18,6 +16,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from .._device import resolve_device
+from ..costs import arm5 as arm5_cost
 from ..costs import cartpole as cartpole_cost
 from ..costs import hopper as hopper_cost
 from ..costs import humanoid as humanoid_cost
@@ -104,6 +103,10 @@ TASKS = {
         # the JAX package's planar hopper task (no reference analog)
         _mk("hopper", hopper_cost.make_costs, K=64, T=50, lam=0.5, sigma=0.6, robot="hopper",
             kernel_cost="hopper"),
+        # the JAX package's fifth robot (no reference analog): ball joints with
+        # springs and a limit, ball and free motors, plane-vs-mesh contacts
+        _mk("arm5_reach", arm5_cost.make_costs, K=64, T=40, lam=0.5, sigma=0.8, robot="arm5",
+            kernel_cost="arm5"),
     ]
 }
 # the benchmark scale of humanoid_collect (bench.py _bench_primary)

@@ -6,11 +6,14 @@
 // physics step, FK, the running cost at the step's end time -- and then the
 // terminal cost, with the state kept on chip. Device memory sees only the
 // initial state and start time, the noise stream, U, the 16 runtime
-// parameters, and the outputs. It carries the humanoid (humanoid cost), the
-// Go1 (quadruped and quadruped_jl costs: frictionloss, box corners and
-// exact cylinder rims, a clock-driven trot phase), the cartpole and the
-// planar hopper (slide joints; the cartpole cost, and the hopper cost with
-// its hop clock).
+// parameters, and the outputs. It carries every robot of the JAX registry:
+// the humanoid (three costs), the Go1 (quadruped and quadruped_jl costs:
+// frictionloss, box corners and exact cylinder rims, a clock-driven trot
+// phase), the cartpole and the planar hopper (slide joints; the cartpole
+// cost, and the hopper cost with its hop clock), and arm5 (ball joints with
+// quaternion springs and a rotation-angle limit, ball/free motors with gear
+// vectors, plane-vs-mesh contacts; the arm5 cost), with fixed-tendon and
+// site transmissions besides.
 //
 // What bounds it: the work, not the bytes. The humanoid step is ~24k scalar
 // operations, so a replan at K=8192, T=64 is ~1.2e10 (0.185 ms at the f32

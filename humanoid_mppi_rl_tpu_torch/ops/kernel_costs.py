@@ -2,10 +2,10 @@
 counterpart). Each factory returns (running(ctx, t) -> (K,),
 terminal(ctx) -> (K,)) over StepContext views, with ctrl read from ctx.
 
-Ported: `humanoid`, `humanoid_v1` and `humanoid_hard` (the humanoid
-tasks), `quadruped` and `quadruped_jl` (the Go1 tasks), `cartpole` and
-`hopper`; the CUDA kernel carries the same formulas as device functions
-(csrc/rollout_body.cuh). The JAX registry's `arm5` is ROADMAP B1.
+All of them: `humanoid`, `humanoid_v1` and `humanoid_hard` (the humanoid
+tasks), `quadruped` and `quadruped_jl` (the Go1 tasks), `cartpole`,
+`hopper` and `arm5`; the CUDA kernel carries the same formulas as device
+functions (csrc/rollout_body.cuh).
 """
 
 from __future__ import annotations
@@ -410,7 +410,32 @@ def hopper(model: PhysicsModel, target_vel_x=1.0, target_height=1.0,
     return running, terminal
 
 
+def arm5(model: PhysicsModel, target=(0.35, 0.15, 0.55), w_reach=10.0, w_vel=0.05,
+         w_ctrl=0.01):
+    """The arm5 reach cost (costs/arm5.make_costs in scalar form): the
+    hand's squared distance to `target`, the arm's seven dof velocities
+    (shoulder ball, elbow, wrist ball) and the controls. Terminal: 10
+    w_reach x the reach term."""
+    hand = model.body_names.index("hand")
+    tx, ty, tz = [float(v) for v in target]
+    n_arm = 7
+
+    def reach(ctx: StepContext):
+        px, py, pz = ctx.xpos[hand]
+        return (px - tx) ** 2 + (py - ty) ** 2 + (pz - tz) ** 2
+
+    def running(ctx: StepContext, t):
+        return (w_reach * reach(ctx) + w_vel * _sumsq(ctx.qvel[:n_arm])
+                + w_ctrl * _sumsq(ctx.ctrl))
+
+    def terminal(ctx: StepContext):
+        return 10.0 * w_reach * reach(ctx)
+
+    return running, terminal
+
+
 KERNEL_COSTS = {
+    "arm5": arm5,
     "cartpole": cartpole,
     "hopper": hopper,
     "humanoid": humanoid,

@@ -12,11 +12,11 @@ fallback from one to the other.
 
 The kernel is table-driven: the model and the cost constants are packed
 once into a flat struct (`pack_tables`, mirrored field for field from
-rollout_body.cuh with ctypes) that the kernel loops over. It carries the
-costs of `KERNEL_COSTS` (humanoid, humanoid_v1, humanoid_hard, quadruped,
-quadruped_jl, cartpole, hopper) by a cost id and each cost's constants; a
-model or cost it cannot carry raises NotImplementedError naming its
-ROADMAP item (B1).
+rollout_body.cuh with ctypes) that the kernel loops over. It carries every
+cost of `KERNEL_COSTS` (humanoid, humanoid_v1, humanoid_hard, quadruped,
+quadruped_jl, cartpole, hopper, arm5) by a cost id and each cost's
+constants. It refuses what the JAX kernel refuses (spatial tendons, a mesh
+in a pair without a plane), moving planes, and what exceeds its capacities.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..physics.model import (FREE, GEOM_BOX, GEOM_CYLINDER, GEOM_PLANE, GEOM_SPHERE,
-                             PhysicsModel)
+from ..physics.model import (BALL, FREE, GEOM_BOX, GEOM_CYLINDER, GEOM_MESH, GEOM_PLANE,
+                             GEOM_SPHERE, HINGE, SLIDE, PhysicsModel)
 from . import _build
 from . import kernel_costs
 from . import scalar_physics as sph
@@ -40,6 +40,7 @@ NP = 16  # runtime cost-parameter slots (kernel_costs.PARAM_SLOTS)
 
 # capacities of csrc/rollout_body.cuh
 MAXB, MAXJ, MAXV, MAXQ, MAXU, MAXP, MAXT, MAXTNZ = 32, 32, 32, 40, 32, 64, 4, 8
+MAXBALL, MAXTRN, MAXMV = 4, 8, 48
 NCOSTW = 16  # cost constants
 # the humanoid cost's constants, in hmr::CostW order
 _COST_W = ("tx", "ty", "tz", "tvx", "tvy", "w_orient", "w_goal_xy", "w_height",
@@ -48,10 +49,13 @@ _COST_PARAM_TARGET, _COST_PARAM_GAIT = 1, 2
 # hmr::COST_* ids of the costs the kernel carries
 _COST_ID = {kernel_costs.humanoid: 0, kernel_costs.quadruped: 1, kernel_costs.quadruped_jl: 2,
             kernel_costs.cartpole: 3, kernel_costs.hopper: 4, kernel_costs.humanoid_v1: 5,
-            kernel_costs.humanoid_hard: 6}
+            kernel_costs.humanoid_hard: 6, kernel_costs.arm5: 7}
 # the hopper cost's constants, in hmr::HopW order
 _HOPPER_W = ("target_vel_x", "target_height", "w_pitch", "w_pitch_rate")
-_PAIR_SPHERE, _PAIR_CAPSULE, _PAIR_CYLINDER, _PAIR_BOX = 0, 1, 2, 3
+_PAIR_SPHERE, _PAIR_CAPSULE, _PAIR_CYLINDER, _PAIR_BOX, _PAIR_MESH = 0, 1, 2, 3, 4
+_PAIR_POINTS = {_PAIR_SPHERE: 1, _PAIR_CAPSULE: 2, _PAIR_CYLINDER: 6, _PAIR_BOX: 8}
+# hmr::TRN_* transmission kinds
+_TRN_MULTI, _TRN_TENDON, _TRN_SITE = 1, 2, 3
 
 MAXTRI = MAXV * (MAXV + 1) // 2
 MAXCHOL = 1024  # Cholesky updates over all dof levels
@@ -60,7 +64,7 @@ SOLIMP = 8      # solimp, then 1/width, 1/midpoint, 1/(1 - midpoint)
 # one sample's workspace arrays (hmr::WsField order) and their lengths
 WS_FIELDS = ("qpos", "qvel", "u", "time", "cost", "xpos", "xquat", "V", "S", "W", "IC",
              "F", "ab", "A", "tau", "gdiag", "rhs", "dinv", "ten_f", "ten_c", "qloc",
-             "cscr", "loc", "hinge")
+             "cscr", "loc", "hinge", "ball", "trn")
 _FORWARD = ("qloc", "loc", "hinge")  # forward's scratch, one after the other
 _SHARE_A = ("ab",) + _FORWARD        # arrays that live in the mass matrix's space
 _SHARE_W = ("cscr",)                 # ... and in W's
@@ -72,6 +76,27 @@ def _further_pairs(model: PhysicsModel) -> list:
     bodies = [model.geoms[p.geom2].bodyid for p in model.contact_pairs
               if model.geoms[p.geom1].gtype == GEOM_PLANE]
     return [i for i, b in enumerate(bodies) if b in bodies[:i]]
+
+
+def _tendon_rows(model: PhysicsModel) -> list:
+    """The fixed tendons in the kernel's ten_ tables: the limited ones and
+    those an actuator drives, in tendon order."""
+    driven = {a.tendon_id for a in model.actuators if a.tendon_id >= 0}
+    return [t for t in range(model.tendon_coef.shape[0])
+            if model.tendon_limited[t] or t in driven]
+
+
+def _transmissions(model: PhysicsModel) -> list:
+    """(actuator, kind) of each actuator beyond a single-dof joint's."""
+    out = []
+    for i, a in enumerate(model.actuators):
+        if a.site_bodyid >= 0:
+            out.append((i, _TRN_SITE))
+        elif a.tendon_id >= 0:
+            out.append((i, _TRN_TENDON))
+        elif a.ndof > 1:
+            out.append((i, _TRN_MULTI))
+    return out
 
 
 def workspace_layout(model: PhysicsModel, nten: int) -> tuple[dict, int]:
@@ -86,7 +111,9 @@ def workspace_layout(model: PhysicsModel, nten: int) -> tuple[dict, int]:
     sizes = {"qpos": model.nq, "qvel": nv, "u": model.nu, "time": 1, "cost": 1,
              "xpos": 3 * nb, "xquat": 4 * nb, "V": 6 * nb, "S": 6 * nv, "W": 6 * nv, "IC": 21 * nb,
              "F": 6 * nb, "ab": 6 * nb, "A": nv * (nv + 1) // 2, "tau": nv,
-             "gdiag": nv, "rhs": nv, "dinv": nv, "ten_f": nten, "ten_c": nten}
+             "gdiag": nv, "rhs": nv, "dinv": nv, "ten_f": nten, "ten_c": nten,
+             "ball": 7 * sum(j.jtype == BALL for j in model.joints),
+             "trn": 7 * len(_transmissions(model))}
     # the bias accelerations (step phases 1-2) and the hinge rotations
     # (forward) are dead whenever the mass matrix (phases 5-8) is live
     nj = len(model.joints)
@@ -121,7 +148,10 @@ _FIELDS = (
     ("jnt_dofadr", "i", MAXJ), ("jnt_limited", "i", MAXJ),
     ("dof_body", "i", MAXV), ("act_dof", "i", MAXU), ("act_qpos", "i", MAXU),
     ("act_ctrllimited", "i", MAXU), ("act_forcelimited", "i", MAXU),
-    ("pair_body", "i", MAXP), ("pair_type", "i", MAXP), ("ten_nnz", "i", MAXT),
+    ("act_trn", "i", MAXU), ("ntrn", "i"), ("trn_kind", "i", MAXTRN),
+    ("trn_body", "i", MAXTRN), ("trn_ten", "i", MAXTRN), ("nball", "i"),
+    ("ball_jnt", "i", MAXBALL), ("ten_limited", "i", MAXT), ("pair_body", "i", MAXP),
+    ("pair_type", "i", MAXP), ("ten_nnz", "i", MAXT),
     ("ten_dof", "i", MAXT, MAXTNZ), ("ten_qpos", "i", MAXT, MAXTNZ),
     ("dof_lc", "u", MAXV), ("dof_anc", "u", MAXV),
     ("off", "i", len(WS_FIELDS)), ("ws_size", "i"), ("njnt", "i"), ("nlvl", "i"),
@@ -132,7 +162,8 @@ _FIELDS = (
     ("dof_acts", "u", MAXV), ("ndlvl", "i"), ("ntop", "i"), ("dlvl_adr", "i", MAXV + 1),
     ("dlvl_dof", "i", MAXV), ("dlvl_mask", "u", MAXV), ("nent", "i"),
     ("ent", "h", MAXTRI), ("ent_adr", "i", MAXV + 1), ("ten_dofmask", "u"),
-    ("chol_adr", "i", MAXV + 1), ("chol_ent", "h", MAXCHOL),
+    ("chol_adr", "i", MAXV + 1), ("chol_ent", "h", MAXCHOL), ("pair_npt", "h", MAXP),
+    ("pair_vadr", "h", MAXP),
     ("h", "s"), ("inv_h", "s"), ("gravity", "s", 3), ("body_pos", "s", MAXB, 3),
     ("body_quat", "s", MAXB, 4), ("body_ipos", "s", MAXB, 3),
     ("body_iquat", "s", MAXB, 4), ("body_mass", "s", MAXB),
@@ -145,7 +176,7 @@ _FIELDS = (
     ("dof_extra", "s", MAXV), ("dof_frictionloss", "s", MAXV),
     ("dof_fl_gain", "s", MAXV), ("act_gear", "s", MAXU), ("act_gain", "s", MAXU),
     ("act_bias", "s", MAXU, 3), ("act_ctrlrange", "s", MAXU, 2),
-    ("act_forcerange", "s", MAXU, 2), ("pair_frame", "s", MAXP, 3, 3),
+    ("act_forcerange", "s", MAXU, 2), ("pair_n", "s", MAXP, 3),
     ("pair_p0n", "s", MAXP), ("pair_gpos", "s", MAXP, 3),
     ("pair_gquat", "s", MAXP, 4), ("pair_size", "s", MAXP, 3),
     ("pair_mu", "s", MAXP), ("pair_kbase", "s", MAXP), ("pair_bref", "s", MAXP),
@@ -153,6 +184,8 @@ _FIELDS = (
     ("pair_solimp", "s", MAXP, SOLIMP), ("ten_coef", "s", MAXT, MAXTNZ),
     ("ten_range", "s", MAXT, 2), ("ten_meff", "s", MAXT), ("ten_kbase", "s", MAXT),
     ("ten_bref", "s", MAXT), ("ten_solimp", "s", MAXT, SOLIMP),
+    ("trn_gear", "s", MAXTRN, 6), ("trn_pos", "s", MAXTRN, 3), ("trn_quat", "s", MAXTRN, 4),
+    ("ball_qref", "s", MAXBALL, 4), ("mesh_vert", "s", MAXMV, 3),
     ("ctrl_lo", "s", MAXU), ("ctrl_hi", "s", MAXU), ("cost_w", "s", NCOSTW),
 )
 
@@ -179,25 +212,33 @@ def _solimp_power_ok(solimp) -> bool:
 
 def check_kernel_supported(model: PhysicsModel) -> None:
     """Refuse what the kernel (and the plain step) does not cover: the JAX
-    guards (spatial tendons, mesh pairs -- neither can reach a port model),
-    the features named by scalar_physics.unsupported_features, and the
-    kernel's fixed capacities."""
+    kernel's refusals (spatial tendons -- which no port model carries -- and
+    a mesh in a pair without a plane), the features named by
+    scalar_physics.unsupported_features, and the kernel's fixed
+    capacities."""
     bad = sph.unsupported_features(model)
+    for p in model.contact_pairs:
+        g1, g2 = model.geoms[p.geom1], model.geoms[p.geom2]
+        if GEOM_MESH in (g1.gtype, g2.gtype) and g1.gtype != GEOM_PLANE:
+            bad.append("mesh-vs-primitive / mesh-vs-mesh pairs (array engine only, as in JAX)")
     for j in model.joints:
-        if j.limited and not _solimp_power_ok(j.solimp):
+        if j.limited and j.jtype != BALL and not _solimp_power_ok(j.solimp):
             bad.append("joint-limit solimp power outside 1..4")
+    for _, _, _, _, si, _ in model.ball_limits:
+        if not _solimp_power_ok(si):
+            bad.append("ball-limit solimp power outside 1..4")
     for p in model.contact_pairs:
         if model.geoms[p.geom1].gtype == GEOM_PLANE and not _solimp_power_ok(p.solimp):
             bad.append("contact solimp power outside 1..4")
     chain = [set(np.nonzero(model.ancestor_mask[int(model.dof_bodyid[d])])[0])
              for d in range(model.nv)]
-    for t in np.nonzero(model.tendon_limited)[0]:
+    for t in _tendon_rows(model):
         nz = np.nonzero(model.tendon_coef[t])[0]
-        if not _solimp_power_ok(model.tendon_limit_solimp[t]):
+        if model.tendon_limited[t] and not _solimp_power_ok(model.tendon_limit_solimp[t]):
             bad.append("tendon-limit solimp power outside 1..4")
         if len(nz) > MAXTNZ:
             raise ValueError(f"tendon {t}: {len(nz)} dofs > capacity {MAXTNZ}")
-        if any(e not in chain[d] for d in nz for e in nz if e < d):
+        if model.tendon_limited[t] and any(e not in chain[d] for d in nz for e in nz if e < d):
             bad.append("tendon across branches (mass-matrix fill-in)")
     if any(model.body_parent[b] >= b for b in range(1, model.nbody)):
         bad.append("bodies not ordered parents-first")
@@ -209,11 +250,16 @@ def check_kernel_supported(model: PhysicsModel) -> None:
     if bad:
         raise NotImplementedError(
             "rollout kernel does not cover: " + "; ".join(sorted(set(bad))))
-    npair = sum(model.geoms[p.geom1].gtype == GEOM_PLANE for p in model.contact_pairs)
+    plane = [p for p in model.contact_pairs if model.geoms[p.geom1].gtype == GEOM_PLANE]
+    nmv = sum(len(model.geoms[p.geom2].mesh_verts) for p in plane
+              if model.geoms[p.geom2].gtype == GEOM_MESH)
     caps = (("bodies", model.nbody, MAXB), ("joints", len(model.joints), MAXJ),
             ("dofs", model.nv, MAXV), ("qpos", model.nq, MAXQ),
-            ("actuators", model.nu, MAXU), ("plane contact pairs", npair, MAXP),
-            ("limited tendons", int(np.sum(model.tendon_limited)), MAXT))
+            ("actuators", model.nu, MAXU), ("plane contact pairs", len(plane), MAXP),
+            ("limited or driven fixed tendons", len(_tendon_rows(model)), MAXT),
+            ("ball joints", sum(j.jtype == BALL for j in model.joints), MAXBALL),
+            ("multi-dof, tendon or site transmissions", len(_transmissions(model)), MAXTRN),
+            ("mesh vertices on plane pairs", nmv, MAXMV))
     for what, n, cap in caps:
         if n > cap:
             raise ValueError(f"model has {n} {what}; the kernel holds {cap}")
@@ -224,7 +270,7 @@ def _cost_constants(cost_factory: Callable, model: PhysicsModel, kw: dict):
     if cost_factory not in _COST_ID:
         raise NotImplementedError(
             f"the CUDA rollout kernel carries {sorted(f.__name__ for f in _COST_ID)}, "
-            f"not {getattr(cost_factory, '__name__', cost_factory)} (ROADMAP B1)")
+            f"not {getattr(cost_factory, '__name__', cost_factory)}")
     a = inspect.signature(cost_factory).bind(model, **kw)
     a.apply_defaults()
     c = a.arguments
@@ -254,6 +300,10 @@ def _cost_constants(cost_factory: Callable, model: PhysicsModel, kw: dict):
         vals = [float(c[k]) for k in _HOPPER_W]
     elif cost_factory is kernel_costs.cartpole:
         pass
+    elif cost_factory is kernel_costs.arm5:
+        bodies = [model.body_id("hand"), 0, 0, 0]
+        vals = [float(v) for v in c["target"]] + [float(c[k]) for k in ("w_reach", "w_vel",
+                                                                         "w_ctrl")]
     elif cost_factory is kernel_costs.quadruped:
         flags = (_COST_PARAM_TARGET * bool(c["param_goal"])
                  | _COST_PARAM_GAIT * bool(c["param_gait"]))
@@ -269,6 +319,8 @@ def _pair_kind(geom) -> int:
         return _PAIR_SPHERE
     if geom.gtype == GEOM_BOX:
         return _PAIR_BOX
+    if geom.gtype == GEOM_MESH:
+        return _PAIR_MESH
     return _PAIR_CYLINDER if geom.gtype_orig == GEOM_CYLINDER else _PAIR_CAPSULE
 
 
@@ -309,20 +361,41 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
     chain_bits = [sum(1 << d for d in np.nonzero(model.ancestor_mask[b])[0])
                   for b in range(nb)]
     hs_meff = dict(zip(model.hs_dofadr.tolist(), model.hs_limit_meff.tolist()))
+    springs = {d: (k, qref) for d, _, k, qref in model.ball_springs}
+    limits = {d: lim for d, _, *lim in model.ball_limits}
+    balls = []
     for j, jnt in enumerate(model.joints):
         v["jnt_type"][j], v["jnt_qposadr"][j] = jnt.jtype, jnt.qposadr
-        v["jnt_dofadr"][j], v["jnt_limited"][j] = jnt.dofadr, int(jnt.limited)
+        v["jnt_dofadr"][j] = jnt.dofadr
         v["jnt_pos"][j], v["jnt_axis"][j] = jnt.pos, jnt.axis
-        if jnt.jtype != FREE:  # hinge or slide
+        if jnt.jtype in (SLIDE, HINGE):
             v["jnt_qpos0"][j] = model.qpos0[jnt.qposadr]
             v["jnt_stiffness"][j] = jnt.stiffness
             v["jnt_springref"][j] = jnt.springref
-        if jnt.limited and jnt.jtype != FREE:
-            v["jnt_range"][j] = jnt.range
-            v["jnt_meff"][j] = hs_meff[jnt.dofadr]
-            v["jnt_kbase"][j], v["jnt_bref"][j] = sph._solref_kb_scalar(
-                jnt.solref, jnt.solimp)
-            v["jnt_solimp"][j] = _solimp(jnt.solimp)
+            v["jnt_limited"][j] = int(jnt.limited)
+            if jnt.limited:
+                v["jnt_range"][j] = jnt.range
+                v["jnt_meff"][j] = hs_meff[jnt.dofadr]
+                v["jnt_kbase"][j], v["jnt_bref"][j] = sph._solref_kb_scalar(
+                    jnt.solref, jnt.solimp)
+                v["jnt_solimp"][j] = _solimp(jnt.solimp)
+        elif jnt.jtype == BALL:
+            # the spring's stiffness and reference; the limit's maximum
+            # rotation angle in range[1], and its m_eff, solref and solimp
+            k = len(balls)
+            balls.append(j)
+            if jnt.dofadr in springs:
+                v["jnt_stiffness"][j] = springs[jnt.dofadr][0]
+                v["ball_qref"][k] = springs[jnt.dofadr][1]
+            if jnt.dofadr in limits:
+                max_angle, solref, solimp, meff = limits[jnt.dofadr]
+                v["jnt_limited"][j] = 1
+                v["jnt_range"][j] = (0.0, max_angle)
+                v["jnt_meff"][j] = meff
+                v["jnt_kbase"][j], v["jnt_bref"][j] = sph._solref_kb_scalar(solref, solimp)
+                v["jnt_solimp"][j] = _solimp(solimp)
+    s.nball = len(balls)
+    v["ball_jnt"][:len(balls)] = balls
     nv = model.nv
     v["dof_body"][:nv] = model.dof_bodyid
     chain = [chain_bits[int(model.dof_bodyid[d])] for d in range(nv)]
@@ -334,6 +407,21 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
                            for d in range(nv)]
     v["dof_frictionloss"][:nv] = model.dof_frictionloss
     v["dof_fl_gain"][:nv] = np.asarray(model.dof_frictionloss, dtype=np.float64) / 0.05
+    ten_rows = _tendon_rows(model)
+    v["act_trn"][:] = -1
+    trn = _transmissions(model)
+    s.ntrn = len(trn)
+    for k, (i, kind) in enumerate(trn):
+        act = model.actuators[i]
+        v["act_trn"][i], v["trn_kind"][k] = k, kind
+        v["trn_gear"][k] = act.gear6
+        if kind == _TRN_SITE:
+            v["trn_body"][k] = act.site_bodyid
+            v["trn_pos"][k], v["trn_quat"][k] = act.site_pos, act.site_quat
+        elif kind == _TRN_TENDON:
+            v["trn_ten"][k] = ten_rows.index(act.tendon_id)
+        else:
+            v["trn_gear"][k, act.ndof:] = 0.0
     for i, act in enumerate(model.actuators):
         v["act_dof"][i], v["act_qpos"][i] = act.dofadr, act.qposadr
         v["act_ctrllimited"][i] = int(act.ctrllimited)
@@ -342,7 +430,7 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
         v["act_bias"][i] = act.bias
         v["act_ctrlrange"][i] = act.ctrlrange
         v["act_forcerange"][i] = act.forcerange
-    npair = 0
+    npair = nmv = 0
     for pair in model.contact_pairs:
         g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
         if g1.gtype != GEOM_PLANE:
@@ -352,18 +440,17 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
         qw, qx, qy, qz = [float(x) for x in g1.quat]
         n = np.array([2 * (qx * qz + qw * qy), 2 * (qy * qz - qw * qx),
                       1 - 2 * (qx * qx + qy * qy)])
-        if tuple(n) == (0.0, 0.0, 1.0):
-            t1, t2 = np.array([1.0, 0.0, 0.0]), np.array([0.0, 1.0, 0.0])
-        else:
-            t1 = np.cross(n, [0.0, 0.0, 1.0])
-            if np.linalg.norm(t1) < 1e-6:
-                t1 = np.cross(n, [0.0, 1.0, 0.0])
-            t1 /= np.linalg.norm(t1)
-            t2 = np.cross(n, t1)
-        v["pair_frame"][i] = np.stack([t1, t2, n])
+        v["pair_n"][i] = n
         v["pair_p0n"][i] = float(np.dot(np.asarray(g1.pos), n))
         v["pair_body"][i] = g2.bodyid
-        v["pair_type"][i] = _pair_kind(g2)
+        v["pair_type"][i] = kind = _pair_kind(g2)
+        if kind == _PAIR_MESH:
+            mv = np.asarray(g2.mesh_verts)
+            v["pair_vadr"][i], v["pair_npt"][i] = nmv, len(mv)
+            v["mesh_vert"][nmv:nmv + len(mv)] = mv
+            nmv += len(mv)
+        else:
+            v["pair_npt"][i] = _PAIR_POINTS[kind]
         v["pair_gpos"][i], v["pair_gquat"][i] = g2.pos, g2.quat
         v["pair_size"][i] = g2.size[:3]
         v["pair_mu"][i] = pair.mu if pair.condim > 1 else 0.0
@@ -372,10 +459,11 @@ def pack_tables(model: PhysicsModel, cost_factory: Callable, cost_kwargs: dict,
         v["pair_meff"][i], v["pair_margin"][i] = pair.m_eff, pair.margin
         v["pair_solimp"][i] = _solimp(pair.solimp)
     s.npair = npair
-    dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype != FREE}
+    dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype in (SLIDE, HINGE)}
     nten = 0
-    for t in np.nonzero(model.tendon_limited)[0]:
+    for t in ten_rows:
         nz = np.nonzero(model.tendon_coef[t])[0]
+        v["ten_limited"][nten] = int(model.tendon_limited[t])
         v["ten_nnz"][nten] = len(nz)
         v["ten_dof"][nten, :len(nz)] = nz
         v["ten_qpos"][nten, :len(nz)] = [dof2q[d] for d in nz]
@@ -426,10 +514,19 @@ def _pack_schedule(model: PhysicsModel, s, v: dict, chain_bits: list, npair: int
     v["acc_adr"][:len(acc) + 1] = np.cumsum([0] + [len(lv) for lv in acc])
     v["acc_body"][:sum(map(len, acc))] = [b for lv in acc for b in lv]
     for j, jnt in enumerate(model.joints):
-        nd = 6 if jnt.jtype == FREE else 1
-        v["dof_jnt"][jnt.dofadr:jnt.dofadr + nd] = j
+        v["dof_jnt"][jnt.dofadr:jnt.dofadr + jnt.ndof] = j
+    # the dofs each actuator drives: its joint's (a ball/free motor's where
+    # its gear is nonzero), its tendon's, or its site body's chain
     for i, act in enumerate(model.actuators):
-        v["dof_acts"][act.dofadr] |= 1 << i
+        if act.site_bodyid >= 0:
+            dofs = np.nonzero(model.ancestor_mask[act.site_bodyid])[0]
+        elif act.tendon_id >= 0:
+            dofs = np.nonzero(model.tendon_coef[act.tendon_id])[0]
+        else:
+            dofs = [act.dofadr + c for c in range(act.ndof)
+                    if act.ndof == 1 or act.gear6[c] != 0.0]
+        for d in dofs:
+            v["dof_acts"][d] |= 1 << i
     # dofs by chain depth; the mass-matrix entries by their row's level;
     # and the entries each level's columns update: rows on the chains above
     anc = [int(x) for x in v["dof_anc"][:nv]]
@@ -458,7 +555,7 @@ def _pack_schedule(model: PhysicsModel, s, v: dict, chain_bits: list, npair: int
         raise ValueError(f"model needs {len(chol)} Cholesky updates; the kernel holds {MAXCHOL}")
     v["chol_adr"][:len(adr)] = adr
     v["chol_ent"][:len(chol)] = chol
-    s.ten_dofmask = sum(1 << int(d) for t in range(nten)
+    s.ten_dofmask = sum(1 << int(d) for t in range(nten) if v["ten_limited"][t]
                         for d in v["ten_dof"][t, :v["ten_nnz"][t]])
     off, s.ws_size = workspace_layout(model, nten)
     v["off"][:] = [off[name] for name in WS_FIELDS]

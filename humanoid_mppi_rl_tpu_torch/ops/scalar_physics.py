@@ -9,27 +9,31 @@ results agree with the JAX step to rounding. This is the reference the CUDA
 kernel (csrc/rollout_body.cuh) is held against; it runs one small tensor op
 per equation and is no yardstick of speed.
 
-Covered: free, slide and hinge joints, single-dof motors, dof damping and
-frictionloss, joint springs and limits, limited fixed tendons, and
-plane-vs-sphere/capsule/box/exact-cylinder penalty contacts -- the
-humanoid's, the Go1's, the cartpole's and the hopper's feature sets.
-`unsupported_features` names what a model needs beyond that (ball joints,
-meshes, moving planes); those branches raise NotImplementedError here and
-in ops/rollout_kernel (ROADMAP.md B1).
+Covered: free, ball, slide and hinge joints; joint, multi-dof (ball/free
+motor), fixed-tendon and site actuator transmissions; dof damping and
+frictionloss; joint springs and limits, ball-joint quaternion springs and
+rotation-angle limits; limited fixed tendons; and plane-vs-sphere/capsule/
+box/exact-cylinder/mesh penalty contacts -- every robot of the JAX
+registry. `unsupported_features` names what a model needs beyond that
+(moving planes); such a model raises NotImplementedError here and in
+ops/rollout_kernel, as in the JAX module.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..physics.model import (
+    BALL,
     FREE,
     GEOM_BOX,
     GEOM_CAPSULE,
     GEOM_CYLINDER,
+    GEOM_MESH,
     GEOM_PLANE,
     GEOM_SPHERE,
     HINGE,
@@ -39,6 +43,7 @@ from ..physics.model import (
 # the planner tier's cap (m/s) on the separation velocity a contact or limit
 # may push out at
 from ..physics.contact import RESTITUTION_VCAP
+from .kernel_math import atan2 as _atan2
 _VT_EPS = 5e-3
 # (cos, sin) of the exact cylinder's three rim points per cap
 _RIM = ((1.0, 0.0), (-0.5, 0.8660254037844386), (-0.5, -0.8660254037844386))
@@ -51,15 +56,15 @@ def unsupported_features(model: PhysicsModel) -> List[str]:
     """What `model` needs beyond the port's scalar step (empty = covered)."""
     bad = []
     for j in model.joints:
-        if j.jtype not in (FREE, SLIDE, HINGE):
-            bad.append(f"joint type {j.jtype} (only free, slide and hinge)")
+        if j.jtype not in (FREE, BALL, SLIDE, HINGE):
+            bad.append(f"joint type {j.jtype}")
     for pair in model.contact_pairs:
         g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
         if g1.gtype != GEOM_PLANE:
             continue
         if g1.bodyid != 0:
             bad.append("moving planes")
-        if g2.gtype in (GEOM_SPHERE, GEOM_CAPSULE, GEOM_BOX):
+        if g2.gtype in (GEOM_SPHERE, GEOM_CAPSULE, GEOM_BOX, GEOM_MESH):
             continue
         bad.append(f"plane-vs-geom type {g2.gtype} (orig {g2.gtype_orig})")
     return sorted(set(bad))
@@ -173,6 +178,25 @@ def qrot(q: Quat, v: Vec3) -> Vec3:
     return (fadd(vx, fmul(2, fadd(fmul(w, cx), dx))),
             fadd(vy, fmul(2, fadd(fmul(w, cy), dy))),
             fadd(vz, fmul(2, fadd(fmul(w, cz), dz))))
+
+
+def qconj(q: Quat) -> Quat:
+    w, x, y, z = q
+    return (w, -x if not _czero(x) else 0.0,
+            -y if not _czero(y) else 0.0,
+            -z if not _czero(z) else 0.0)
+
+
+def qlog(q: Quat):
+    """Rotation vector (axis*angle, folded to [-pi, pi]) of a unit
+    quaternion (physics/spatial.quat_log in scalar form), with the
+    kernel's polynomial atan2 and its Newton step."""
+    w, x, y, z = q
+    sin_half = torch.sqrt(x * x + y * y + z * z + 1e-24)
+    angle = 2.0 * _atan2(sin_half, w, precise=True)
+    angle = torch.where(angle > math.pi, angle - 2 * math.pi, angle)
+    s = angle / sin_half
+    return (x * s, y * s, z * s)
 
 
 def qmat(q: Quat):
@@ -359,6 +383,22 @@ def _fk_scalar(model: PhysicsModel, qpos: List):
                 for i in range(3):
                     a_w = (R[0][i], R[1][i], R[2][i])
                     S[d + 3 + i] = a_w + cross(pos, a_w)
+            elif jnt.jtype == BALL:
+                # a quaternion about the joint's anchor; its S rows are the
+                # columns of the post-joint rotation, anchored there
+                a = jnt.qposadr
+                qw, qx, qy, qz = qpos[a], qpos[a + 1], qpos[a + 2], qpos[a + 3]
+                inv = torch.rsqrt(qw * qw + qx * qx + qy * qy + qz * qz)
+                q4 = (qw * inv, qx * inv, qy * inv, qz * inv)
+                jp = tuple(float(x) for x in jnt.pos)
+                anchor = add3(pos, qrot(quat, jp)) if jp != (0.0, 0.0, 0.0) else pos
+                quat = qmul(quat, q4)
+                if jp != (0.0, 0.0, 0.0):
+                    pos = sub3(anchor, qrot(quat, jp))
+                R = qmat(quat)
+                for i in range(3):
+                    a_w = (R[0][i], R[1][i], R[2][i])
+                    S[jnt.dofadr + i] = a_w + cross(anchor, a_w)
             elif jnt.jtype == SLIDE:
                 q = qpos[jnt.qposadr] - float(qpos0[jnt.qposadr])
                 ax = tuple(float(x) for x in jnt.axis)
@@ -379,8 +419,7 @@ def _fk_scalar(model: PhysicsModel, qpos: List):
                 a_w = qrot(quat, ax)
                 S[jnt.dofadr] = a_w + cross(anchor, a_w)
             else:
-                raise NotImplementedError(
-                    f"joint type {jnt.jtype}: the port covers free, slide and hinge")
+                raise NotImplementedError(f"joint type {jnt.jtype}")
 
         xpos[b] = pos
         xquat[b] = quat
@@ -402,6 +441,18 @@ def _velocities_and_sdot(model: PhysicsModel, S, qvel):
                 for i in range(6):
                     Vcur = add6(Vcur, scl6(S[d + i], qvel[d + i]))
                 free_dofs.append(d)
+            elif jnt.jtype == BALL:
+                # the three rows are fixed in the post-ball frame: Sdot uses
+                # the chain's velocity up to and including the ball's own
+                # dofs (model.pred_mask's ball rows)
+                for i in range(3):
+                    Vcur = add6(Vcur, scl6(S[d + i], qvel[d + i]))
+                w1, l1 = Vcur[0:3], Vcur[3:6]
+                for i in range(3):
+                    w2, l2 = S[d + i][0:3], S[d + i][3:6]
+                    cw = cross(w1, w2)
+                    cl = add3(cross(w1, l2), cross(l1, w2))
+                    W[d + i] = tuple(x * qvel[d + i] for x in (cw + cl))
             else:
                 w1, l1 = Vcur[0:3], Vcur[3:6]
                 w2, l2 = S[d][0:3], S[d][3:6]
@@ -505,11 +556,75 @@ def scalar_step(
     Fext: Dict[int, tuple] = {b: (0.0,) * 6 for b in range(model.nbody)}
     Dcon: Dict[int, tuple] = {}  # per-body 6x6 contact damping (21-sym)
 
+    # actuators, each through its transmission (JAX engine._actuator_forces'
+    # branches)
+    dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype in (SLIDE, HINGE)}
     for i, act in enumerate(model.actuators):
         u = ctrl[i]
         if act.ctrllimited:
             u = torch.clamp(u, float(act.ctrlrange[0]), float(act.ctrlrange[1]))
         b0, b1, b2 = [float(x) for x in act.bias]
+        if act.site_bodyid >= 0:
+            # a site's wrench (gear6: force, then torque, in the site frame)
+            # projected onto the site body's chain; length 0
+            b = act.site_bodyid
+            sp_l = tuple(float(x) for x in act.site_pos)
+            p_s = add3(xpos[b], qrot(xquat[b], sp_l)) if sp_l != (0.0, 0.0, 0.0) else xpos[b]
+            sq = tuple(float(x) for x in act.site_quat)
+            R_s = qmat(qmul(xquat[b], sq)) if sq != (1.0, 0.0, 0.0, 0.0) else getR(b)
+            gv6 = [float(x) for x in act.gear6]
+            Fw = tuple(fadd(fadd(fmul(R_s[r][0], gv6[0]), fmul(R_s[r][1], gv6[1])),
+                            fmul(R_s[r][2], gv6[2])) for r in range(3))
+            tq = tuple(fadd(fadd(fmul(R_s[r][0], gv6[3]), fmul(R_s[r][1], gv6[4])),
+                            fmul(R_s[r][2], gv6[5])) for r in range(3))
+            tau0 = add3(tq, cross(p_s, Fw))
+            chain = _chain_dofs(model, b)
+            moment = {d: fadd(dot3(S[d][0:3], tau0), dot3(S[d][3:6], Fw)) for d in chain}
+            vel = sum(fmul(moment[d], qvel[d]) for d in chain)
+            force = float(act.gain) * u
+            if b0:
+                force = force + b0
+            if b2:
+                force = force + b2 * vel
+            if act.forcelimited:
+                force = torch.clamp(force, float(act.forcerange[0]), float(act.forcerange[1]))
+            for d in chain:
+                tau[d] = fadd(tau[d], fmul(moment[d], force))
+            continue
+        if act.tendon_id >= 0:
+            # a fixed tendon: length and velocity are the gear-scaled tendon
+            # coordinates, the moment gear * its coefficients
+            coef = model.tendon_coef[act.tendon_id]
+            nz = np.nonzero(coef)[0]
+            gear = float(act.gear)
+            L = sum(float(coef[d]) * qpos[dof2q[d]] for d in nz)
+            Ld = sum(float(coef[d]) * qvel[d] for d in nz)
+            force = float(act.gain) * u
+            if b0:
+                force = force + b0
+            if b1:
+                force = force + b1 * (gear * L)
+            if b2:
+                force = force + b2 * (gear * Ld)
+            if act.forcelimited:
+                force = torch.clamp(force, float(act.forcerange[0]), float(act.forcerange[1]))
+            for d in nz:
+                tau[d] = fadd(tau[d], fmul(float(coef[d]) * gear, force))
+            continue
+        if act.ndof > 1:
+            # a motor on a ball or free joint: the gear vector over its
+            # dofs, the velocity bias on the gear projection of qvel
+            gv = [float(x) for x in act.gear6[:act.ndof]]
+            vel = sum(fmul(gv[k], qvel[act.dofadr + k]) for k in range(act.ndof))
+            force = float(act.gain) * u
+            if b2:
+                force = force + b2 * vel
+            if act.forcelimited:
+                force = torch.clamp(force, float(act.forcerange[0]), float(act.forcerange[1]))
+            for k in range(act.ndof):
+                if gv[k]:
+                    tau[act.dofadr + k] = fadd(tau[act.dofadr + k], fmul(gv[k], force))
+            continue
         gear = float(act.gear)
         force = float(act.gain) * u
         if b0:
@@ -548,8 +663,27 @@ def scalar_step(
             tau[d] = fadd(tau[d], s_dir * f_l)
             g_diag[d] = fadd(g_diag[d], c_l)
 
+    # ball joints: quaternion springs tau -= k subQuat(q, q_spring) (a
+    # local-frame rotation vector), then rotation-angle limits, a row
+    # J = -axis over the ball's dofs with the single-dof limit law
+    for dofadr, qadr, k, qref in model.ball_springs:
+        q4 = (qpos[qadr], qpos[qadr + 1], qpos[qadr + 2], qpos[qadr + 3])
+        vec = qlog(qmul(qconj(tuple(float(x) for x in qref)), q4))
+        for i in range(3):
+            tau[dofadr + i] = fsub(tau[dofadr + i], float(k) * vec[i])
+    ball_limit_G: List[Tuple[int, tuple, object]] = []
+    for dofadr, qadr, max_angle, bl_solref, bl_solimp, bl_meff in model.ball_limits:
+        rotvec = qlog((qpos[qadr], qpos[qadr + 1], qpos[qadr + 2], qpos[qadr + 3]))
+        angle = torch.sqrt(dot3(rotvec, rotvec) + 1e-24)
+        axis = scl3(rotvec, 1.0 / angle)
+        v_row = -(dot3(axis, (qvel[dofadr], qvel[dofadr + 1], qvel[dofadr + 2])))
+        _, f_b, c_b = _limit_force(angle - float(max_angle), torch.zeros_like(angle), v_row,
+                                   float(bl_meff), bl_solref, bl_solimp, h)
+        for i in range(3):
+            tau[dofadr + i] = fsub(tau[dofadr + i], axis[i] * f_b)
+        ball_limit_G.append((dofadr, axis, c_b))
+
     # limited fixed tendons
-    dof2q = {j.dofadr: j.qposadr for j in model.joints if j.jtype in (SLIDE, HINGE)}
     tendon_G: List[Tuple[np.ndarray, object]] = []
     for t in range(model.tendon_coef.shape[0]):
         if not model.tendon_limited[t]:
@@ -567,7 +701,7 @@ def scalar_step(
             tau[d] = fadd(tau[d], fmul(float(coef[d]), f_t))
         tendon_G.append((coef, c_t))
 
-    # --- contacts: plane vs sphere/capsule/cylinder/box -----------------------
+    # --- contacts: plane vs sphere/capsule/cylinder/box/mesh ----------------
     for pair in model.contact_pairs:
         g1 = model.geoms[pair.geom1]
         g2 = model.geoms[pair.geom2]
@@ -636,6 +770,16 @@ def scalar_step(
                             for i in range(3)))
                         phi = dot3(n_c, corner) - p0_dot_n
                         pts.append((sub3(corner, scl3(n_c, 0.5 * phi)), phi))
+        elif g2.gtype == GEOM_MESH:
+            # every vertex is a candidate point, gated by penetration like a
+            # box corner (the array tiers keep the 4 deepest instead)
+            Rg = getR(b) if gq_l == (1.0, 0.0, 0.0, 0.0) else qmat(gq)
+            for v_loc in g2.mesh_verts:
+                vx, vy, vz = [float(x) for x in v_loc]
+                w_ = add3(gp, tuple(Rg[i][0] * vx + Rg[i][1] * vy + Rg[i][2] * vz
+                                    for i in range(3)))
+                phi = dot3(n_c, w_) - p0_dot_n
+                pts.append((sub3(w_, scl3(n_c, 0.5 * phi)), phi))
         else:
             raise NotImplementedError(
                 f"plane-vs-geom type {g2.gtype} (orig {g2.gtype_orig})")
@@ -749,6 +893,13 @@ def scalar_step(
             for e in nz[: i_ + 1]:
                 key = (max(d, e), min(d, e))
                 Mh[key] = Mh[key] + h * float(coef[d]) * float(coef[e]) * c_act
+    # ball limits' implicit damping c_b axis axis^T over the ball's dofs
+    # (one chain: every entry is in the pattern)
+    for dofadr, axis, c_b in ball_limit_G:
+        for i_ in range(3):
+            for j_ in range(i_ + 1):
+                key = (dofadr + i_, dofadr + j_)
+                Mh[key] = Mh[key] + h * c_b * axis[i_] * axis[j_]
 
     # --- tree-sparse Cholesky + solve -------------------------------------
     # dofs are topologically ordered parents-first; eliminating leaves first
@@ -798,6 +949,18 @@ def scalar_step(
     for jnt in model.joints:
         if jnt.jtype in (SLIDE, HINGE):
             qpos_new[jnt.qposadr] = qpos[jnt.qposadr] + h * qvel_new[jnt.dofadr]
+        elif jnt.jtype == BALL:
+            # the local-frame exponential map, as the free joint's rotation
+            qa, d = jnt.qposadr, jnt.dofadr
+            wx, wy, wz = qvel_new[d], qvel_new[d + 1], qvel_new[d + 2]
+            ang = torch.sqrt(wx * wx + wy * wy + wz * wz + 1e-30)
+            half = 0.5 * h * ang
+            sinc = torch.sin(half) / ang
+            dq = (torch.cos(half), wx * sinc, wy * sinc, wz * sinc)
+            qn = qmul((qpos[qa], qpos[qa + 1], qpos[qa + 2], qpos[qa + 3]), dq)
+            norm_inv = torch.rsqrt(qn[0] ** 2 + qn[1] ** 2 + qn[2] ** 2 + qn[3] ** 2)
+            for i in range(4):
+                qpos_new[qa + i] = qn[i] * norm_inv
         else:  # FREE
             qa, d = jnt.qposadr, jnt.dofadr
             for i in range(3):

@@ -1,15 +1,16 @@
-"""Contact rows of the coupled plant (physics/contact.py counterpart, the
-humanoid and Go1 subset): a static plane against spheres, capsules, boxes
-and exact cylinders, and the body-body ("self") pairs of spheres, capsules
-and cylinders (as inscribed capsules; box self pairs are skipped, as in
-the JAX engine).
+"""Contact rows of the coupled plant (physics/contact.py counterpart): a
+static plane against spheres, capsules, boxes, exact cylinders and meshes,
+and the body-body ("self") pairs of spheres, capsules and cylinders (as
+inscribed capsules; box self pairs are skipped, as in the JAX engine).
 
 Each plane pair always contributes its points (a sphere one, a capsule its
-two end spheres, a box its 8 corners, a cylinder three rim points per cap),
-gated to inactive when separated. Self pairs go through a segment-segment
-narrowphase over every candidate; the SELF_TOPK deepest are kept, ranked by
-penetration with ties to the lower candidate index (as jax.lax.top_k does),
-so the row count is static.
+two end spheres, a box its 8 corners, a cylinder three rim points per cap,
+a mesh its 4 deepest vertices), gated to inactive when separated. A
+mesh's vertices are ranked by plane distance every step, the deepest
+first and the lower vertex index first among equals (as jax.lax.top_k
+ranks them), so the row count is static. Self pairs go through a
+segment-segment narrowphase over every candidate; the SELF_TOPK deepest
+are kept, ranked the same way.
 
 MuJoCo's soft-constraint reference acceleration per row is
 aref = -b vn + d(r) k pen, with b = 2/(dmax tau), k = d(r)/(dmax^2 tau^2
@@ -21,7 +22,8 @@ fn = max(d(r) m_eff (d(r) k pen - b vn), 0) capped at the restitution
 cap, with the implicit damping matrix G = J^T C J; the plane rows take a
 leading K batch for it (the self rows stay one-sample).
 
-Mesh contacts are refused (ROADMAP A8).
+A mesh in a pair without a plane (mesh-vs-primitive, mesh-vs-mesh) is
+refused (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -53,7 +55,9 @@ _VT_EPS = 5e-3
 
 # plane-row kinds, and the (cos, sin) of an exact cylinder's three rim
 # points per cap (the downhill extreme and two at +-120 deg)
-_SPHERE, _CAPSULE, _BOX, _CYLINDER = 0, 1, 2, 3
+_SPHERE, _CAPSULE, _BOX, _CYLINDER, _MESH = 0, 1, 2, 3, 4
+# rows a plane-vs-mesh pair keeps: its deepest vertices
+MESH_ROWS = 4
 _RIM = ((1.0, 0.0), (-0.5, 0.8660254037844386), (-0.5, -0.8660254037844386))
 
 
@@ -113,7 +117,7 @@ def _self_pair_static(model: PhysicsModel):
         if g1.gtype == GEOM_PLANE or g2.gtype == GEOM_PLANE:
             continue
         if GEOM_MESH in (g1.gtype, g2.gtype):
-            raise NotImplementedError("mesh self pairs (ROADMAP A8)")
+            raise NotImplementedError("mesh-vs-primitive and mesh-vs-mesh pairs (ROADMAP A3)")
         if g1.gtype not in ok_types or g2.gtype not in ok_types:
             continue
         idx.append(k)
@@ -159,19 +163,22 @@ def _friction5(pair) -> np.ndarray:
 class ContactTables:
     """The static half of collect_contact_rows for one model, on the device:
     the plane rows in the JAX order (pair by pair; a capsule's -axis end
-    first) and the self-pair candidates."""
+    first), the candidate points they are chosen from (a mesh's vertices;
+    every other kind's points are its rows), and the self-pair candidates."""
 
     def __init__(self, model: PhysicsModel, device, dtype):
         t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
         ix = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
-        # (geom2 index, plane geom index, point offset in the geom frame,
-        # radius, kind, rim (cos, sin), pair)
-        rows = []
+        # candidate points: (geom2 index, plane geom index, point offset in
+        # the geom frame, radius, kind, rim (cos, sin), pair); and the rows,
+        # as segments of candidates: (first, count, rows kept; 0 = all)
+        rows, segs = [], []
         for pair in model.contact_pairs:
             g1, g2 = model.geoms[pair.geom1], model.geoms[pair.geom2]
             if g1.gtype != GEOM_PLANE:
                 continue
             r = float(g2.size[0])
+            first = len(rows)
             row = lambda off, rad, kind, rim=(0.0, 0.0): rows.append(
                 (pair.geom2, pair.geom1, off, rad, kind, rim, pair))
             if g2.gtype == GEOM_SPHERE:
@@ -189,9 +196,24 @@ class ContactTables:
                     for cy in (-sy, sy):
                         for cz in (-sz, sz):
                             row((cx, cy, cz), 0.0, _BOX)
+            elif g2.gtype == GEOM_MESH:
+                for v in np.asarray(g2.mesh_verts):
+                    row(tuple(float(x) for x in v), 0.0, _MESH)
             else:
-                raise NotImplementedError(
-                    f"plane vs geom type {g2.gtype_orig} (ROADMAP A8)")
+                raise NotImplementedError(f"plane vs geom type {g2.gtype_orig}")
+            n = len(rows) - first
+            segs.append((first, n, min(MESH_ROWS, n) if g2.gtype == GEOM_MESH else 0))
+        # the candidates' own tables (their points and distances: row_off and
+        # row_rim are per candidate), then the rows': a mesh segment keeps
+        # its MESH_ROWS deepest candidates
+        self.has_mesh = any(k for _, _, k in segs)
+        cand = rows
+        if cand:
+            self.cand_kind = np.array([r[4] for r in cand])
+            self.row_off, self.cand_radius = t([r[2] for r in cand]), t([r[3] for r in cand])
+        if self.has_mesh:
+            self.segments = [(a, n, k, ix(np.arange(a, a + n))) for a, n, k in segs]
+            rows = [rows[a + i] for a, n, k in segs for i in range(k or n)]
         self.n_plane = len(rows)
         # the geoms whose world frames a step needs, each once
         geoms = sorted({r[0] for r in rows} | {r[1] for r in rows})
@@ -200,20 +222,22 @@ class ContactTables:
         self.geom_body = ix([g.bodyid for g in gs])
         self.geom_pos = t([g.pos for g in gs])
         self.geom_rot = sp.quat_to_mat(t([g.quat for g in gs])) if gs else None
+        if cand:
+            self.cand_geom = ix([slot[r[0]] for r in cand])
+            self.cand_plane = ix([slot[r[1]] for r in cand])
         if rows:
             g2s = [model.geoms[r[0]] for r in rows]
             pairs = [r[6] for r in rows]
             self.row_kind = kind = np.array([r[4] for r in rows])
             self.row_geom = ix([slot[r[0]] for r in rows])
             self.row_plane = ix([slot[r[1]] for r in rows])
-            self.row_off = t([r[2] for r in rows])
             self.row_radius = t([r[3] for r in rows])
             self.row_capsule = ix(kind == _CAPSULE).bool()
-            # exact cylinder rims: r cos, r sin of each rim point
+            # exact cylinder rims: r cos, r sin of each candidate's rim point
             self.has_cylinder = bool(np.any(kind == _CYLINDER))
-            rad = np.array([float(g.size[0]) for g in g2s])
+            rad = np.array([float(model.geoms[r[0]].size[0]) for r in cand])
             self.row_rim = t([(rc * c, rc * sn) for rc, (c, sn) in
-                              zip(rad * (kind == _CYLINDER), [r[5] for r in rows])])
+                               zip(rad * (self.cand_kind == _CYLINDER), [r[5] for r in cand])])
             bid = np.array([g.bodyid for g in g2s])
             oid = np.array([model.geoms[r[1]].bodyid for r in rows])
             self.row_body, self.row_other = ix(bid), ix(oid)
@@ -294,25 +318,50 @@ def _penalty_fields(rows, n, v_pt, meff):
                 meff=meff, c_n=meff * rows["d_r"] * rows["b_ref"])
 
 
-def _plane_rows(ct: ContactTables, state, S, penalty=False):
-    gpos, gR = geom_world(ct, state)
-    p_pos, n = gpos[..., ct.row_plane, :], gR[..., ct.row_plane, :, 2]
-    g_pos, gRr = gpos[..., ct.row_geom, :], gR[..., ct.row_geom, :, :]
-    axis = gRr[..., :, 2]
-    r = ct.row_radius
-    # the point's centre: a sphere's centre, a capsule's end, a box corner,
-    # a cylinder's cap centre
+def _candidates(ct: ContactTables, gpos, gR):
+    """Every candidate point's centre (..., C, 3) and plane distance
+    (..., C): a sphere's centre, a capsule's end, a box corner, a
+    cylinder's rim point, a mesh vertex."""
+    p_pos, n = gpos[..., ct.cand_plane, :], gR[..., ct.cand_plane, :, 2]
+    g_pos, gRr = gpos[..., ct.cand_geom, :], gR[..., ct.cand_geom, :, :]
     c_end = g_pos + torch.einsum("...pij,pj->...pi", gRr, ct.row_off)
     if ct.has_cylinder:
         # rim points: the cap's downhill direction d = -(n - (a.n) a), or the
         # cylinder's x-axis where |d| <= 1e-6 (standing), and its normal
+        axis = gRr[..., :, 2]
         d = -(n - torch.sum(axis * n, -1, keepdim=True) * axis)
         dn = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
         dhat = torch.where(dn > 1e-6, d / torch.clamp(dn, min=1e-30), gRr[..., :, 0])
         dhat = dhat / torch.linalg.vector_norm(dhat, dim=-1, keepdim=True)
         perp = sp.cross(axis, dhat)
         c_end = c_end + (ct.row_rim[:, 0:1] * dhat + ct.row_rim[:, 1:2] * perp)
-    phi = torch.sum(n * (c_end - p_pos), -1) - r
+    return c_end, torch.sum(n * (c_end - p_pos), -1) - ct.cand_radius
+
+
+def _keep_deepest(ct: ContactTables, c_end, phi):
+    """The rows' points from the candidates: each mesh segment's MESH_ROWS
+    deepest (a stable sort on (-phi, index): jax.lax.top_k's order), every
+    other candidate as it is."""
+    lead = phi.shape[:-1]
+    sel = []
+    for a, n, k, idx in ct.segments:
+        if k:
+            order = torch.sort(-phi[..., a:a + n], dim=-1, descending=True, stable=True)
+            sel.append(order.indices[..., :k] + a)
+        else:
+            sel.append(idx.expand(lead + (n,)))
+    sel = torch.cat(sel, -1)
+    c_end = torch.gather(c_end, -2, sel[..., None].expand(sel.shape + (3,)))
+    return c_end, torch.gather(phi, -1, sel)
+
+
+def _plane_rows(ct: ContactTables, state, S, penalty=False):
+    gpos, gR = geom_world(ct, state)
+    n, axis = gR[..., ct.row_plane, :, 2], gR[..., ct.row_geom, :, 2]
+    r = ct.row_radius
+    c_end, phi = _candidates(ct, gpos, gR)
+    if ct.has_mesh:
+        c_end, phi = _keep_deepest(ct, c_end, phi)
     # contact position midway between the surfaces (MuJoCo contact.pos)
     p = c_end - n * (r + 0.5 * phi)[..., None]
     # capsule frame: t1 = the axis projected onto the plane (makeFrame when

@@ -25,11 +25,15 @@ matrix, no a0 compensation, no coupling between rows.
 An `Engine` holds every constant of one model on one device in one dtype,
 built once. A step copies nothing from the host and reads nothing back: the
 only decisions on the host are the static ones the JAX engine also takes on
-numpy model fields. Covered: free, slide and hinge joints, single-dof
-joint actuators, damping, springs, frictionloss, joint and fixed-tendon
-limits, plane-vs-sphere/capsule/box/cylinder and sphere/capsule/cylinder
-self contacts (the humanoid's, the Go1's, the cartpole's and the hopper's).
-The rest raises NotImplementedError naming its ROADMAP item.
+numpy model fields. Covered: free, ball, slide and hinge joints; joint,
+multi-dof (ball/free motor), fixed-tendon and site actuator transmissions;
+damping, joint and ball-joint quaternion springs, frictionloss; joint,
+ball rotation-angle and fixed-tendon limits; plane-vs-sphere/capsule/box/
+cylinder/mesh and sphere/capsule/cylinder self contacts -- every robot of
+the JAX registry. As in the JAX engine, the coupled tier enforces no ball
+limit (no Newton row), and the penalty tier adds limits only when a
+single-dof joint or a tendon is limited. The rest raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,18 +48,18 @@ from .._device import resolve_device
 from . import contact
 from . import newton
 from . import spatial as sp
-from .model import FREE, HINGE, SLIDE, PhysicsModel
+from .model import BALL, FREE, HINGE, SLIDE, PhysicsModel
 from .newton import cho_solve
 from .state import PhysicsState
 
 
 def _refuse(model: PhysicsModel) -> None:
     bad = sorted({f"joint type {j.jtype}" for j in model.joints
-                  if j.jtype not in (FREE, SLIDE, HINGE)})
+                  if j.jtype not in (FREE, BALL, SLIDE, HINGE)})
     if bad:
         raise NotImplementedError(
-            "the array engine covers free, slide and hinge joints only, not "
-            + ", ".join(bad) + " (ROADMAP A7)")
+            "the array engine covers free, ball, slide and hinge joints, not "
+            + ", ".join(bad))
 
 
 @contextlib.contextmanager
@@ -115,7 +119,7 @@ class Engine:
                 continue
             stages = []
             for slot in range(max(len(model.body_joints[b]) for b in bids)):
-                for jt in (FREE, SLIDE, HINGE):
+                for jt in (FREE, BALL, SLIDE, HINGE):
                     rows, js = [], []
                     for r, b in enumerate(bids):
                         if slot < len(model.body_joints[b]):
@@ -130,6 +134,8 @@ class Engine:
                         jtype=jt, rows=ix(rows),
                         qpos3=ix(qadr[:, None] + np.arange(3)),
                         qpos4=ix(qadr[:, None] + 3 + np.arange(4)),
+                        qball=ix(qadr[:, None] + np.arange(4)),
+                        drows=ix(np.array([j.dofadr for j in js])[:, None] + np.arange(3)),
                         qposadr=ix(qadr), dofadr=ix([j.dofadr for j in js]),
                         axis=t([j.axis for j in js]), jpos=t([j.pos for j in js]),
                         ref=t([model.qpos0[j.qposadr] if jt != FREE else 0.0 for j in js])))
@@ -145,6 +151,9 @@ class Engine:
                 hinge[jnt.dofadr] = 1.0
             elif jnt.jtype == SLIDE:
                 slide[jnt.dofadr] = 1.0
+            elif jnt.jtype == BALL:
+                # rotational rows with the free joint's rotational semantics
+                freer[jnt.dofadr:jnt.dofadr + 3] = 1.0
             else:
                 for i in range(3):
                     freet[jnt.dofadr + i] = freer[jnt.dofadr + 3 + i] = 1.0
@@ -159,9 +168,10 @@ class Engine:
 
     def _build_dynamics(self, model: PhysicsModel) -> None:
         t, ix = self.t, self.ix
-        acts = model.actuators
-        if any(getattr(a, "ndof", 1) != 1 for a in acts):
-            raise NotImplementedError("multi-dof actuator transmissions (ROADMAP A7)")
+        self.single = [i for i, a in enumerate(model.actuators) if a.ndof == 1]
+        acts = [model.actuators[i] for i in self.single]
+        self.act_single_idx = ix(self.single)
+        self._build_transmissions(model)
         inf = np.inf
         self.P = t(model.pred_mask)
         self.live = t(1.0 - model.sdot_zero)
@@ -181,6 +191,10 @@ class Engine:
         self.hs_springref = t([j.springref for j in hs])
         self.frictionloss = t(model.dof_frictionloss)
         self.free_adr = [(int(q), int(d)) for q, d in zip(model.free_qposadr, model.free_dofadr)]
+        self.ball_adr = [(j.qposadr, j.dofadr) for j in model.joints if j.jtype == BALL]
+        self.ball_springs = [(d, q, float(k), t(qref)) for d, q, k, qref in model.ball_springs]
+        # as in the JAX engine: limits (ball limits included) only when a
+        # single-dof joint or a tendon is limited
         self.has_limits = bool(any(j.limited for j in hs) or np.any(model.tendon_limited))
         has_fl = bool(np.any(np.asarray(model.dof_frictionloss) > 0))
         self.newton_mode = bool(model.contact_pairs) or self.has_limits or has_fl
@@ -189,6 +203,22 @@ class Engine:
         self.contact = (contact.ContactTables(model, self.device, self.dtype)
                         if model.contact_pairs else None)
         self.rows = newton.RowTables(model, self.contact, self.device, self.dtype)
+
+    def _build_transmissions(self, model: PhysicsModel) -> None:
+        """Per-actuator constants of the transmissions beyond a single-dof
+        joint's (JAX _actuator_forces' loop): (kind, actuator, tensors)."""
+        t = self.t
+        self.trn = []
+        for i, a in enumerate(model.actuators):
+            if a.site_bodyid >= 0:
+                g = t(a.gear6)
+                self.trn.append(("site", i, dict(
+                    body=a.site_bodyid, pos=t(a.site_pos), R=sp.quat_to_mat(t(a.site_quat)),
+                    g_f=g[:3], g_t=g[3:], anc=t(model.ancestor_mask[a.site_bodyid]))))
+            elif a.tendon_id >= 0:
+                self.trn.append(("tendon", i, dict(coef=t(model.tendon_coef[a.tendon_id]))))
+            elif a.ndof > 1:
+                self.trn.append(("multi", i, dict(gv=t(a.gear6[:a.ndof]))))
 
     def _build_limits(self, model: PhysicsModel, hs) -> None:
         """The penalty tier's joint- and fixed-tendon-limit constants
@@ -209,6 +239,9 @@ class Engine:
                                 **_solref_tables(model.tendon_limit_solref,
                                                  model.tendon_limit_solimp,
                                                  self.device, self.dtype))
+        self.lim_ball = [(d, q, float(ang), dict(
+            lim=t(1.0), meff=t(meff), **_solref_tables([sr], [si], self.device, self.dtype)))
+            for d, q, ang, sr, si, meff in model.ball_limits]
 
     # ---- kinematics --------------------------------------------------------
 
@@ -260,7 +293,7 @@ class Engine:
         I, _ = spatial_inertias(self, state.xpos, state.xquat)
         M = mass_matrix(self, S, I)
         bias = bias_forces(self, S, I, state.body_vel, qvel)
-        tau = actuator_forces(self, qpos, qvel, ctrl)
+        tau = actuator_forces(self, qpos, qvel, ctrl, state)
         # the Newton tier resolves dof frictionloss as Huber rows, so the
         # smooth tanh approximation is left out there
         tau_p, G_p = passive_forces(self, qpos, qvel, frictionloss=not self.newton_mode)
@@ -285,7 +318,7 @@ class Engine:
         I, _ = spatial_inertias(self, state.xpos, state.xquat)
         M = mass_matrix(self, S, I)
         bias = bias_forces(self, S, I, state.body_vel, qvel)
-        tau = actuator_forces(self, qpos, qvel, ctrl)
+        tau = actuator_forces(self, qpos, qvel, ctrl, state)
         tau_p, G_p = passive_forces(self, qpos, qvel, frictionloss=True)
         tau = tau + tau_p
         Mh = M + h * torch.diag(self.damping) + h * G_p
@@ -330,6 +363,21 @@ def fk(eng: Engine, qpos: torch.Tensor):
             if st["jtype"] == FREE:
                 pos[..., rows, :] = qpos[..., st["qpos3"]]
                 quat[..., rows, :] = sp.quat_normalize(qpos[..., st["qpos4"]])
+                continue
+            if st["jtype"] == BALL:
+                # a quaternion about the anchor; the S rows are the columns
+                # of the post-joint rotation, anchored there
+                qr, pr, jpos = quat[..., rows, :], pos[..., rows, :], st["jpos"]
+                anchor = pr + sp.quat_rotate(qr, jpos)
+                qnew = sp.quat_mul(qr, sp.quat_normalize(qpos[..., st["qball"]]))
+                quat[..., rows, :] = qnew
+                pos[..., rows, :] = anchor - sp.quat_rotate(qnew, jpos)
+                n = rows.shape[0]
+                flat = st["drows"].reshape(-1)
+                jaxis_w[..., flat, :] = sp.quat_to_mat(qnew).transpose(-1, -2).reshape(
+                    lead + (3 * n, 3))
+                janchor_w[..., flat, :] = anchor[..., :, None, :].expand(
+                    lead + (n, 3, 3)).reshape(lead + (3 * n, 3))
                 continue
             if st["jtype"] == SLIDE:
                 # a translation along the axis in the body's current frame
@@ -401,20 +449,63 @@ def project_forces(eng: Engine, S: torch.Tensor, F_body: torch.Tensor) -> torch.
     return torch.einsum("bn,...bi,...ni->...n", eng.A, F_body, S)
 
 
-def actuator_forces(eng: Engine, qpos, qvel, ctrl) -> torch.Tensor:
-    """qfrc_actuator (..., nv) of single-dof joint transmissions (mujoco
-    gain/bias)."""
+def actuator_forces(eng: Engine, qpos, qvel, ctrl, state=None) -> torch.Tensor:
+    """qfrc_actuator (..., nv): the single-dof joint actuators at once
+    (mujoco gain/bias), then each other transmission in actuator order
+    (JAX _actuator_forces): a ball/free motor's gear vector, a fixed
+    tendon's coefficients, a site's wrench (needs `state`'s kinematics)."""
     qfrc = torch.zeros(qpos.shape[:-1] + (eng.model.nv,), dtype=qpos.dtype, device=qpos.device)
     if eng.model.nu == 0:
         return qfrc
-    gear = eng.act_gear
-    u = torch.clamp(ctrl, eng.act_ctrl_lo, eng.act_ctrl_hi)
-    length = gear * qpos[..., eng.act_qposadr]
-    velocity = gear * qvel[..., eng.act_dofadr]
-    bias = eng.act_bias
-    force = (eng.act_gain * u + bias[:, 0] + bias[:, 1] * length + bias[:, 2] * velocity)
-    force = torch.clamp(force, eng.act_force_lo, eng.act_force_hi)
-    return qfrc.index_add(-1, eng.act_dofadr, gear * force)
+    if eng.single:
+        gear = eng.act_gear
+        u = torch.clamp(ctrl if len(eng.single) == eng.model.nu
+                        else ctrl[..., eng.act_single_idx], eng.act_ctrl_lo, eng.act_ctrl_hi)
+        length = gear * qpos[..., eng.act_qposadr]
+        velocity = gear * qvel[..., eng.act_dofadr]
+        bias = eng.act_bias
+        force = (eng.act_gain * u + bias[:, 0] + bias[:, 1] * length + bias[:, 2] * velocity)
+        force = torch.clamp(force, eng.act_force_lo, eng.act_force_hi)
+        qfrc = qfrc.index_add(-1, eng.act_dofadr, gear * force)
+    for kind, i, c in eng.trn:
+        act = eng.model.actuators[i]
+        u = ctrl[..., i]
+        if act.ctrllimited:
+            u = torch.clamp(u, float(act.ctrlrange[0]), float(act.ctrlrange[1]))
+        b0, b1, b2 = (float(x) for x in act.bias)
+        if kind == "site":
+            if state is None:
+                raise ValueError("site-transmission actuators need state kinematics")
+            b, S = c["body"], state.S
+            R_b = sp.quat_to_mat(state.xquat[..., b, :])
+            p_s = state.xpos[..., b, :] + R_b @ c["pos"]
+            R_s = R_b @ c["R"]
+            Fw = R_s @ c["g_f"]
+            tau0 = R_s @ c["g_t"] + sp.cross(p_s, Fw)
+            moment = ((S[..., :, :3] @ tau0[..., :, None])[..., 0]
+                      + (S[..., :, 3:] @ Fw[..., :, None])[..., 0]) * c["anc"]
+            vel = torch.sum(moment * qvel, -1)
+            force = float(act.gain) * u + b0 + b2 * vel
+            moment_ = moment
+        elif kind == "tendon":
+            qd = torch.zeros_like(qvel).index_copy(-1, eng.hs_dofadr, qpos[..., eng.hs_qposadr])
+            gear = float(act.gear)
+            length = gear * (qd @ c["coef"])
+            vel = gear * (qvel @ c["coef"])
+            force = float(act.gain) * u + b0 + b1 * length + b2 * vel
+            moment_ = c["coef"] * gear
+        else:
+            d, n = act.dofadr, act.ndof
+            vel = qvel[..., d:d + n] @ c["gv"]
+            force = float(act.gain) * u + b2 * vel
+        if act.forcelimited:
+            force = torch.clamp(force, float(act.forcerange[0]), float(act.forcerange[1]))
+        if kind == "multi":
+            qfrc = torch.cat([qfrc[..., :d], qfrc[..., d:d + n] + c["gv"] * force[..., None],
+                              qfrc[..., d + n:]], -1)
+        else:
+            qfrc = qfrc + moment_ * force[..., None]
+    return qfrc
 
 
 def passive_forces(eng: Engine, qpos, qvel, frictionloss: bool = True):
@@ -431,6 +522,10 @@ def passive_forces(eng: Engine, qpos, qvel, frictionloss: bool = True):
     if eng.hs_qposadr.shape[0]:
         f = -eng.hs_stiffness * (qpos[..., eng.hs_qposadr] - eng.hs_springref)
         tau = tau.index_add(-1, eng.hs_dofadr, f)
+    # ball joints' quaternion springs: tau -= k subQuat(q, q_spring)
+    for d, qa, k, qref in eng.ball_springs:
+        vec = sp.quat_sub(qpos[..., qa:qa + 4], qref)
+        tau = torch.cat([tau[..., :d], tau[..., d:d + 3] + (-k * vec), tau[..., d + 3:]], -1)
     return tau, torch.diag_embed(g_diag)
 
 
@@ -487,6 +582,20 @@ def limit_constraint_forces(eng: Engine, qpos, qvel):
         f_c, c_t = _limit_force(tab, below + above, s * Ldot, eng.h)
         tau = tau + (s * f_c) @ coef
         G_extra = torch.einsum("...t,tn,tm->...nm", c_t, coef, coef)
+    # ball rotation-angle limits: a row J = -axis over the ball's dofs
+    for d, qa, max_angle, tab in eng.lim_ball:
+        rotvec = sp.quat_log(qpos[..., qa:qa + 4])
+        angle = torch.sqrt(torch.sum(rotvec * rotvec, -1) + 1e-24)
+        axis = rotvec / angle[..., None]
+        viol = torch.clamp(angle - max_angle, min=0.0)
+        v_row = -torch.sum(axis * qvel[..., d:d + 3], -1)
+        f_c, c_b = (x.reshape(viol.shape) for x in _limit_force(tab, viol, v_row, eng.h))
+        tau = torch.cat([tau[..., :d], tau[..., d:d + 3] + (-axis * f_c[..., None]),
+                         tau[..., d + 3:]], -1)
+        Gb = c_b[..., None, None] * axis[..., :, None] * axis[..., None, :]
+        pad = torch.zeros(qvel.shape + (qvel.shape[-1],), dtype=qvel.dtype, device=qvel.device)
+        pad[..., d:d + 3, d:d + 3] = Gb
+        G_extra = pad if G_extra is None else G_extra + pad
     G = torch.diag_embed(g_diag)
     return tau, G if G_extra is None else G + G_extra
 
@@ -501,4 +610,6 @@ def integrate_qpos(eng: Engine, qpos, qvel, h: float) -> torch.Tensor:
         out[..., qa:qa + 3] = qpos[..., qa:qa + 3] + h * qvel[..., da:da + 3]
         out[..., qa + 3:qa + 7] = sp.quat_integrate(qpos[..., qa + 3:qa + 7],
                                                     qvel[..., da + 3:da + 6], h)
+    for qa, da in eng.ball_adr:
+        out[..., qa:qa + 4] = sp.quat_integrate(qpos[..., qa:qa + 4], qvel[..., da:da + 3], h)
     return out

@@ -13,12 +13,14 @@ the array engine, its contacts and its Newton solver read. assets/
 <robot>.json is the planner's model (humanoid, go1, cartpole, hopper; floor
 pairs only), which the rollout kernel and the array engine's penalty tier
 step; assets/<robot>_plant.json the environment plant, built with the
-body-body pairs (envs/tasks.load_plant). Joints are free, slide or hinge
-(Joint.jtype); the array engine derives its per-dof type masks (JAX
-dof_type_*) from them.
-Features the port does not cover yet (ball joints' springs/limits, spatial
-tendons, mesh geoms, multi-dof / tendon / site actuator transmissions) are
-refused by the export rather than dropped.
+body-body pairs (envs/tasks.load_plant). Joints are free, ball, slide or
+hinge (Joint.jtype); the array engine derives its per-dof type masks (JAX
+dof_type_*) from them. Ball joints carry their quaternion springs and
+rotation-angle limits (`ball_springs`, `ball_limits`, the JAX tuples);
+actuators their multi-dof, fixed-tendon and site transmissions; mesh geoms
+their vertices and convex-hull planes (ragged lists in the snapshot).
+Spatial tendons, which the port does not cover, are refused by the export
+rather than dropped.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 
 # Joint types (mujoco.mjtJoint values)
 FREE = 0
+BALL = 1
 SLIDE = 2
 HINGE = 3
 
@@ -65,8 +68,13 @@ class Joint:
 
 @dataclasses.dataclass(frozen=True)
 class Actuator:
-    """Single-dof joint-transmission actuator:
-    force = gain * ctrl + bias0 + bias1 * (gear*q) + bias2 * (gear*qvel)."""
+    """Actuator: force = gain * ctrl + bias0 + bias1 * length + bias2 *
+    velocity, applied through its transmission. A single-dof joint's
+    length and velocity are gear*q and gear*qvel; a ball or free joint's
+    motor (ndof 3 or 6) drives its dofs by gear6[:ndof] (velocity the gear
+    projection of qvel); a fixed tendon's (tendon_id >= 0, ndof 0) are the
+    gear-scaled tendon coordinates; a site's (site_bodyid >= 0, ndof 0, no
+    refsite) is the wrench gear6 in the site frame (length 0)."""
     dofadr: int
     qposadr: int
     gear: float
@@ -76,6 +84,12 @@ class Actuator:
     ctrlrange: np.ndarray     # (2,)
     forcelimited: bool
     forcerange: np.ndarray    # (2,)
+    ndof: int = 1
+    gear6: np.ndarray = None  # (6,)
+    tendon_id: int = -1
+    site_bodyid: int = -1
+    site_pos: np.ndarray = None   # (3,) body-local
+    site_quat: np.ndarray = None  # (4,) body-local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +100,10 @@ class Geom:
     pos: np.ndarray       # (3,) in body frame
     quat: np.ndarray      # (4,) in body frame
     size: np.ndarray      # (3,)
+    # mesh geoms: deduplicated vertices (V, 3) and convex-hull face planes
+    # (F, 4) [n; d] with n.x + d <= 0 inside, both in the geom frame
+    mesh_verts: np.ndarray = None
+    mesh_hull: np.ndarray = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +173,10 @@ class PhysicsModel:
     cone: int = 0                             # 0 pyramidal, 1 elliptic
     impratio: float = 1.0
     keyframes: Tuple[Tuple[str, np.ndarray], ...] = ()  # (name, qpos (nq,))
+    # ball joints: (dofadr, qposadr, stiffness, spring reference quaternion)
+    # and (dofadr, qposadr, max rotation angle, solref, solimp, m_eff)
+    ball_springs: Tuple = ()
+    ball_limits: Tuple = ()
 
     def body_id(self, name: str) -> int:
         return self.body_names.index(name)
@@ -174,7 +196,8 @@ _JOINT_FIELDS = ("jtype", "bodyid", "qposadr", "dofadr", "ndof", "pos", "axis",
                  "limited", "range", "stiffness", "springref", "solref",
                  "solimp")
 _ACT_FIELDS = ("dofadr", "qposadr", "gear", "gain", "bias", "ctrllimited",
-               "ctrlrange", "forcelimited", "forcerange")
+               "ctrlrange", "forcelimited", "forcerange", "ndof", "gear6", "tendon_id",
+               "site_bodyid", "site_pos", "site_quat")
 _GEOM_FIELDS = ("gtype", "gtype_orig", "bodyid", "pos", "quat", "size")
 _PAIR_FIELDS = ("geom1", "geom2", "mu", "solref", "solimp", "condim",
                 "margin", "m_eff")
@@ -193,26 +216,47 @@ _PLANT_ARRAYS = ("pred_mask", "sdot_zero", "hs_qposadr", "free_qposadr",
 _PLANT_PAIR_FIELDS = ("invw0", "friction5")
 _PLANT_SCALARS = ("cone", "impratio")
 _INT_ARRAYS = ("hs_qposadr", "free_qposadr", "free_dofadr", "free_bodyid")
+# ragged per-geom arrays (a list per geom, empty where it has none)
+_GEOM_RAGGED = ("mesh_verts", "mesh_hull")
+# the ball-joint tuples, field by field: (name, width or 0 for a scalar, int)
+_BALL_SPRING = (("dofadr", 0, True), ("qposadr", 0, True), ("k", 0, False),
+                ("qref", 4, False))
+_BALL_LIMIT = (("dofadr", 0, True), ("qposadr", 0, True), ("max_angle", 0, False),
+               ("solref", 2, False), ("solimp", 5, False), ("meff", 0, False))
+# the site frame of an actuator without a site, as exported
+_ACT_ABSENT = {"site_pos": np.zeros(3), "site_quat": np.zeros(4)}
 
 
 def _refuse_unsupported(m) -> None:
     """Features a PhysicsModel of the JAX package may hold that this port
-    cannot represent yet (queued in ROADMAP.md)."""
-    bad = []
+    cannot represent: spatial (site-chain) tendons, array-engine-only in
+    the reference too."""
     if getattr(m, "spatial_tendons", ()):
-        bad.append("spatial tendons")
-    if getattr(m, "ball_springs", ()) or getattr(m, "ball_limits", ()):
-        bad.append("ball-joint springs/limits")
-    for a in m.actuators:
-        if (getattr(a, "ndof", 1) != 1 or getattr(a, "tendon_id", -1) >= 0
-                or getattr(a, "site_bodyid", -1) >= 0):
-            bad.append("multi-dof / tendon / site actuator transmissions")
-            break
-    if any(getattr(g, "mesh_verts", None) is not None for g in m.geoms):
-        bad.append("mesh geoms")
-    if bad:
-        raise NotImplementedError(
-            "the port cannot carry: " + ", ".join(bad))
+        raise NotImplementedError("the port cannot carry: spatial tendons")
+
+
+def _act_field(a, f):
+    v = getattr(a, f)
+    return _ACT_ABSENT[f] if v is None else np.asarray(v)
+
+
+def _tuples_to_arrays(rows, fields, prefix) -> Dict[str, np.ndarray]:
+    out = {}
+    for i, (name, width, is_int) in enumerate(fields):
+        vals = [np.asarray(r[i], dtype=np.float64) for r in rows]
+        a = np.asarray(vals).reshape((len(rows),) + ((width,) if width else ()))
+        out[f"{prefix}{name}"] = a.astype(np.int64) if is_int else a
+    return out
+
+
+def _arrays_to_tuples(a, fields, prefix) -> Tuple:
+    cols = []
+    for name, width, is_int in fields:
+        v = np.asarray(a[prefix + name], dtype=np.float64)
+        v = v.reshape((-1,) + ((width,) if width else ()))
+        cols.append([int(x) if is_int else (tuple(float(y) for y in x) if width else float(x))
+                     for x in v])
+    return tuple(zip(*cols)) if cols and cols[0] else ()
 
 
 def export_model_arrays(m, plant: bool = False) -> Dict[str, object]:
@@ -232,11 +276,17 @@ def export_model_arrays(m, plant: bool = False) -> Dict[str, object]:
     d["key_qpos"] = np.asarray([np.asarray(q) for _, q in m.keyframes]).reshape(-1, m.nq)
     pair_fields = _PAIR_FIELDS + (_PLANT_PAIR_FIELDS if plant else ())
     for prefix, objs, fields in (("jnt_", m.joints, _JOINT_FIELDS),
-                                 ("act_", m.actuators, _ACT_FIELDS),
                                  ("geom_", m.geoms, _GEOM_FIELDS),
                                  ("pair_", m.contact_pairs, pair_fields)):
         for f in fields:
             d[prefix + f] = np.asarray([np.asarray(getattr(o, f)) for o in objs])
+    for f in _ACT_FIELDS:
+        d["act_" + f] = np.asarray([_act_field(a, f) for a in m.actuators])
+    for f in _GEOM_RAGGED:
+        d["geom_" + f] = [[] if getattr(g, f, None) is None else np.asarray(getattr(g, f))
+                          for g in m.geoms]
+    d.update(_tuples_to_arrays(getattr(m, "ball_springs", ()), _BALL_SPRING, "ball_spring_"))
+    d.update(_tuples_to_arrays(getattr(m, "ball_limits", ()), _BALL_LIMIT, "ball_limit_"))
     return d
 
 
@@ -244,8 +294,9 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
     """Inverse of export_model_arrays (also accepts the JSON snapshot's
     nested lists)."""
     scalars = _MODEL_SCALARS + _PLANT_SCALARS
+    ragged = tuple("geom_" + f for f in _GEOM_RAGGED)
     a = {k: np.asarray(v) for k, v in d.items()
-         if k not in scalars and k not in ("body_names", "key_names")}
+         if k not in scalars and k not in ("body_names", "key_names") + ragged}
     plant = "pred_mask" in d
 
     def objs(cls, prefix, fields, n):
@@ -260,8 +311,17 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
 
     nbody = int(d["nbody"])
     joints = objs(Joint, "jnt_", _JOINT_FIELDS, len(a["jnt_jtype"]))
-    acts = objs(Actuator, "act_", _ACT_FIELDS, len(a["act_dofadr"]))
-    geoms = objs(Geom, "geom_", _GEOM_FIELDS, len(a["geom_gtype"]))
+    nu = len(a["act_dofadr"])
+    for f, w in (("gear6", 6), ("site_pos", 3), ("site_quat", 4)):
+        a["act_" + f] = a["act_" + f].reshape(nu, w)
+    acts = tuple(dataclasses.replace(
+        act, site_pos=None if act.site_bodyid < 0 else act.site_pos,
+        site_quat=None if act.site_bodyid < 0 else act.site_quat)
+        for act in objs(Actuator, "act_", _ACT_FIELDS, nu))
+    geoms = tuple(dataclasses.replace(g, **{
+        f: (np.asarray(d["geom_" + f][i], dtype=np.float64) if len(d["geom_" + f][i]) else None)
+        for f in _GEOM_RAGGED})
+        for i, g in enumerate(objs(Geom, "geom_", _GEOM_FIELDS, len(a["geom_gtype"]))))
     pairs = objs(ContactPair, "pair_", _PAIR_FIELDS + (_PLANT_PAIR_FIELDS if plant else ()),
                  len(a["pair_geom1"]))
     body_joints = [[] for _ in range(nbody)]
@@ -312,6 +372,8 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
         hs_limit_meff=a["hs_limit_meff"].astype(np.float64),
         keyframes=tuple((str(name), q.astype(np.float64)) for name, q in zip(
             d["key_names"], a["key_qpos"].reshape(-1, int(d["nq"])))),
+        ball_springs=_arrays_to_tuples(a, _BALL_SPRING, "ball_spring_"),
+        ball_limits=_arrays_to_tuples(a, _BALL_LIMIT, "ball_limit_"),
         **extra,
     )
 

@@ -13,9 +13,9 @@ import torch
 
 import numpy as np
 
-from chip_smoke import (bf16_errors, cartpole_inputs, exact_stage_cases, go1_inputs,
-                        go1_plant_state, hopper_gait_params, hopper_inputs, plant_state,
-                        seeded_inputs, seeded_weights)
+from chip_smoke import (arm5_inputs, arm5_states, bf16_errors, cartpole_inputs,
+                        exact_stage_cases, go1_inputs, go1_plant_state, hopper_gait_params,
+                        hopper_inputs, plant_state, seeded_inputs, seeded_weights)
 from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
 from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
@@ -524,4 +524,70 @@ def test_cuda_humanoid_tasks_run(task, use_kernel):
     res = runner.run(max_steps=3, chunk=3)
     states, actions, _ = res.logger.arrays()
     assert states.shape == (3, 55) and np.isfinite(states).all() and np.isfinite(actions).all()
+    assert rk.launches - n0 == (3 if use_kernel else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [61, 256])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_arm5_kernel_matches_plain_rollout(dtype, K):
+    """arm5 through the kernel (ball joints, springs and the shoulder limit,
+    ball and free motors, every mesh vertex a contact point) against the
+    plain rollout on arm5_inputs, T=4: f64 rtol 1e-9; f32 cost relative
+    median < 1e-3, max < 1e-2; two launches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    spec, model, *_ = load_task("arm5_reach", dtype=dtype)
+    ro = rk.build_rollout_kernel(model, spec.kernel_cost_factory, 4)
+    x = arm5_inputs(model, K, 4, dtype, seed=12)
+    got = ro(*x)
+    assert all(torch.equal(a, b) for a, b in zip(got, ro(*x)))
+    want = ro.plain(*x)
+    if dtype == torch.float64:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+    else:
+        rel = ((got[0] - want[0]).abs() / want[0].abs()).double()
+        assert float(rel.median()) < 1e-3 and float(rel.max()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["coupled", "penalty"])
+def test_cuda_arm5_steps_match_cpu(solver):
+    """arm5's coupled plant step (one sample, each pose in turn) and penalty
+    step (K=10 at once, the planner model) on the card against the CPU in
+    f64, three steps: the mesh rows' ranking, the ball terms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    model = load_model("arm5_plant" if solver == "coupled" else "arm5")
+    qpos, qvel = (torch.tensor(a) for a in arm5_states(model, 10, seed=13))
+    ctrl = torch.tensor(np.random.default_rng(14).uniform(-3, 3, (10, model.nu)))
+    samples = [(qpos[:, k], qvel[:, k], ctrl[k]) for k in range(10)] if solver == "coupled" \
+        else [(qpos.T.contiguous(), qvel.T.contiguous(), ctrl)]
+    for qp, qv, u in samples:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            eng = Engine(model, dev, torch.float64)
+            st = eng.forward(qp.to(dev), qv.to(dev),
+                             torch.zeros(qp.shape[:-1], dtype=torch.float64, device=dev))
+            for _ in range(3):
+                st = eng.step(st, u.to(dev), solver=solver)
+            out[dev] = st
+        torch.testing.assert_close(out["cuda"].qpos.cpu(), out["cpu"].qpos, rtol=0, atol=1e-10)
+        torch.testing.assert_close(out["cuda"].qvel.cpu(), out["cpu"].qvel, rtol=0, atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [True, False], ids=["kernel", "array"])
+def test_cuda_arm5_reach_runs(use_kernel):
+    """arm5_reach at small K on both planners: finite rows, one launch a
+    control step on the kernel planner, none on the array planner."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    runner = EpisodeRunner("arm5_reach", use_kernel=use_kernel,
+                           mppi_override=dict(n_samples=32, horizon=8))
+    n0 = rk.launches
+    res = runner.run(max_steps=3, chunk=3)
+    states, actions, _ = res.logger.arrays()
+    assert states.shape == (3, 29) and np.isfinite(states).all() and np.isfinite(actions).all()
     assert rk.launches - n0 == (3 if use_kernel else 0)

@@ -383,19 +383,44 @@ def test_go1_tables_and_workspace():
     assert size >= 27 * t.nxpair and t.nxpair == 29
 
 
+REFSITE_XML = """
+<mujoco>
+  <worldbody>
+    <site name="anchor" pos="0 0 1"/>
+    <body pos="0 0 1">
+      <freejoint/>
+      <geom type="box" size="0.1 0.1 0.1" mass="1"/>
+      <site name="thruster" pos="0.1 0 0"/>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor site="thruster" refsite="anchor" gear="1 0 0 0 0 0"/>
+  </actuator>
+</mujoco>
+"""
+
+
 def test_go1_unported_costs_and_features_still_raise(models):
-    """What the port leaves out stays refused: a cost of the JAX registry
-    the kernel does not carry (arm5's), ball joints (mjtJoint 1; slide
-    joints are carried since slice 9) and mesh geoms."""
+    """What the port leaves out stays refused, as the JAX package refuses
+    it on the kernel path: a cost the kernel does not carry, spatial
+    tendons (the snapshot export), a mesh in a pair without a plane
+    (mesh-vs-box), a site transmission with a refsite (the model build) and
+    a plane on a moving body."""
+    from test_engine_generality import MESH_ON_BOX_XML, SPATIAL_TENDON_XML
+
     _, pm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+    with pytest.raises(NotImplementedError, match="carries"):
         rk._cost_constants(lambda model: None, pm, {})
-    joints = list(pm.joints)
-    joints[1] = dataclasses.replace(joints[1], jtype=1)
-    with pytest.raises(NotImplementedError, match="joint type 1"):
-        rk.check_kernel_supported(dataclasses.replace(pm, joints=tuple(joints)))
-    meshed = dataclasses.replace(pm, geoms=tuple(
-        dataclasses.replace(g, gtype=7, gtype_orig=7) if i == pm.contact_pairs[0].geom2 else g
-        for i, g in enumerate(pm.geoms)))
-    with pytest.raises(NotImplementedError, match="plane-vs-geom type 7"):
-        rk.check_kernel_supported(meshed)
+    with pytest.raises(NotImplementedError, match="spatial tendons"):
+        export_model_arrays(build_from_mjcf(xml=SPATIAL_TENDON_XML), plant=True)
+    mesh_on_box = model_from_arrays(export_model_arrays(
+        build_from_mjcf(xml=MESH_ON_BOX_XML, include_self_collisions=True), plant=True))
+    with pytest.raises(NotImplementedError, match="mesh-vs-primitive"):
+        rk.check_kernel_supported(mesh_on_box)
+    with pytest.raises(NotImplementedError, match="refsite"):
+        build_from_mjcf(xml=REFSITE_XML)
+    plane = pm.contact_pairs[0].geom1
+    moving = dataclasses.replace(pm, geoms=tuple(
+        dataclasses.replace(g, bodyid=1) if i == plane else g for i, g in enumerate(pm.geoms)))
+    with pytest.raises(NotImplementedError, match="moving planes"):
+        rk.check_kernel_supported(moving)

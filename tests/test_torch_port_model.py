@@ -192,6 +192,14 @@ assert collect_humanoid_v2py(out_dir=v2_dir, max_steps=2, mppi_override=tiny, ch
                              device="cpu") == [(0, 2)]
 states = [os.path.join(d, f) for d, _, fs in os.walk(v2_dir) for f in fs if "states" in f]
 assert read_csv(states[0]).shape == (2, 56)
+from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+for name in ("arm5", "arm5_plant", "site_act_plant", "tendon_act_plant"):
+    assert load_model(name).nu > 0
+spec, model, _, _, _, init, cfg = load_task("arm5_reach", device="cpu")
+cfg = dataclasses.replace(cfg, n_samples=4, horizon=2)
+plan = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, spec.cost_kwargs, device="cpu")
+action, st, diag = plan(MPPIState.seeded(0, cfg.T, model.nu, device="cpu"), init)
+assert action.shape == (4,) and bool(torch.isfinite(st.U).all())
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded

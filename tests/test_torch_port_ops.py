@@ -23,7 +23,7 @@ from humanoid_mppi_rl_tpu_torch.ops import kernel_costs as tkc
 from humanoid_mppi_rl_tpu_torch.ops import kernel_math as tkm
 from humanoid_mppi_rl_tpu_torch.ops import scalar_physics as tsph
 from humanoid_mppi_rl_tpu_torch.ops.rollout_kernel import check_kernel_supported
-from humanoid_mppi_rl_tpu_torch.physics.model import HINGE, load_model
+from humanoid_mppi_rl_tpu_torch.physics.model import load_model
 
 HUMANOID_XML = os.path.join(os.path.dirname(__file__), "..", "humanoid_mppi_rl_tpu",
                             "assets", "humanoid.xml")
@@ -135,22 +135,22 @@ def test_features_outside_the_port_are_refused(models):
     _, pm = models
     assert tsph.unsupported_features(pm) == []
     check_kernel_supported(pm)
-    # a ball joint (mjtJoint 1) stays unported; slide joints are ported
-    # (the cartpole's and the hopper's, tests/test_torch_port_{cartpole,hopper}.py)
-    j = next(i for i, jt in enumerate(pm.joints) if jt.jtype == HINGE)
-    joints = list(pm.joints)
-    joints[j] = dataclasses.replace(joints[j], jtype=1)
-    balled = dataclasses.replace(pm, joints=tuple(joints))
-    with pytest.raises(NotImplementedError, match="joint type 1"):
-        check_kernel_supported(balled)
+    # a plane on a moving body stays unported, in the kernel and in the
+    # plain step (ball joints, slides and meshes are ported: arm5's, the
+    # cartpole's and the hopper's)
+    plane = pm.contact_pairs[0].geom1
+    moving = dataclasses.replace(pm, geoms=tuple(
+        dataclasses.replace(g, bodyid=1) if i == plane else g for i, g in enumerate(pm.geoms)))
+    with pytest.raises(NotImplementedError, match="moving planes"):
+        check_kernel_supported(moving)
     qpos, qvel, ctrl = _state(pm, 0.0)
     with pytest.raises(NotImplementedError):
-        tsph.scalar_forward(balled, _t(qpos), _t(qvel))
-    # a mesh geom on a floor pair stays unported (frictionloss, boxes and
-    # cylinders are the Go1's, ported)
+        tsph.scalar_step(moving, _t(qpos), _t(qvel), _t(ctrl), torch.zeros(qpos.shape[0], dtype=torch.float64))
+    # a floor pair with a geom that has no plane narrowphase (an ellipsoid,
+    # mjtGeom 4) stays unported
     floor = next(p.geom2 for p in pm.contact_pairs if pm.geoms[p.geom1].gtype == 0)
-    meshed = dataclasses.replace(pm, geoms=tuple(
-        dataclasses.replace(g, gtype=7, gtype_orig=7) if i == floor else g
+    ellipsoid = dataclasses.replace(pm, geoms=tuple(
+        dataclasses.replace(g, gtype=4, gtype_orig=4) if i == floor else g
         for i, g in enumerate(pm.geoms)))
-    with pytest.raises(NotImplementedError, match="plane-vs-geom type 7"):
-        check_kernel_supported(meshed)
+    with pytest.raises(NotImplementedError, match="plane-vs-geom type 4"):
+        check_kernel_supported(ellipsoid)

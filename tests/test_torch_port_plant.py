@@ -274,9 +274,10 @@ def test_unported_solvers_and_features_raise(port_model):
     no_fields = dataclasses.replace(load_model("humanoid"), pred_mask=None)
     with pytest.raises(ValueError, match="engine's fields"):
         peng.Engine(no_fields, device="cpu", dtype=torch.float64).step(st, torch.zeros(21))
-    # a mesh geom stays unported (boxes and cylinders are the Go1's, ported)
+    # a mesh in a body-body pair (mesh-vs-primitive) stays unported; its
+    # floor pairs are ported (arm5's, tests/test_torch_port_arm5.py)
     meshed = dataclasses.replace(port_model, geoms=tuple(
-        dataclasses.replace(g, gtype=7, gtype_orig=7) if i == 3 else g
-        for i, g in enumerate(port_model.geoms)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        dataclasses.replace(g, gtype=7, gtype_orig=7, mesh_verts=np.eye(3) * 0.05)
+        if i == 3 else g for i, g in enumerate(port_model.geoms)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         _engine(meshed)

@@ -284,7 +284,8 @@ def test_workspace_layout_fits_its_byte_count(dtype):
                "V": 6 * nb, "S": 6 * nv, "W": 6 * nv, "IC": 21 * nb, "F": 6 * nb,
                "ab": 6 * nb, "A": nv * (nv + 1) // 2, "tau": nv, "gdiag": nv, "rhs": nv,
                "dinv": nv, "ten_f": t.nten, "ten_c": t.nten, "qloc": 4 * nj,
-               "cscr": 27 * t.nxpair, "loc": 7 * nb, "hinge": 6 * nj}
+               "cscr": 27 * t.nxpair, "loc": 7 * nb, "hinge": 6 * nj,
+               "ball": 7 * t.nball, "trn": 7 * t.ntrn}
     assert set(lengths) == set(rk.WS_FIELDS)
     span = {f: (off[f], off[f] + n) for f, n in lengths.items()}
     assert all(0 <= a and b <= size for a, b in span.values())
