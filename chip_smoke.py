@@ -227,6 +227,15 @@ Phases, one JSON line each (with its own `seconds`):
              2 warm-up and 3 timed replans, launches and busy share of one
              replan traced on the device, one replan under
              set_sync_debug_mode("error"), no rollout-kernel launch
+  main_cli -- the command line (cli.main in process): tasks; run
+             humanoid_bench --kernel (K=8192, H=64) for 20 logged steps, one
+             rollout-kernel launch per executed control step (a chunk of 50
+             runs whole); collect humanoid_walk --kernel; profile
+             humanoid_bench --kernel (replan ms beside main's); run
+             cartpole_collect on the default (array) planner for one chunk
+             of 50 steps, no rollout-kernel launch -> train 2 epochs ->
+             estimate on that checkpoint for 5 steps; estimate quadruped 1
+             step; replay of the humanoid run; warm; bench refuses
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -234,7 +243,9 @@ line. It imports no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 from concurrent.futures import ThreadPoolExecutor
 import os
@@ -3360,6 +3371,170 @@ def arm5_phase(builds: dict) -> dict:
             "max_abs_err": f32("cost_max_abs"), "cost_rel_median_f32": f32("cost_rel_median")}
 
 
+# main_cli: the command line in process (cli.main), at the commands'
+# defaults except the depths below
+CLI_STEPS = 20             # run / collect --steps (EpisodeRunner runs whole chunks)
+# the cartpole run plans on the array planner, the CLI's default: one chunk,
+# and the estimates are cut to make room for it (PERF.md section 4 gives the
+# array replan's time, which keeps 200 steps out)
+CLI_CART_STEPS, CLI_CART_EPOCHS = 50, 2
+CLI_EST_STEPS, CLI_QUAD_EST_STEPS = 5, 1
+
+
+def cli_call(argv: list) -> tuple:
+    """cli.main(argv) in process: (its stdout lines, seconds to its end on
+    the card). A command that fails raises."""
+    from humanoid_mppi_rl_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit code {rc}")
+    return buf.getvalue().strip().splitlines(), seconds
+
+
+def csv_rows(path: str, cols: int) -> np.ndarray:
+    """A CSV the CLI wrote, held finite with `cols` columns."""
+    from humanoid_mppi_rl_tpu_torch.utils.trajio import read_csv
+
+    a = read_csv(path)
+    if a.shape[1:] != (cols,) or not np.isfinite(a).all():
+        raise AssertionError(f"{path}: shape {a.shape}, expected (n, {cols}), finite")
+    return a
+
+
+def cli_phase(main_replan_ms: float) -> dict:
+    """main_cli: the port's command line through cli.main on the card: tasks;
+    run humanoid_bench --kernel (K=8192, H=64, f32) with one rollout-kernel
+    launch per control step; collect humanoid_walk --kernel; profile
+    humanoid_bench --kernel beside the main phase's replan; the cartpole
+    chain run (the default, array planner) -> train -> estimate on its
+    own checkpoint; estimate
+    quadruped; replay of the humanoid run; warm; bench, which refuses.
+    One line per command; returns the rollout kernel's launches by
+    command for the `kernels` line."""
+    from humanoid_mppi_rl_tpu_torch import cli
+    from humanoid_mppi_rl_tpu_torch.collect.runner import CHUNK
+    from humanoid_mppi_rl_tpu_torch.envs.tasks import TASKS
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+    from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+
+    t_phase = time.perf_counter()
+    paths, record = {}, {}
+
+    def call(name, argv, launches=None):
+        rk.launches = 0
+        lines, secs = cli_call(argv)
+        out = json.loads(lines[-1]) if name != "tasks" else {"lines": len(lines)}
+        if launches is not None:
+            if rk.launches != launches:
+                raise AssertionError(f"cli {name}: {rk.launches} rollout-kernel launches, "
+                                     f"expected {launches}")
+            if launches:
+                paths[f"cli {name}"] = {"launches": rk.launches}
+        emit({"phase": "main_cli", "command": name, "argv": argv, "out": out,
+              "rollout_launches": rk.launches, "seconds": secs})
+        return lines, out, secs
+
+    executed = -(-CLI_STEPS // CHUNK) * CHUNK   # a chunk runs whole
+    with tempfile.TemporaryDirectory() as root:
+        d = lambda *p: os.path.join(root, *p)
+        lines, _, _ = call("tasks", ["tasks"])
+        if [ln.split()[0] for ln in lines] != list(TASKS):
+            raise AssertionError(f"cli tasks: {lines}")
+
+        _, out, secs = call("run humanoid_bench", [
+            "run", "--task", "humanoid_bench", "--kernel", "--steps", str(CLI_STEPS),
+            "--out", d("run"), "--metrics", d("run.jsonl")], launches=executed)
+        hum = load_model("humanoid")
+        states = csv_rows(d("run", "states.csv"), hum.nq + hum.nv)
+        csv_rows(d("run", "actions.csv"), hum.nu)
+        csv_rows(d("run", "times.csv"), 1)
+        if out["steps"] != CLI_STEPS or len(states) != CLI_STEPS:
+            raise AssertionError(f"cli run: {out}, {len(states)} rows")
+        with open(d("run.jsonl")) as f:
+            chunks = [e for e in map(json.loads, f) if e["kind"] == "chunk"]
+        record["run_control_step_ms"] = sum(c["wall_s"] for c in chunks) / executed * 1e3
+        record["run_launches_per_control_step"] = paths["cli run humanoid_bench"]["launches"] \
+            / executed
+
+        _, out, _ = call("collect humanoid_walk", [
+            "collect", "--robot", "humanoid", "--task", "humanoid_walk", "--kernel",
+            "--episodes", "1", "--steps", str(CLI_STEPS), "--out", d("collect")],
+            launches=executed)
+        if [r["steps_saved"] for r in out["results"]] != [CLI_STEPS]:
+            raise AssertionError(f"cli collect: {out}")
+
+        _, out, _ = call("profile humanoid_bench", [
+            "profile", "--task", "humanoid_bench", "--kernel", "--iters", "20",
+            "--out", d("profile")], launches=21)
+        if not (out["kernel"] and os.path.exists(d("profile", "trace.json"))):
+            raise AssertionError(f"cli profile: {out}")
+        record["profile_replan_ms"] = out["replan_ms"]
+        record["main_replan_ms_median"] = main_replan_ms
+
+        call("run cartpole_collect", [
+            "run", "--task", "cartpole_collect", "--steps", str(CLI_CART_STEPS),
+            "--out", d("cart"), "--metrics", d("cart.jsonl")], launches=0)
+        with open(d("cart.jsonl")) as f:
+            chunks = [e for e in map(json.loads, f) if e["kind"] == "chunk"]
+        record["run_cartpole_array_control_step_ms"] = \
+            sum(c["wall_s"] for c in chunks) / (-(-CLI_CART_STEPS // CHUNK) * CHUNK) * 1e3
+        for kind in ("states", "actions"):
+            os.makedirs(d("data", kind))
+            shutil.copy(d("cart", f"{kind}.csv"), d("data", kind, f"{kind}_0.csv"))
+        csv_rows(d("cart", "states.csv"), 4)
+        _, out, _ = call("train cartpole", [
+            "train", "--preset", "cartpole", "--states", d("data", "states"),
+            "--actions", d("data", "actions"), "--epochs", str(CLI_CART_EPOCHS),
+            "--ckpt-dir", d("ckpt")])
+        if out["epochs"] != CLI_CART_EPOCHS or not np.isfinite(out["final_train_loss"]):
+            raise AssertionError(f"cli train: {out}")
+        _, out, secs = call("estimate cartpole", [
+            "estimate", "--preset", "cartpole", "--checkpoint", out["final_checkpoint"],
+            "--steps", str(CLI_EST_STEPS), "--out", d("est")], launches=0)
+        if len(csv_rows(d("est", "states.csv"), 4)) != CLI_EST_STEPS:
+            raise AssertionError(f"cli estimate cartpole: {out}")
+        record["estimate_cartpole_step_ms_with_setup"] = secs / CLI_EST_STEPS * 1e3
+
+        _, out, secs = call("estimate quadruped", [
+            "estimate", "--preset", "quadruped", "--steps", str(CLI_QUAD_EST_STEPS),
+            "--out", d("est_quad")], launches=0)
+        if len(csv_rows(d("est_quad", "states.csv"), 37)) != CLI_QUAD_EST_STEPS:
+            raise AssertionError(f"cli estimate quadruped: {out}")
+        record["estimate_quadruped_step_ms_with_setup"] = secs / CLI_QUAD_EST_STEPS * 1e3
+
+        _, out, _ = call("replay humanoid", [
+            "replay", "--states", d("run", "states.csv"), "--asset", "humanoid.xml"])
+        if (out["frames"], out["nbody"]) != (CLI_STEPS, hum.nbody) \
+                or not np.isfinite(out["root_travel"]):
+            raise AssertionError(f"cli replay: {out}")
+
+        _, out, _ = call("warm humanoid_collect", ["warm", "--task", "humanoid_collect"],
+                         launches=1)
+        if not all(out["cached"].values()):
+            raise AssertionError(f"cli warm rebuilt a kernel the build phase built: {out}")
+
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            cli.main(["bench"])
+    except SystemExit as e:
+        refused = e.code not in (0, None)
+        message = str(e.code)
+    else:
+        refused, message = False, None
+    if not refused or "bench" in sys.modules:
+        raise AssertionError("cli bench did not refuse, or imported bench.py")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "main_cli", "command": "summary", "bench_refused": message,
+          **record, "seconds": seconds})
+    return {"paths": paths, **record}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3495,6 +3670,7 @@ def main() -> int:
     small = small_robot_phases()
     humanoid = humanoid_task_phases()
     arm5 = arm5_phase(builds)
+    cli = cli_phase(med)
     est["paths"] = {"estimator replan": {"launches": est["launches"],
                                          "replans": EST_WARMUP + EST_TIMED},
                     **loop.pop("paths"), **small["estimator"].pop("paths")}
@@ -3517,12 +3693,14 @@ def main() -> int:
                   **go1.pop("paths"), **small["rollout"].pop("paths"),
                   **humanoid.pop("paths"),
                   "arm5_reach": {"launches": arm5["launches"],
-                                 "control_steps": arm5["control_steps"]}},
+                                 "control_steps": arm5["control_steps"]},
+                  **cli.pop("paths")},
         **humanoid,
         "collect_control_step_ms": collect["collect_control_step_ms"],
         "go1": go1,
         **small["rollout"],
         "arm5": arm5,
+        "cli": cli,
         "max_abs_err": max(e["cost_max_abs"] for k, e in errs.items() if "float32" in k),
         "max_abs_err_f64": max(e["cost_max_abs"] for k, e in errs.items() if "float64" in k),
         "cost_rel_median_f32": max(e["cost_rel_median"] for k, e in errs.items()

@@ -50,6 +50,7 @@ from ..utils.metrics import JSONLWriter
 from .logging import TrajectoryLogger
 
 NP = 16  # runtime cost-parameter slots (ops/kernel_costs PARAM_SLOTS)
+CHUNK = 50  # control steps a chunk runs whole, as the JAX runner's scan
 
 
 @dataclasses.dataclass
@@ -132,7 +133,7 @@ class EpisodeRunner:
         fall_fn: Optional[Callable] = None,
         logger: Optional[TrajectoryLogger] = None,
         params=None,
-        chunk: int = 50,
+        chunk: int = CHUNK,
         plant_update_fn: Optional[Callable] = None,
         params_update_fn: Optional[Callable] = None,
         metrics_path: Optional[str] = None,
@@ -283,7 +284,7 @@ def collect_humanoid(
     metrics_path: Optional[str] = None,
     stall_steps: Optional[int] = 800,
     stall_min_progress: float = 0.05,
-    chunk: int = 50,
+    chunk: int = CHUNK,
     device="cuda",
     dtype=torch.float32,
 ):
@@ -364,7 +365,7 @@ def collect_humanoid_jl(
     use_kernel: bool = True,
     mppi_override: Optional[dict] = None,
     metrics_path: Optional[str] = None,
-    chunk: int = 50,
+    chunk: int = CHUNK,
     device="cuda",
     dtype=torch.float32,
 ):
@@ -423,7 +424,7 @@ def collect_humanoid_v2py(
     shard_index: int = 0,
     num_shards: int = 1,
     mppi_override: Optional[dict] = None,
-    chunk: int = 50,
+    chunk: int = CHUNK,
     device="cuda",
     dtype=torch.float32,
     noise_fn: Optional[Callable] = None,
@@ -488,7 +489,7 @@ def collect_quadruped(
     use_kernel: bool = False,
     mppi_override: Optional[dict] = None,
     metrics_path: Optional[str] = None,
-    chunk: int = 50,
+    chunk: int = CHUNK,
     stall_steps: Optional[int] = 1500,
     stall_min_progress: float = 0.05,
     gait_params: Optional[np.ndarray] = None,

@@ -13,6 +13,7 @@ import dataclasses
 import math
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -62,9 +63,15 @@ def _mk(name, cost_factory, K, T, lam, sigma, tail=0.1, cost_kwargs=None, robot=
                     cost_factory=cost_factory, cost_kwargs=dict(cost_kwargs or {}), **kw)
 
 
-TASKS = {
+TASKS = {   # in the JAX registry's order
     t.name: t
     for t in [
+        # reference src/cartpole_mppi.py:12-15 and
+        # src/cartpole_datacollection.jl:19-22, from the pole hanging down
+        _mk("cartpole", cartpole_cost.make_costs, K=30, T=100, lam=1.0, sigma=1.0,
+            robot="cartpole", kernel_cost="cartpole", init_qpos=(0.0, math.pi)),
+        _mk("cartpole_collect", cartpole_cost.make_costs, K=75, T=100, lam=1.0, sigma=0.75,
+            robot="cartpole", kernel_cost="cartpole", init_qpos=(0.0, math.pi)),
         # reference src/Humanoid_mppi.jl:22-25 (time-phased gait)
         _mk("humanoid", humanoid_cost.make_costs_v1, K=50, T=100, lam=1.0, sigma=1.0,
             kernel_cost="humanoid_v1"),
@@ -78,7 +85,7 @@ TASKS = {
         _mk("humanoid_collect_jl", humanoid_cost.make_costs, K=75, T=100, lam=1.0, sigma=0.5,
             kernel_cost="humanoid"),
         _mk("humanoid_walk", humanoid_cost.make_costs, K=8192, T=64, lam=1.0,
-            sigma=0.5 * float(math.exp(-0.35)), kernel_cost="humanoid",
+            sigma=0.5 * float(np.exp(-0.35)), kernel_cost="humanoid",
             cost_kwargs=dict(WEIGHTS_WALK, target=(10.0, 0.0, 1.28),
                              w_height=22.0, w_orient=17.0, w_goal_xy=1.0,
                              w_clearance=1.0, w_foot_lift=10.0,
@@ -94,12 +101,6 @@ TASKS = {
         _mk("go1_collect", quadruped_cost.make_costs, K=50, T=30, lam=0.2, sigma=0.3,
             tail=0.0, robot="go1", kernel_cost="quadruped", init_keyframe="home",
             clamp_ctrl_to_range=True),
-        # reference src/cartpole_mppi.py:12-15 and
-        # src/cartpole_datacollection.jl:19-22, from the pole hanging down
-        _mk("cartpole", cartpole_cost.make_costs, K=30, T=100, lam=1.0, sigma=1.0,
-            robot="cartpole", kernel_cost="cartpole", init_qpos=(0.0, math.pi)),
-        _mk("cartpole_collect", cartpole_cost.make_costs, K=75, T=100, lam=1.0, sigma=0.75,
-            robot="cartpole", kernel_cost="cartpole", init_qpos=(0.0, math.pi)),
         # the JAX package's planar hopper task (no reference analog)
         _mk("hopper", hopper_cost.make_costs, K=64, T=50, lam=0.5, sigma=0.6, robot="hopper",
             kernel_cost="hopper"),
@@ -109,14 +110,14 @@ TASKS = {
             kernel_cost="arm5"),
     ]
 }
-# the benchmark scale of humanoid_collect (bench.py _bench_primary)
-TASKS["humanoid_bench"] = dataclasses.replace(
-    TASKS["humanoid_collect"], name="humanoid_bench",
-    mppi=dataclasses.replace(TASKS["humanoid_collect"].mppi, n_samples=8192, horizon=64))
 # the benchmark scale of the cartpole (the JAX registry's cartpole_pr1)
 TASKS["cartpole_pr1"] = dataclasses.replace(
     TASKS["cartpole"], name="cartpole_pr1",
     mppi=dataclasses.replace(TASKS["cartpole"].mppi, n_samples=256, horizon=30))
+# the benchmark scale of humanoid_collect (bench.py _bench_primary)
+TASKS["humanoid_bench"] = dataclasses.replace(
+    TASKS["humanoid_collect"], name="humanoid_bench",
+    mppi=dataclasses.replace(TASKS["humanoid_collect"].mppi, n_samples=8192, horizon=64))
 
 
 def load_task(name: str, device="cuda", dtype=torch.float32):

@@ -1,5 +1,7 @@
 """Supervised dynamics training (learning/train.py counterpart): PyTorch
-autograd on the port's FeatureAttention module.
+autograd on the port's surrogates (models/predictors: FeatureAttention,
+cross-attention, and the MLP without BatchNorm: the JAX trainer's step
+carries no batch statistics, so neither package trains BatchNorm).
 
 Loop parity with the JAX trainer:
 - Adam (torch.optim.Adam computes optax's scale_by_adam: eps outside the
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.predictors import make_model
+from ..models.predictors import seeded_model
 from ..utils.metrics import JSONLWriter, Timer
 from .data import MultiTrajectoryDataset
 
@@ -131,8 +133,9 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """Clip (when set), update, advance the schedule, clear the grads."""
-        if self.grad_clip:
-            clip_by_global_norm_([p.grad for p in self.model.parameters()], self.grad_clip)
+        if self.grad_clip:   # (a parameter that the loss does not reach has no grad)
+            clip_by_global_norm_([p.grad for p in self.model.parameters() if p.grad is not None],
+                                 self.grad_clip)
         self.optimizer.step()
         self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)
@@ -157,9 +160,10 @@ def create_train_state(cfg: TrainConfig, sample_input: np.ndarray, steps_per_epo
     if cfg.compute_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"compute_dtype {cfg.compute_dtype}: the trainer takes "
                          "torch.float32 or torch.float64")
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.seed)
-        model = make_model(cfg.model_preset, **(cfg.model_overrides or {}))
+    model = seeded_model(cfg.model_preset, cfg.seed, **(cfg.model_overrides or {}))
+    if getattr(model, "use_batch_norm", False):
+        raise ValueError(f"{cfg.model_preset}: an MLP with BatchNorm does not train here, as "
+                         "in the JAX trainer, whose step carries no batch statistics")
     model = model.to(device=dev, dtype=cfg.compute_dtype)
     if np.shape(sample_input)[-1] != model.input_dim:
         raise ValueError(f"inputs have {np.shape(sample_input)[-1]} columns; "

@@ -1,8 +1,9 @@
-"""Flax FeatureAttention weights -> the port's module.
+"""Flax surrogate weights -> the port's modules.
 
 `params_from_flax` is the exact inverse of the JAX package's
-learning/torch_import.feature_attention_params: a flax parameter tree (of
-numpy arrays) becomes a state_dict with the reference PyTorch model's names.
+learning/torch_import.{feature_attention,cross_attention,mlp}_params: a
+flax variable tree (of numpy arrays) becomes a state_dict with the
+reference PyTorch model's names, for each of the three families.
 
 Layouts (flax -> torch):
   Dense kernel (in, out)                 -> Linear.weight (out, in) = kernel.T
@@ -11,6 +12,8 @@ Layouts (flax -> torch):
                                             each kernel.reshape(H, H).T
   attention out kernel (nh, hd, H)       -> out_proj.weight = kernel.reshape(H, H).T
   LayerNorm scale/bias                   -> LayerNorm weight/bias
+  BatchNorm scale/bias, batch_stats mean/var
+                                         -> weight/bias, running_mean/var
   pos_embedding (F, H)                   -> pos_embedding (1, F, H)
 
 Trained weights ship as state_dicts in assets/ (TRAINED), converted once
@@ -27,7 +30,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .predictors import FeatureAttentionStatePredictor, make_model
+from .predictors import (CrossAttentionStatePredictor, FeatureAttentionStatePredictor,
+                         MLPStatePredictor, make_model)
 
 # assets/<name>.pt: (preset, constructor overrides) of the module it fits
 TRAINED = {
@@ -67,28 +71,59 @@ def _layernorm(sd, prefix, ln):
     sd[f"{prefix}.bias"] = _t(ln["bias"])
 
 
-def params_from_flax(params: Dict[str, Any],
-                     module: FeatureAttentionStatePredictor) -> Dict[str, torch.Tensor]:
-    """flax params ({"params": ...} or the inner tree) -> module.state_dict()."""
+def _mha(sd, prefix, mha, H):
+    sd[f"{prefix}.in_proj_weight"] = torch.cat(
+        [_t(np.asarray(mha[n]["kernel"]).reshape(H, H).T) for n in ("query", "key", "value")])
+    sd[f"{prefix}.in_proj_bias"] = torch.cat(
+        [_t(np.asarray(mha[n]["bias"]).reshape(H)) for n in ("query", "key", "value")])
+    sd[f"{prefix}.out_proj.weight"] = _t(np.asarray(mha["out"]["kernel"]).reshape(H, H).T)
+    sd[f"{prefix}.out_proj.bias"] = _t(mha["out"]["bias"])
+
+
+def params_from_flax(params: Dict[str, Any], module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """flax variables ({"params": ..., "batch_stats": ...} or the inner
+    params tree) -> module.state_dict(), for any of the three families. An
+    MLP with BatchNorm needs the variables with their batch_stats."""
     p = params["params"] if "params" in params else params
-    H = module.hidden_dim
     sd: Dict[str, torch.Tensor] = {}
+    if isinstance(module, MLPStatePredictor):
+        stats = params.get("batch_stats")
+        n_dense = n_bn = 0
+        for i, layer in enumerate(module.network):
+            if isinstance(layer, torch.nn.Linear):
+                _linear(sd, f"network.{i}", p[f"Dense_{n_dense}"])
+                n_dense += 1
+            elif isinstance(layer, torch.nn.BatchNorm1d):
+                if stats is None:
+                    raise ValueError("an MLP with BatchNorm needs the flax variables with "
+                                     "their batch_stats")
+                bn, st = p[f"BatchNorm_{n_bn}"], stats[f"BatchNorm_{n_bn}"]
+                sd[f"network.{i}.weight"] = _t(bn["scale"])
+                sd[f"network.{i}.bias"] = _t(bn["bias"])
+                sd[f"network.{i}.running_mean"] = _t(st["mean"])
+                sd[f"network.{i}.running_var"] = _t(st["var"])
+                sd[f"network.{i}.num_batches_tracked"] = torch.tensor(0)
+                n_bn += 1
+        return sd
+    H = module.hidden_dim
+    if isinstance(module, CrossAttentionStatePredictor):
+        _linear(sd, "qpos_encoder", p["Dense_0"])
+        _linear(sd, "qvel_encoder", p["Dense_1"])
+        _linear(sd, "action_encoder", p["Dense_2"])
+        _mha(sd, "attn_qpos_to_qvel", p["MultiHeadDotProductAttention_0"], H)
+        _mha(sd, "attn_qvel_to_qpos", p["MultiHeadDotProductAttention_1"], H)
+        _layernorm(sd, "fusion_layer.0", p["LayerNorm_0"])
+        _linear(sd, "fusion_layer.2", p["Dense_3"])
+        _linear(sd, "fusion_layer.4", p["Dense_4"])
+        return sd
     _linear(sd, "feature_encoding.0", p["Dense_0"])
     _layernorm(sd, "feature_encoding.1", p["LayerNorm_0"])
     sd["pos_embedding"] = _t(p["pos_embedding"])[None]
     for i in range(module.attn_layers):
         blk = p[f"_TransformerBlock_{i}"]
-        mha = blk["MultiHeadDotProductAttention_0"]
         pre = f"layers.{i}"
         _layernorm(sd, f"{pre}.norm1", blk["LayerNorm_0"])
-        sd[f"{pre}.attention.in_proj_weight"] = torch.cat(
-            [_t(np.asarray(mha[n]["kernel"]).reshape(H, H).T)
-             for n in ("query", "key", "value")])
-        sd[f"{pre}.attention.in_proj_bias"] = torch.cat(
-            [_t(np.asarray(mha[n]["bias"]).reshape(H)) for n in ("query", "key", "value")])
-        sd[f"{pre}.attention.out_proj.weight"] = _t(
-            np.asarray(mha["out"]["kernel"]).reshape(H, H).T)
-        sd[f"{pre}.attention.out_proj.bias"] = _t(mha["out"]["bias"])
+        _mha(sd, f"{pre}.attention", blk["MultiHeadDotProductAttention_0"], H)
         _layernorm(sd, f"{pre}.norm2", blk["LayerNorm_1"])
         _linear(sd, f"{pre}.ffn.0", blk["Dense_0"])
         _linear(sd, f"{pre}.ffn.3", blk["Dense_1"])

@@ -591,3 +591,51 @@ def test_cuda_arm5_reach_runs(use_kernel):
     states, actions, _ = res.logger.arrays()
     assert states.shape == (3, 29) and np.isfinite(states).all() and np.isfinite(actions).all()
     assert rk.launches - n0 == (3 if use_kernel else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mlp_batchnorm", "cross"])
+def test_cuda_mlp_and_cross_surrogates_match_cpu(family):
+    """The MLP (BatchNorm in eval mode on seeded running statistics) and the
+    humanoid_cross model on the card against the CPU, f32 with TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from humanoid_mppi_rl_tpu_torch.models.predictors import MLPStatePredictor
+
+    torch.manual_seed(0)
+    if family == "cross":
+        mod = make_model("humanoid_cross")
+    else:
+        mod = MLPStatePredictor(55, 21, 128, 2, use_batch_norm=True).eval()
+        for bn in (m for m in mod.modules() if isinstance(m, torch.nn.BatchNorm1d)):
+            bn.running_mean.normal_()
+            bn.running_var.uniform_(0.5, 2.0)
+    x = torch.randn(2048, mod.input_dim, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = mod(x)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            got = mod.cuda()(x.cuda()).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_cli_run_plans_on_the_rollout_kernel(tmp_path):
+    """`run --kernel` on the card: one rollout launch per executed control
+    step (a chunk of 50 runs whole), finite rows; `replay` of those rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from humanoid_mppi_rl_tpu_torch import cli
+    from humanoid_mppi_rl_tpu_torch.utils.trajio import read_csv
+
+    n0 = rk.launches
+    assert cli.main(["run", "--task", "cartpole", "--kernel", "--steps", "5",
+                     "--out", str(tmp_path / "run")]) == 0
+    assert rk.launches - n0 == 50
+    states = read_csv(str(tmp_path / "run" / "states.csv"))
+    assert states.shape == (5, 4) and np.isfinite(states).all()
+    assert cli.main(["replay", "--states", str(tmp_path / "run" / "states.csv"),
+                     "--asset", "cartpole.xml"]) == 0

@@ -43,13 +43,14 @@ from humanoid_mppi_rl_tpu_torch.collect import estimator as port_est
 from humanoid_mppi_rl_tpu_torch.dynamics.learned import (
     flat_state_from_physics, make_learned_dynamics)
 from humanoid_mppi_rl_tpu_torch.models.convert import params_from_flax
-from humanoid_mppi_rl_tpu_torch.models.predictors import PRESETS, make_model
+from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
 from humanoid_mppi_rl_tpu_torch.ops.estimator_kernel import make_flash_feature_attention
 from humanoid_mppi_rl_tpu_torch.physics.state import PhysicsState
 from humanoid_mppi_rl_tpu_torch.solver import mppi as tmppi
 
-# each preset at reduced width and depth (head count and token count kept)
+# each FeatureAttention preset at reduced width and depth (head count and token
+# count kept)
 SMALL = {"cartpole_attention": dict(hidden_dim=32),
          "quadruped_attention": dict(hidden_dim=64),
          "humanoid_attention": dict(hidden_dim=64, attn_layers=2)}
@@ -81,7 +82,7 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-@pytest.mark.parametrize("preset", sorted(PRESETS))
+@pytest.mark.parametrize("preset", sorted(SMALL))
 def test_weights_round_trip_through_the_reference_layout(preset):
     """params_from_flax o torch_import.feature_attention_params is the
     identity on a flax init, and the state_dict fits the port's module."""
@@ -96,7 +97,7 @@ def test_weights_round_trip_through_the_reference_layout(preset):
         np.testing.assert_array_equal(np.asarray(flat_b[path]), a)
 
 
-@pytest.mark.parametrize("preset", sorted(PRESETS))
+@pytest.mark.parametrize("preset", sorted(SMALL))
 def test_module_matches_flax_f32(preset):
     net, params, mod = _pair(preset, **SMALL[preset])
     x = _x(16, net.state_dim + net.action_dim)
@@ -206,7 +207,7 @@ class _SumSpans(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("preset", sorted(PRESETS))
+@pytest.mark.parametrize("preset", sorted(SMALL))
 def test_exact_stage_inputs_make_every_sum_exact(preset):
     """chip_smoke.py holds each estimator kernel alone against its plain
     stage bit for bit on exact_stage_cases. That is right only if every f32
@@ -241,7 +242,7 @@ def _untrimmed_plain(w, x, num_heads, state_dim, b_out):
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("preset", sorted(PRESETS))
+@pytest.mark.parametrize("preset", sorted(SMALL))
 def test_trimmed_plain_equals_untrimmed(preset, cd):
     """forward_plain runs the last layer past its attention on the state
     rows only; every stage is per row and every state query still sees all
@@ -270,7 +271,7 @@ def test_attention_rows_refuses_what_the_bf16_kernel_cannot_take(F, head_dim):
         ek.attention_rows(F, head_dim)
 
 
-@pytest.mark.parametrize("preset", sorted(PRESETS))
+@pytest.mark.parametrize("preset", sorted(SMALL))
 def test_scratch_rows_hold_every_stage_output(preset):
     """The forward's buffers hold what the plain stages make at each row
     count: h the (B, F, H) stream plus the (B, state_dim, H) compacted rows,

@@ -200,6 +200,18 @@ cfg = dataclasses.replace(cfg, n_samples=4, horizon=2)
 plan = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, spec.cost_kwargs, device="cpu")
 action, st, diag = plan(MPPIState.seeded(0, cfg.T, model.nu, device="cpu"), init)
 assert action.shape == (4,) and bool(torch.isfinite(st.U).all())
+import contextlib, io
+from humanoid_mppi_rl_tpu_torch import cli
+from humanoid_mppi_rl_tpu_torch.learning.torch_import import load_reference_checkpoint
+from humanoid_mppi_rl_tpu_torch.viz.replay import kinematic_replay
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert cli.main(["tasks"]) == 0
+assert len(buf.getvalue().splitlines()) == 15, buf.getvalue()
+pth = os.path.join(tempfile.mkdtemp(), "cross.pth")
+torch.save(make_model("humanoid_cross").state_dict(), pth)
+assert load_reference_checkpoint(pth, "humanoid_cross", device="cpu")(torch.zeros(2, 76)).shape == (2, 55)
+assert kinematic_replay(load_model("humanoid"), np.zeros((2, 57)), device="cpu").shape == (2, 17, 3)
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
