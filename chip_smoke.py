@@ -34,9 +34,9 @@ Phases, one JSON line each (with its own `seconds`):
              self contacts, Newton solver; eager PyTorch on the card): the
              rollout kernel against its plain version with the walk cost and
              a runtime goal (K=256 and 253, T=4: the gates of `check`); a
-             warm-up run(max_steps=50, chunk=50) and a timed run(max_steps=
-             100, chunk=50) (bench.py::_bench_collect's protocol: steps/s,
-             control step ms); then 10 control steps one at a time, CUDA
+             warm-up run(max_steps=10, chunk=10) and a timed run(max_steps=
+             50, chunk=50) (bench.py::_bench_collect's protocol at a cut
+             depth: steps/s, control step ms); then 10 control steps one at a time, CUDA
              events around the plan and around the plant step (Newton
              iterations and constraint rows read after), one plant step
              under torch.profiler (device launches) and one control step
@@ -46,7 +46,7 @@ Phases, one JSON line each (with its own `seconds`):
              temporary directory; goal threshold opened to 1e9 so the goal
              gate saves it). Checks: one rollout launch per control
              step, every logged row finite, root height qpos[2] >= 0.7 over
-             the 150 steps (scripts/dev_seed_evidence.py's fall rule), CSVs
+             the 60 steps (scripts/dev_seed_evidence.py's fall rule), CSVs
              of 57 / 21 / 1 columns
   check_go1 -- slice 6: the rollout kernel against its plain version on the
              Go1 (go1.json: frictionloss, box corners, exact cylinder rims,
@@ -63,13 +63,13 @@ Phases, one JSON line each (with its own `seconds`):
              and the plain version at K=4096
   main_quad_collect -- EpisodeRunner("go1_collect", use_kernel=True) at
              K=4096, H=32 with GAIT_TUNED and goal (2, 0) on the Go1 plant
-             (go1_plant.json: 697 candidate pairs): 50 warm-up + 100 timed
-             control steps in chunks of 50; 5 steps split into plan and
+             (go1_plant.json: 697 candidate pairs): 5 warm-up + 40 timed
+             control steps, each run in one chunk; 2 steps split into plan and
              plant ms (CUDA events, Newton iterations, active rows); the
              device launches of one plant step; one plant step under
              set_sync_debug_mode("error"); every logged row finite and the
-             trunk height >= 0.08 (the fall line) over the 150 steps; one
-             collect_quadruped run in one chunk of 5 (goal tolerance opened
+             trunk height >= 0.08 (the fall line) over the 45 steps; one
+             collect_quadruped run in one chunk of 2 (goal tolerance opened
              to 1e9 so that its gate saves) read back: 37 / 12 / 1 columns
   check_estimator -- the estimator kernel against its plain version on the
              card, seeded weights with nonzero biases and LayerNorm terms,
@@ -100,8 +100,8 @@ Phases, one JSON line each (with its own `seconds`):
              surrogate, F=31, H=512, 4 heads, 2 layers, f32, TF32 off;
              rollout_k=8, clip 1.0, ego root x/y, scanned epochs, batch 64,
              Adam 1e-4 cosine to 1e-6): (a) train_model on main_quad_collect's
-             150 logged rows (10 epochs, eval split 0.5 so that one full eval
-             batch exists): every loss finite, the last eval loss below the
+             45 logged rows (10 epochs, batch 16 and eval split 0.5 so that
+             one full train and one full eval batch exist): every loss finite, the last eval loss below the
              first, the best/periodic/final checkpoints and state_last
              written, model_final's forward equal to the trained module's;
              (b) on a seeded linear-plant dataset of quad_data_goal's shape
@@ -122,8 +122,8 @@ Phases, one JSON line each (with its own `seconds`):
              on go1_collect's coupled plant, planning on the trained
              surrogate through the estimator kernel (bf16) at K=2048, T=32,
              accumulate update, sigma 0.18, the ctrlrange clamp, the FD gait
-             cost, from `home` with the plan seeded at home: 3 warm-up and 10
-             timed control steps (T forwards each), 4 split into plan and
+             cost, from `home` with the plan seeded at home: 3 warm-up and 2
+             timed control steps (T forwards each), 2 split into plan and
              plant ms by CUDA events, one profiled control step (launches by
              kernel, busy share); every row finite, trunk z >= 0.08 m, the
              progress beside the JAX record
@@ -133,7 +133,7 @@ Phases, one JSON line each (with its own `seconds`):
              estimator kernel (bf16) at ESTIMATOR_CONFIGS["humanoid"] with
              T=25 (K=2048, replace update, sigma 0.4), the walking cost on
              the batched FK of the predicted qpos (f32), state [qpos; foot
-             z]: 3 warm-up and 60 timed control steps, 5 split into plan
+             z]: 3 warm-up and 5 timed control steps, 3 split into plan
              and plant ms by CUDA events, one profiled control step (busy
              share, device launches by kernel) and the device launches of
              one replan (those outside the estimator kernel); T forwards per
@@ -153,20 +153,20 @@ Phases, one JSON line each (with its own `seconds`):
              EpisodeRunner("cartpole", use_kernel=True) at K=256, T=100,
              f32, 400 control steps from (0, pi): one launch a step, mean
              |theta| < 0.15 over the last 40 steps and |x| < 0.5 at the end;
-             20 steps split into replan and plant ms, the plant step's
+             5 steps split into replan and plant ms, the plant step's
              device launches, one profiled control step; the kernel alone
              beside its plain version and its bound
   main_hopper -- EpisodeRunner("hopper", use_kernel=True) at K=4096,
-             H=100 (artifacts/hopper_k4096.npz's): 5 warm-up and 100 timed
+             H=100 (artifacts/hopper_k4096.npz's): 5 warm-up and 15 timed
              control steps, one launch a step, finite rows; the split, the
              kernel alone, torso z minimum and x progress as main_cartpole
   main_cartpole_pipeline -- two cartpole_collect episodes (K=75, T=100)
-             of 200 steps written as CSV, PRESET_CONFIGS["cartpole"] trained
+             of 100 steps written as CSV, PRESET_CONFIGS["cartpole"] trained
              on them for 10 epochs (eval loss falls), the trained weights at
              check_estimator_trained's gates (B=2048 and 253) and timed as
              time_estimator does, then EstimatorRunner("cartpole", ...,
              batched_dynamics=True) at ESTIMATOR_CONFIGS["cartpole"] (K=2048,
-             T=100, bf16): 3 warm-up and 50 timed control steps, T forwards
+             T=100, bf16): 3 warm-up and 10 timed control steps, T forwards
              a step, 5 split into plan and plant ms, one profiled step and
              the replan's device launches outside the estimator kernel
   check_humanoid_costs -- slice 10: the rollout kernel with humanoid_v1
@@ -184,15 +184,15 @@ Phases, one JSON line each (with its own `seconds`):
              humanoid and humanoid_hard
   main_humanoid -- the tasks humanoid (K=50, T=100) and humanoid_hard
              (K=30, T=75) through EpisodeRunner(use_kernel=True), f32, from
-             qpos0, 100 and 50 control steps: one launch a step, finite
-             55-column rows, root height; 5 steps split into replan and
+             qpos0, 25 and 15 control steps: one launch a step, finite
+             55-column rows, root height; 3 steps split into replan and
              plant ms (CUDA events); each humanoid cost's kernel time at
              K=8192, T=64 (humanoid, humanoid_v1, humanoid_hard) with its
              bound, and the new costs' kernel beside their plain version at
              K=8192, T=8 (cost rel median < 1e-3)
   main_array_planner -- EpisodeRunner("humanoid_collect", use_kernel=False)
              at K=50, T=100, f32: make_mppi over the penalty engine batched
-             over K (the JAX package's default planner), 2 warm-up and 3
+             over K (the JAX package's default planner), 1 warm-up and 2
              timed control steps (replan and plant ms by CUDA events), one
              replan traced on the device only (launches, busy share), the
              PyTorch dispatches of one (count_dispatches), one replan under
@@ -200,7 +200,7 @@ Phases, one JSON line each (with its own `seconds`):
              launch (the path has no hand-written kernel, as JAX's has no
              Pallas one)
   main_v2py -- collect_humanoid_v2py at K=30, T=75, two replans a control
-             step, 5 steps, saved into a temporary directory and read back:
+             step, 3 steps, saved into a temporary directory and read back:
              56 / 21 / 1 columns, the first row's FD velocity zero; the
              PyTorch dispatches of one control step's plan (count_dispatches)
   check_arm5 -- slice 11: the rollout kernel against its plain version on
@@ -218,13 +218,13 @@ Phases, one JSON line each (with its own `seconds`):
              geometry, ptxas registers/stack/spills, the occupancy sweep and
              the step's cycles by phase
   main_arm5 -- arm5_reach through EpisodeRunner(use_kernel=True) (K=64,
-             T=40, f32) for 100 control steps from qpos0: one launch a step,
+             T=40, f32) for 25 control steps from qpos0: one launch a step,
              finite rows, the hand's distance to the target at the start and
              the end; 5 steps split into plan and plant ms (CUDA events),
              the plant step's device launches, one profiled control step,
              one plant step under set_sync_debug_mode("error")
   main_arm5_array -- arm5_reach on the array planner (use_kernel=False):
-             2 warm-up and 3 timed replans, launches and busy share of one
+             1 warm-up and 2 timed replans, launches and busy share of one
              replan traced on the device, one replan under
              set_sync_debug_mode("error"), no rollout-kernel launch
   main_cli -- the command line (cli.main in process): tasks; run
@@ -236,6 +236,26 @@ Phases, one JSON line each (with its own `seconds`):
              of 50 steps, no rollout-kernel launch -> train 2 epochs ->
              estimate on that checkpoint for 5 steps; estimate quadruped 1
              step; replay of the humanoid run; warm; bench refuses
+  main_lqr -- slice 13, solver/lqr on the card in float64: the cartpole
+             held upright from (0.1, 0.15) for 400 coupled steps (|theta| <
+             0.02, |x| < 0.1: tests/test_lqr.py's gate, the K from
+             make_lqr_controller's exact linearization and DARE); then
+             make_humanoid_lqr on the one-leg stand with the full 2,001-height
+             sweep, the spectral radius of A (> 1.01) and of A - BK (<
+             1.001), and 200 controlled coupled steps (|z - z0| < 0.08, max
+             |qvel| < 0.5); the gated steps end each Newton solve at
+             convergence (early_exit, the masked loop's bits), then 10 more
+             on the default path; seconds of the sweep, the balance Q, the
+             linearization and DARE, ms of a controlled step each way
+  check_sharded -- parallel/mesh in a one-rank NCCL group: the sharded
+             kernel planner at humanoid_bench (K=8192, H=64, f32) against
+             make_kernel_mppi on the same injected noise and with
+             noise_block=1024 (bit-identical), the sharded array planner
+             (humanoid_collect, K=50, T=8) against make_mppi on the same
+             noise (bit-identical expected, gate 1e-6 relative), the blocked
+             field drawn whole and in four slices (equal), then 20 sharded
+             replans (one rollout launch each) timed in turns with 20
+             unsharded ones
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -275,7 +295,9 @@ EST_TIME_B = (2048, 65536)
 EST_PLAIN_CHUNK = 8192   # the plain forward at B=65536 runs in sample chunks (memory)
 SWEEP_K = (2048, 4096, 8192, 16384, 32768)   # rollout kernel alone, T = the main path's H
 COLLECT_TASK = "humanoid_walk"
-COLLECT_WARMUP, COLLECT_TIMED, COLLECT_CHUNK = 50, 100, 50   # bench.py::_bench_collect
+# bench.py::_bench_collect's chunk of 50; its 50 warm-up and 100 timed
+# control steps cut to 10 (in one chunk of 10) and 50 for the run time
+COLLECT_WARMUP, COLLECT_TIMED, COLLECT_CHUNK = 10, 50, 50
 # main_collect's depth, cut to leave the run time for the later phases:
 # 10 control steps split into plan and plant (20 before), collect_humanoid
 # in one chunk of 10 (50 before)
@@ -289,9 +311,13 @@ GO1_FALL_Z = 0.08   # collect_quadruped's fall line
 GO1_JL_TIMED = 10   # timed replans of the go1 (quadruped_jl) task
 GO1_TIME_K = (4096, 8192)   # the rollout kernel alone, T = GO1_H
 # main_quad_collect's depth, cut to leave the run time for the later
-# phases: 5 control steps split into plan and plant (20, then 10 before),
-# collect_quadruped in one chunk of 5 (50, then 10 before)
-GO1_SPLIT_STEPS, GO1_COLLECT_CHUNK = 5, 5
+# phases: 2 control steps split into plan and plant (20, 10, then 5
+# before), collect_quadruped in one chunk of 2 (50, 10, then 5 before)
+GO1_SPLIT_STEPS, GO1_COLLECT_CHUNK = 2, 2
+# its logged control steps, each run in one chunk: 5 warm-up and 40 timed
+# (50 and 100 in chunks of 50 before; a Go1 plant step takes 1.5-2 s on
+# the card); the train chain's batch is cut to match (CHAIN_BATCH)
+QUAD_WARMUP, QUAD_TIMED = 5, 40
 
 
 def emit(obj):
@@ -990,7 +1016,7 @@ def collect_phase() -> dict:
     row = _humanoid_state_row(model.body_id("foot_left"), model.body_id("foot_right"))
 
     rk.launches = 0
-    warm = runner.run(max_steps=COLLECT_WARMUP, chunk=COLLECT_CHUNK, state_row_fn=row)
+    warm = runner.run(max_steps=COLLECT_WARMUP, chunk=COLLECT_WARMUP, state_row_fn=row)
     torch.cuda.synchronize()
     warm_launches = rk.launches
     t1 = time.perf_counter()
@@ -1247,19 +1273,19 @@ def quad_collect_phase(params):
                            cost_kwargs_override=dict(param_goal=True, param_gait=True))
     cfg, model = runner.cfg, runner.model
     rk.launches = 0
-    warm = runner.run(max_steps=COLLECT_WARMUP, chunk=COLLECT_CHUNK, params=params)
+    warm = runner.run(max_steps=QUAD_WARMUP, chunk=QUAD_WARMUP, params=params)
     torch.cuda.synchronize()
     warm_launches = rk.launches
     t1 = time.perf_counter()
-    timed = runner.run(max_steps=COLLECT_TIMED, chunk=COLLECT_CHUNK, params=params)
+    timed = runner.run(max_steps=QUAD_TIMED, chunk=QUAD_TIMED, params=params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     timed_launches = rk.launches - warm_launches
-    if (warm_launches, timed_launches) != (COLLECT_WARMUP, COLLECT_TIMED):
+    if (warm_launches, timed_launches) != (QUAD_WARMUP, QUAD_TIMED):
         raise AssertionError(f"go1 rollout launches {warm_launches}/{timed_launches} for "
-                             f"{COLLECT_WARMUP}/{COLLECT_TIMED} control steps")
+                             f"{QUAD_WARMUP}/{QUAD_TIMED} control steps")
     heights = []
-    for name, res, n in (("warm-up", warm, COLLECT_WARMUP), ("timed", timed, COLLECT_TIMED)):
+    for name, res, n in (("warm-up", warm, QUAD_WARMUP), ("timed", timed, QUAD_TIMED)):
         states, actions, times = res.logger.arrays()
         if states.shape != (n, 37) or actions.shape != (n, model.nu) or times.shape != (n,):
             raise AssertionError(f"go1 {name}: logged {states.shape} {actions.shape} {times.shape}")
@@ -1307,7 +1333,7 @@ def quad_collect_phase(params):
     n0 = rk.launches
     with tempfile.TemporaryDirectory() as out_base:
         episode = collect_quadruped(n_runs=1, out_base=out_base, use_kernel=True,
-                                    mppi_override=tiny, max_steps=COLLECT_TIMED,
+                                    mppi_override=tiny, max_steps=QUAD_TIMED,
                                     goal_tolerance=1e9, chunk=GO1_COLLECT_CHUNK,
                                     gait_params=np.asarray(GAIT_TUNED, np.float32),
                                     goal_for_run=lambda i: GO1_GOAL)
@@ -1330,9 +1356,9 @@ def quad_collect_phase(params):
                              f"for {GO1_COLLECT_CHUNK} control steps")
     emit({"phase": "main_quad_collect", "task": "go1_collect", "K": cfg.K, "H": cfg.T,
           "dtype": "float32", "params": params.tolist(),
-          "steps": COLLECT_WARMUP + COLLECT_TIMED, "timed_steps": COLLECT_TIMED,
-          "steps_per_s": COLLECT_TIMED / wall, "control_step_ms": wall / COLLECT_TIMED * 1e3,
-          "rollout_launches_per_control_step": timed_launches / COLLECT_TIMED,
+          "steps": QUAD_WARMUP + QUAD_TIMED, "timed_steps": QUAD_TIMED,
+          "steps_per_s": QUAD_TIMED / wall, "control_step_ms": wall / QUAD_TIMED * 1e3,
+          "rollout_launches_per_control_step": timed_launches / QUAD_TIMED,
           "split_steps": GO1_SPLIT_STEPS,
           "plan_ms_median": statistics.median(plan_ms),
           "plan_ms_q1_q3": [float(x) for x in np.percentile(plan_ms, [25, 75])],
@@ -1349,7 +1375,7 @@ def quad_collect_phase(params):
           "collect_episode": episode[0], "csv_columns": shapes,
           "seconds": time.perf_counter() - t0})
     paths = {"go1_collect EpisodeRunner.run": {"launches": warm_launches + timed_launches,
-                                                "control_steps": COLLECT_WARMUP + COLLECT_TIMED},
+                                                "control_steps": QUAD_WARMUP + QUAD_TIMED},
              "collect_quadruped": {"launches": collect_launches,
                                    "control_steps": GO1_COLLECT_CHUNK}}
     rows = {name: res.logger.arrays()[:2] for name, res in (("warmup", warm), ("timed", timed))}
@@ -1584,19 +1610,24 @@ QUAD_ROLLOUT_K = 8
 # quad_data_goal's shape: 16 saved runs, 42,597 pairs (42,613 rows)
 QUAD_DATA_RUNS, QUAD_DATA_PAIRS = 16, 42597
 CHAIN_EPOCHS, CHAIN_CKPT_EVERY = 10, 5
-# the chain's 150 rows make 134 windows of k=8: one full eval batch of 64
-# needs an eval split of at least 0.48
-CHAIN_EVAL_SPLIT = 0.5
+# the chain's 45 rows make 32 windows of k=8 (all in the timed run: the
+# warm-up's 5 rows hold none), at eval split 0.5 one full train and one
+# full eval batch of CHAIN_BATCH (the preset's 64 needed 150 rows); its 43
+# pairs' training half (22) fills a batch too, which keeps train_model on
+# its scanned rollout_k path
+CHAIN_EVAL_SPLIT, CHAIN_BATCH = 0.5, 16
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, TRAIN_SYNC_STEPS = 10, 100, 10
 EST_LOOP_K, EST_LOOP_T = 2048, 32
 # the Go1 loop's depth, cut to leave the run time for the later phases:
-# 3 warm-up, 10 timed and 4 split steps (5, 50 and 6, then 3, 20 and 4)
-EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 3, 10, 4
+# 3 warm-up, 2 timed and 2 split steps (5, 50 and 6, then 3, 20 and 4,
+# then 3, 10 and 4, then 3, 2 and 4)
+EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 3, 2, 2
 # the humanoid loop (scripts/dev_estimator_walk.py --configs fk): K=2048,
-# T=25; 60 timed control steps, half the JAX record's 120, cut for the run
-# time (3 warm-up and 5 split steps: 5 and 10 before)
+# T=25; 5 timed control steps of the JAX record's 120, cut for the run
+# time (120, 60, then 10 before; 3 warm-up and 3 split steps: 5, 10, then
+# 5 before)
 HUM_LOOP_K, HUM_LOOP_T = 2048, 25
-HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 3, 60, 5
+HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 3, 5, 3
 # the JAX record (artifacts/rollout_k_surrogate/estimator_summary.json,
 # closed_loop.fk_cost_K2048_T25, on a TPU, another noise stream)
 HUM_JAX_RECORD = {"steps": 120, "K": 2048, "T": 25, "forward_progress_m": 0.159,
@@ -1686,7 +1717,7 @@ def train_phase(collected: dict) -> dict:
         sdir, adir = write_runs(os.path.join(root, "data"), collected)
         ck = os.path.join(root, "ckpt")
         cfg = quad_train_config(ck, epochs=CHAIN_EPOCHS, ckpt_every=CHAIN_CKPT_EVERY,
-                                eval_split=CHAIN_EVAL_SPLIT)
+                                eval_split=CHAIN_EVAL_SPLIT, batch_size=CHAIN_BATCH)
         out = tr.train_model(sdir, adir, cfg)
         torch.cuda.synchronize()
         with open(os.path.join(ck, "metrics.jsonl")) as f:
@@ -2160,20 +2191,22 @@ def learning_phases(collected: dict) -> dict:
 # the swing-up of tests/test_e2e_cartpole.py: K=256 at the task's T=100, 400
 # control steps from (0, pi); the pole upright over the last 40 steps
 CART_K, CART_STEPS, CART_SETTLE = 256, 400, 40
-CART_SPLIT_STEPS = 20
+CART_SPLIT_STEPS = 5   # 20 before, cut for the run time
 # the hopper at artifacts/hopper_k4096.npz's K and H
 # (tests/test_e2e_hopper.py:12-14): 5 warm-up and 200 timed control steps
-# 100 timed steps (200 before), cut for the run time
-HOP_K, HOP_H, HOP_WARMUP, HOP_TIMED, HOP_SPLIT_STEPS = 4096, 100, 5, 100, 10
+# 15 timed and 5 split steps (200, 100, then 25 timed and 10 split before),
+# cut for the run time
+HOP_K, HOP_H, HOP_WARMUP, HOP_TIMED, HOP_SPLIT_STEPS = 4096, 100, 5, 15, 5
 # check_hopper's param_gait deltas, slots 4..9: target velocity, landing
 # weight, pitch log-scale, knee weight, hop-clock weight, knee anchor shift
 HOP_GAIT = (0.2, 3.0, 0.3, 2.0, 5.0, -0.1)
 # the cartpole learning loop: two cartpole_collect episodes (K=75, T=100,
-# the reference's) of 200 steps, PRESET_CONFIGS["cartpole"] cut to 10
+# the reference's) of 100 steps, PRESET_CONFIGS["cartpole"] cut to 10
 # epochs, then the closed loop at ESTIMATOR_CONFIGS["cartpole"]
-CART_EPISODES, CART_EPISODE_STEPS, CART_TRAIN_EPOCHS = 2, 200, 10
-# 50 timed closed-loop steps (100 before), cut for the run time
-CART_LOOP_WARMUP, CART_LOOP_TIMED, CART_LOOP_SPLIT = 3, 50, 5
+# (episodes of 100 steps: 200 before, cut for the run time)
+CART_EPISODES, CART_EPISODE_STEPS, CART_TRAIN_EPOCHS = 2, 100, 10
+# 10 timed closed-loop steps (100, then 50 before), cut for the run time
+CART_LOOP_WARMUP, CART_LOOP_TIMED, CART_LOOP_SPLIT = 3, 10, 5
 CART_LOOP_CHECK_B = (2048, 253)
 # hopper poses for the rollout checks (sample k in pose k % 4): (name, hip,
 # knee, ankle, the foot's lowest point above the floor (m), vertical
@@ -2440,7 +2473,7 @@ def hopper_phase() -> dict:
     rk.launches = 0
     runner.run(max_steps=HOP_WARMUP, chunk=HOP_WARMUP)
     h0 = time.perf_counter()
-    res = runner.run(max_steps=HOP_TIMED, chunk=50)
+    res = runner.run(max_steps=HOP_TIMED, chunk=HOP_TIMED)
     torch.cuda.synchronize()
     wall = time.perf_counter() - h0
     launches = rk.launches
@@ -2662,8 +2695,10 @@ def small_robot_phases() -> dict:
 # the reference scripts' operating points (envs/tasks): humanoid K=50,
 # T=100 (src/Humanoid_mppi.jl), humanoid_hard K=30, T=75
 # (src/Humanoid_datacollection.py); control steps of each run
-HUM_TASK_STEPS = {"humanoid": 100, "humanoid_hard": 50}
-HUM_TASK_SPLIT_STEPS = 5
+# control steps of each task, cut for the run time (100 and 50, then 50
+# and 25 before; 3 split steps, 5 before)
+HUM_TASK_STEPS = {"humanoid": 25, "humanoid_hard": 15}
+HUM_TASK_SPLIT_STEPS = 3
 # humanoid_v1's step periods checked: 4 (both sides inside an 8-step
 # rollout) and the task's 100
 V1_PERIODS = (4, 100)
@@ -2674,9 +2709,10 @@ NEW_COST_K, NEW_COST_T = 8192, 64   # each cost's kernel time (humanoid_bench's 
 NEW_COST_PLAIN_T = 8
 # the array planner: humanoid_collect (K=50, T=100, f32), as EpisodeRunner's
 # default (use_kernel=False) runs it
-ARRAY_TASK, ARRAY_WARMUP, ARRAY_TIMED = "humanoid_collect", 2, 3
+# 1 warm-up and 2 timed array replans (2 and 3 before), cut for the run time
+ARRAY_TASK, ARRAY_WARMUP, ARRAY_TIMED = "humanoid_collect", 1, 2
 ARRAY_CHECK_K, ARRAY_CHECK_T = 256, 16
-V2PY_STEPS = 5
+V2PY_STEPS = 3   # 5 before, cut for the run time (the check reads row 2)
 # humanoid_hard's -1000 x swing-foot-velocity term makes its values cross
 # zero, so the f32 check holds the 0.99 quantile of the relative error below
 # 1e-2 in place of its max (check_rollout)
@@ -2881,7 +2917,7 @@ def humanoid_task_phase() -> dict:
         runner = EpisodeRunner(task, use_kernel=True)
         rk.launches = 0
         h0 = time.perf_counter()
-        res = runner.run(max_steps=steps, chunk=50)
+        res = runner.run(max_steps=steps, chunk=steps)   # a chunk runs whole: one chunk
         torch.cuda.synchronize()
         wall = time.perf_counter() - h0
         launches = rk.launches
@@ -3112,9 +3148,11 @@ def humanoid_task_phases() -> dict:
 # balls turned 0.6-0.8 rad and the elbow past its upper limit
 ARM5_POSES = ("air", "limit", "rest", "deep", "springs")
 ARM5_LIMIT = 70 * np.pi / 180
-ARM5_TASK_STEPS, ARM5_SPLIT_STEPS = 100, 5
+# 25 control steps on the kernel planner (100 before), 1 warm-up and 2 timed
+# array replans (2 and 3 before), cut for the run time
+ARM5_TASK_STEPS, ARM5_SPLIT_STEPS = 25, 5
 ARM5_TIME_K, ARM5_T = (64, 8192), 40   # the task's K and the sweep's, T = the task's
-ARM5_ARRAY_WARMUP, ARM5_ARRAY_TIMED = 2, 3
+ARM5_ARRAY_WARMUP, ARM5_ARRAY_TIMED = 1, 2
 # the transmission test models (tests/test_engine_generality.py's
 # SITE_ACT_XML and TENDON_ACT_XML), checked with the cartpole cost
 TRANSMISSION_MODELS = ("site_act_plant", "tendon_act_plant")
@@ -3297,7 +3335,7 @@ def arm5_phase(builds: dict) -> dict:
     runner = EpisodeRunner("arm5_reach", use_kernel=True)
     target = runner.spec.cost_kwargs.get("target", (0.35, 0.15, 0.55))
     rk.launches = 0
-    res = runner.run(max_steps=ARM5_TASK_STEPS, chunk=50)
+    res = runner.run(max_steps=ARM5_TASK_STEPS, chunk=ARM5_TASK_STEPS)
     torch.cuda.synchronize()
     launches = rk.launches
     if launches != ARM5_TASK_STEPS:
@@ -3535,6 +3573,236 @@ def cli_phase(main_replan_ms: float) -> dict:
     return {"paths": paths, **record}
 
 
+# ---------------------------------------------------------------------------
+# slice 13: LQR and the K-sharded planners
+# ---------------------------------------------------------------------------
+
+# tests/test_lqr.py's cartpole and one-leg stand, with their gates
+CART_LQR_Q, CART_LQR_R = np.diag([10.0, 100.0, 1.0, 1.0]), 0.1 * np.eye(1)
+CART_LQR_START, CART_LQR_STEPS = (0.1, 0.15), 400
+STAND_STEPS, STAND_HEIGHTS = 200, 2001
+# the gated loops end each Newton solve at convergence (Engine.step's
+# early_exit: the same bits as the card's default 25 masked iterations, a
+# flag read back an iteration), for the run time; LQR_MASKED_STEPS more
+# steps on the default path time a controlled step as a caller gets it
+LQR_MASKED_STEPS = 10
+# the sharded planners: the kernel planner at humanoid_bench's shapes, the
+# array planner at humanoid_collect's K=50 with its horizon cut from 100,
+# the blocked field in blocks of NOISE_BLOCK
+SHARD_ARRAY_T, NOISE_BLOCK = 8, 1024
+
+
+def controlled_loop(eng, ctrl, st, n: int) -> dict:
+    """n controlled coupled steps from st with the Newton loop's early
+    exit, then LQR_MASKED_STEPS on from there on the default path (all 25
+    masked iterations on the card): the n-th state (gated) and the ms of a
+    step each way."""
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    for _ in range(n):
+        st = eng.step(st, ctrl(st), early_exit=True)
+    torch.cuda.synchronize()
+    out = {"state": st, "controlled_step_ms_early_exit": (time.perf_counter() - ts) / n * 1e3}
+    ts = time.perf_counter()
+    for _ in range(LQR_MASKED_STEPS):
+        st = eng.step(st, ctrl(st))
+    torch.cuda.synchronize()
+    if not torch.isfinite(st.qpos).all():
+        raise AssertionError("non-finite state after the masked steps")
+    out["controlled_step_ms"] = (time.perf_counter() - ts) / LQR_MASKED_STEPS * 1e3
+    out["masked_steps"] = LQR_MASKED_STEPS
+    return out
+
+
+def lqr_phase() -> dict:
+    """main_lqr: solver/lqr on the card in float64 (the Engine's dtype for
+    the linearization, the Riccati iteration, the controller and the plant):
+    the cartpole from (0.1, 0.15) for 400 coupled steps (|theta| < 0.02,
+    |x| < 0.1), then make_humanoid_lqr's full 2,001-height sweep and 200
+    controlled coupled steps of the one-leg stand (|z - z0| < 0.08, max
+    |qvel| < 0.5, spectral radius open > 1.01 and closed < 1.001); the
+    gated steps end each Newton solve at convergence (controlled_loop)."""
+    from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
+    from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+    from humanoid_mppi_rl_tpu_torch.solver.lqr import make_humanoid_lqr, make_lqr_controller
+
+    t0 = time.perf_counter()
+    f64, dev = torch.float64, torch.device("cuda")
+    eng = Engine(load_model("cartpole_plant"), dev, f64)
+    cart_seconds = {}
+    ctrl, (A, B, K) = make_lqr_controller(eng, np.zeros(2), Q=CART_LQR_Q, R=CART_LQR_R,
+                                          seconds=cart_seconds)
+    st = eng.forward(torch.tensor(CART_LQR_START, dtype=f64, device=dev),
+                     torch.zeros(2, dtype=f64, device=dev))
+    cart_ms = controlled_loop(eng, ctrl, st, CART_LQR_STEPS)
+    st = cart_ms.pop("state")
+    theta, x = float(st.qpos[1]), float(st.qpos[0])
+    if not (torch.isfinite(K).all() and abs(theta) < 0.02 and abs(x) < 0.1):
+        raise AssertionError(f"cartpole LQR: theta {theta}, x {x} after {CART_LQR_STEPS} steps")
+
+    heng = Engine(load_model("humanoid"), dev, f64)
+    controller, d = make_humanoid_lqr(heng, n_heights=STAND_HEIGHTS)
+    A, B, K = d["mats"]
+    An, Bn, Kn = (m.cpu().numpy() for m in (A, B, K))
+    sr_open = float(np.abs(np.linalg.eigvals(An)).max())
+    sr_closed = float(np.abs(np.linalg.eigvals(An - Bn @ Kn)).max())
+    if not (np.isfinite(An).all() and np.isfinite(Kn).all() and sr_open > 1.01
+            and sr_closed < 1.001):
+        raise AssertionError(f"humanoid LQR: spectral radius open {sr_open}, closed {sr_closed}")
+    z0 = float(d["qpos0"][2])
+    st = heng.forward(torch.tensor(d["qpos0"], dtype=f64, device=dev),
+                      torch.zeros(heng.model.nv, dtype=f64, device=dev))
+    stand_ms = controlled_loop(heng, controller, st, STAND_STEPS)
+    st = stand_ms.pop("state")
+    dz, vmax = abs(float(st.qpos[2]) - z0), float(st.qvel.abs().max())
+    if not (dz < 0.08 and vmax < 0.5):
+        raise AssertionError(f"one-leg stand: |z - z0| {dz}, max |qvel| {vmax}")
+    out = {"phase": "main_lqr", "dtype": "float64",
+           "cartpole": {"steps": CART_LQR_STEPS, "theta": theta, "x": x,
+                        "seconds": cart_seconds, **cart_ms},
+           "humanoid": {"n_heights": STAND_HEIGHTS, "height": d["info"]["height"],
+                        "u_vert_min_abs": float(np.abs(d["info"]["u_vert"]).min()),
+                        "residual_actuated_max": float(np.abs(d["info"]["residual"][6:]).max()),
+                        "spectral_radius_open": sr_open, "spectral_radius_closed": sr_closed,
+                        "steps": STAND_STEPS, "z_drift": dz, "qvel_max_abs": vmax,
+                        "seconds": d["seconds"], **stand_ms},
+           "gates": {"cartpole": "|theta| < 0.02, |x| < 0.1",
+                     "humanoid": "|z - z0| < 0.08, max|qvel| < 0.5, open > 1.01, closed < 1.001"},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _max_diff(a: dict, b: dict) -> dict:
+    return {k: float((torch.as_tensor(a[k]).double() - torch.as_tensor(b[k]).double())
+                     .abs().max()) for k in a}
+
+
+def _plan_outputs(action, state, diag) -> dict:
+    return {"action": action, "U": state.U, **dataclasses.asdict(diag)}
+
+
+def sharded_phase(main_replan_ms: float) -> dict:
+    """check_sharded: parallel/mesh in a one-rank NCCL group. The sharded
+    kernel planner at humanoid_bench (K=8192, H=64, f32) against
+    make_kernel_mppi on the same injected noise, and both with
+    noise_block=NOISE_BLOCK drawing their own (bit-identical expected:
+    the same kernel on the same samples, all_reduce over one rank the
+    identity); the sharded array planner (humanoid_collect at K=50, T=8)
+    against make_mppi on the same noise (bit-identical expected; gate rel
+    1e-6); sample_noise_blocked's field drawn whole and in four slices at
+    their offsets on the device (equal); then chained sharded replans
+    (one rollout launch each) timed in turns with unsharded ones."""
+    import torch.distributed as dist
+
+    from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+    from humanoid_mppi_rl_tpu_torch.parallel.mesh import (make_mesh, make_sharded_kernel_mppi,
+                                                          make_sharded_mppi)
+    from humanoid_mppi_rl_tpu_torch.solver.kernel_mppi import make_kernel_mppi
+    from humanoid_mppi_rl_tpu_torch.solver.mppi import (MPPIState, make_mppi, replan_seed,
+                                                        sample_noise_blocked)
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        spec, model, _, _, _, init, cfg = load_task("humanoid_bench")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        noise = cfg.sigma * torch.randn((cfg.T, model.nu, cfg.K), generator=gen, device="cuda")
+        plan_1 = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, spec.cost_kwargs)
+        plan_s = make_sharded_kernel_mppi(model, spec.kernel_cost_factory, cfg, mesh,
+                                          spec.cost_kwargs)
+        seeded = lambda: MPPIState.seeded(0, cfg.T, model.nu)
+        diffs = {"injected": _max_diff(_plan_outputs(*plan_s(seeded(), init, noise=noise)),
+                                       _plan_outputs(*plan_1(seeded(), init, noise=noise)))}
+        bcfg = dataclasses.replace(cfg, noise_block=NOISE_BLOCK)
+        pb_1 = make_kernel_mppi(model, spec.kernel_cost_factory, bcfg, spec.cost_kwargs)
+        pb_s = make_sharded_kernel_mppi(model, spec.kernel_cost_factory, bcfg, mesh,
+                                        spec.cost_kwargs)
+        diffs["noise_block"] = _max_diff(_plan_outputs(*pb_s(seeded(), init)),
+                                         _plan_outputs(*pb_1(seeded(), init)))
+        bad = {k: v for k, v in diffs.items() if any(x != 0.0 for x in v.values())}
+        if bad:
+            raise AssertionError(f"sharded kernel replan differs from make_kernel_mppi: {bad}")
+
+        seed = replan_seed(torch.Generator(device="cuda").manual_seed(9))
+        whole = sample_noise_blocked(seed, cfg.T, model.nu, cfg.K, NOISE_BLOCK, 0,
+                                     torch.float32, "cuda")
+        kl = cfg.K // 4
+        parts = torch.cat([sample_noise_blocked(seed, cfg.T, model.nu, kl, NOISE_BLOCK,
+                                                r * kl // NOISE_BLOCK, torch.float32, "cuda")
+                           for r in range(4)], -1)
+        if not torch.equal(whole, parts):
+            raise AssertionError("blocked noise depends on the split")
+
+        aspec, amodel, dyn, running, terminal, ainit, acfg = load_task("humanoid_collect")
+        acfg = dataclasses.replace(acfg, horizon=SHARD_ARRAY_T)
+        anoise = acfg.sigma * torch.randn((acfg.K, acfg.T, amodel.nu), generator=gen,
+                                          device="cuda")
+        aseeded = lambda: MPPIState.seeded(0, acfg.T, amodel.nu)
+        got = _plan_outputs(*make_sharded_mppi(dyn, running, acfg, mesh, terminal_fn=terminal)(
+            aseeded(), ainit, noise=anoise))
+        want = _plan_outputs(*make_mppi(dyn, running, acfg, terminal_fn=terminal)(
+            aseeded(), ainit, noise=anoise))
+        diffs["array"] = _max_diff(got, want)
+        rel = max(diffs["array"][k] / max(float(torch.as_tensor(want[k]).abs().max()), 1e-30)
+                  for k in want)
+        if not rel <= 1e-6:
+            raise AssertionError(f"sharded array replan differs from make_mppi: {diffs['array']}")
+
+        # chained replans in turns (sharded, unsharded, unsharded, sharded),
+        # the rollout launches counted over each sharded block alone
+        states = {"sharded": seeded(), "unsharded": seeded()}
+        plans = {"sharded": plan_s, "unsharded": plan_1}
+        for name in plans:
+            for _ in range(WARMUP):
+                _, states[name], _ = plans[name](states[name], init)
+        times, launches = {"sharded": [], "unsharded": []}, 0
+        for name in ("sharded", "unsharded", "unsharded", "sharded"):
+            torch.cuda.synchronize()
+            rk.launches = 0
+            for _ in range(TIMED // 2):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                action, states[name], diag = plans[name](states[name], init)
+                b.record()
+                torch.cuda.synchronize()
+                times[name].append(a.elapsed_time(b))
+            if name == "sharded":
+                launches += rk.launches
+        if launches != TIMED:
+            raise AssertionError(f"{launches} rollout launches in {TIMED} sharded replans")
+        if not (torch.isfinite(action).all() and torch.isfinite(states["sharded"].U).all()):
+            raise AssertionError("non-finite sharded replan")
+    finally:
+        dist.destroy_process_group()
+    out = {"phase": "check_sharded", "ranks": 1, "backend": "nccl", "K": cfg.K, "H": cfg.T,
+           "noise_block": NOISE_BLOCK, "array_K": acfg.K, "array_T": acfg.T,
+           "max_abs_diff": diffs,
+           "tolerance": {"kernel planner": "bit-identical (max |diff| == 0)",
+                         "array planner": "max |diff| <= 1e-6 x max |value|, bit-identical "
+                                          "expected", "blocked field": "equal"},
+           "launches_per_replan": launches / TIMED, "replans": TIMED, "launches": launches,
+           "sharded_replan_ms_median": statistics.median(times["sharded"]),
+           "unsharded_replan_ms_median": statistics.median(times["unsharded"]),
+           "main_replan_ms_median": main_replan_ms,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3671,6 +3939,8 @@ def main() -> int:
     humanoid = humanoid_task_phases()
     arm5 = arm5_phase(builds)
     cli = cli_phase(med)
+    lqr_phase()
+    sharded = sharded_phase(med)
     est["paths"] = {"estimator replan": {"launches": est["launches"],
                                          "replans": EST_WARMUP + EST_TIMED},
                     **loop.pop("paths"), **small["estimator"].pop("paths")}
@@ -3694,13 +3964,17 @@ def main() -> int:
                   **humanoid.pop("paths"),
                   "arm5_reach": {"launches": arm5["launches"],
                                  "control_steps": arm5["control_steps"]},
-                  **cli.pop("paths")},
+                  **cli.pop("paths"),
+                  "humanoid_bench sharded replan (one-rank NCCL group)": {
+                      "launches": sharded["launches"], "replans": sharded["replans"]}},
         **humanoid,
         "collect_control_step_ms": collect["collect_control_step_ms"],
         "go1": go1,
         **small["rollout"],
         "arm5": arm5,
         "cli": cli,
+        "sharded": {k: sharded[k] for k in ("sharded_replan_ms_median",
+                                            "unsharded_replan_ms_median", "launches_per_replan")},
         "max_abs_err": max(e["cost_max_abs"] for k, e in errs.items() if "float32" in k),
         "max_abs_err_f64": max(e["cost_max_abs"] for k, e in errs.items() if "float64" in k),
         "cost_rel_median_f32": max(e["cost_rel_median"] for k, e in errs.items()

@@ -10,6 +10,7 @@ The cartpole's flat costs are costs/cartpole.make_costs_flat
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional
 
@@ -393,7 +394,8 @@ class EstimatorRunner:
 
 
 def make_cartpole_estimator(module, seed: int = 0, device="cuda",
-                            dtype=torch.float32) -> EstimatorRunner:
+                            dtype=torch.float32,
+                            mppi_override: Optional[dict] = None) -> EstimatorRunner:
     """The cartpole closed loop of reference src/cartpole_mppi_estimator.py
     (JAX collect/estimator.py:444-449): ESTIMATOR_CONFIGS["cartpole"]
     (K=2048, T=100, replace update), costs/cartpole.make_costs_flat on the
@@ -402,7 +404,9 @@ def make_cartpole_estimator(module, seed: int = 0, device="cuda",
     (models/predictors cartpole_attention) where JAX takes (apply_fn,
     params, asset_path); the plant comes from the "cartpole" task. The
     estimator kernel's route is EstimatorRunner("cartpole", module, cfg,
-    *make_costs_flat(), batched_dynamics=True)."""
+    *make_costs_flat(), batched_dynamics=True). `mppi_override` replaces
+    fields of the config (as EpisodeRunner's; the JAX function has none)."""
     running, terminal = cartpole_cost.make_costs_flat()
-    return EstimatorRunner("cartpole", module, ESTIMATOR_CONFIGS["cartpole"], running, terminal,
+    cfg = dataclasses.replace(ESTIMATOR_CONFIGS["cartpole"], **(mppi_override or {}))
+    return EstimatorRunner("cartpole", module, cfg, running, terminal,
                            seed=seed, device=device, dtype=dtype)

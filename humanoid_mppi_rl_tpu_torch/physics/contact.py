@@ -20,7 +20,8 @@ penetration; physics/newton.py builds its rows from these.
 `contact_terms` is the planner ("penalty") tier's decoupled per-row law,
 fn = max(d(r) m_eff (d(r) k pen - b vn), 0) capped at the restitution
 cap, with the implicit damping matrix G = J^T C J; the plane rows take a
-leading K batch for it (the self rows stay one-sample).
+leading K batch for it (the self rows stay one-sample). Its inverse
+reading (r_form) is what engine.inverse_dynamics reads.
 
 A mesh in a pair without a plane (mesh-vs-primitive, mesh-vs-mesh) is
 refused (ROADMAP A3).
@@ -496,22 +497,33 @@ def contact_force_terms(rows, fn: torch.Tensor):
     return tau, G
 
 
-def contact_terms(ct: Optional[ContactTables], state, S: torch.Tensor, h: float):
-    """The penalty tier's decoupled per-row contact forces and implicit
-    damping (JAX contact_terms, the forward reading with a0 dropped):
+def contact_terms(ct: Optional[ContactTables], state, S: torch.Tensor, h: float,
+                  qacc: Optional[torch.Tensor] = None, r_form: bool = False):
+    """Decoupled per-row contact forces and implicit damping (JAX
+    contact_terms). The forward reading, the penalty tier's (a0 dropped):
 
         fn = max(d(r) m_eff (d(r) k_base pen - b vn), 0) * active
 
     capped so that the impulse fn h pushes a row out at most at
-    RESTITUTION_VCAP: fn <= m_eff max(VCAP - vn, 0) / h. Returns (tau
-    (..., nv), G (..., nv, nv)), zeros when the model has no pair."""
+    RESTITUTION_VCAP: fn <= m_eff max(VCAP - vn, 0) / h. The inverse
+    reading (r_form=True, inverse_dynamics'; mj_inverse's f = (aref - a)/R):
+    gain m_eff d/(1 - d) with 1 - d floored at 1e-6, a_n = J_n qacc the
+    realised normal acceleration subtracted inside the bracket, and no
+    cap, so that the force stays the exact inverse of the given motion.
+    Returns (tau (..., nv), G (..., nv, nv)), zeros when the model has no
+    pair."""
     rows = None if ct is None else collect_contact_rows(ct, state, S, penalty=True)
     if rows is None:
         z = torch.zeros_like(state.qvel)
         return z, torch.diag_embed(z)
     d_r, meff = rows["d_r"], rows["meff"]
     gain = meff * d_r
-    fn = torch.clamp(gain * (d_r * rows["k_base"] * rows["pen"] - rows["b_ref"] * rows["vn"]),
-                     min=0.0) * rows["active"]
-    fn = torch.minimum(fn, meff * torch.clamp(RESTITUTION_VCAP - rows["vn"], min=0.0) / h)
+    bracket = d_r * rows["k_base"] * rows["pen"] - rows["b_ref"] * rows["vn"]
+    if qacc is not None:
+        bracket = bracket - torch.einsum("...pn,...n->...p", rows["JpN"], qacc)
+    if r_form:
+        gain = gain / torch.clamp(1.0 - d_r, min=1e-6)
+    fn = torch.clamp(gain * bracket, min=0.0) * rows["active"]
+    if not r_form:
+        fn = torch.minimum(fn, meff * torch.clamp(RESTITUTION_VCAP - rows["vn"], min=0.0) / h)
     return contact_force_terms(rows, fn)

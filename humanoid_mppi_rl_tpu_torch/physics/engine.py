@@ -20,7 +20,10 @@ friction jointly by the primal Newton solver of physics/newton.py, as the
 JAX environment tier does. `step(solver="penalty")` is the decoupled
 per-row law that the rollout kernel implements (ops/scalar_physics): limit
 and contact forces with their implicit damping folded into the Euler
-matrix, no a0 compensation, no coupling between rows.
+matrix, no a0 compensation, no coupling between rows. `inverse_dynamics`
+reads the same laws inversely (JAX r_form: the force that realises a
+given acceleration), for solver/lqr with `actuator_moment` and the CoM
+jacobians.
 
 An `Engine` holds every constant of one model on one device in one dtype,
 built once. A step copies nothing from the host and reads nothing back: the
@@ -261,7 +264,8 @@ class Engine:
     # ---- one step ----------------------------------------------------------
 
     def step(self, state: PhysicsState, ctrl: torch.Tensor, solver: str = "coupled",
-             n_iter: int = 25, info: Optional[dict] = None) -> PhysicsState:
+             n_iter: int = 25, info: Optional[dict] = None,
+             early_exit: Optional[bool] = None) -> PhysicsState:
         """One physics step (mujoco mj_step analog): forward dynamics and
         Euler. solver="coupled": the smooth acceleration qacc0 first, then
         the constraint rows resolved jointly by primal Newton
@@ -270,7 +274,10 @@ class Engine:
         and contact law (the rollout kernel's), one sample or a state whose
         fields carry a leading K axis with ctrl (K, nu). `info`, when a
         dict, receives the Newton solve's iteration count and row counts
-        (device tensors)."""
+        (device tensors). `early_exit` ends the Newton loop at convergence
+        (newton.solve_qacc); by default it does so on the CPU, where reading
+        the flag costs no device wait, and runs all n_iter masked on the
+        card."""
         if solver == "coupled_pgs":
             raise NotImplementedError(f'solver="{solver}" is not ported yet (ROADMAP A3)')
         if solver not in ("coupled", "penalty"):
@@ -285,9 +292,11 @@ class Engine:
         with _full_f32():
             if solver == "penalty":
                 return self._step_penalty(state, ctrl)
-            return self._step(state, ctrl, n_iter, info)
+            if early_exit is None:
+                early_exit = self.device.type == "cpu"
+            return self._step(state, ctrl, n_iter, info, early_exit)
 
-    def _step(self, state, ctrl, n_iter, info):
+    def _step(self, state, ctrl, n_iter, info, early_exit):
         h = self.h
         qpos, qvel, S = state.qpos, state.qvel, state.S
         I, _ = spatial_inertias(self, state.xpos, state.xquat)
@@ -303,7 +312,8 @@ class Engine:
         if self.newton_mode:
             qacc0 = cho_solve(M, f)
             f = f + newton.newton_constraint_forces(self, state, S, qacc0, M,
-                                                    n_iter=n_iter, info=info)
+                                                    n_iter=n_iter, info=info,
+                                                    early_exit=early_exit)
         qacc = cho_solve(Mh, f)
         qvel_new = qvel + h * qacc
         qpos_new = integrate_qpos(self, qpos, qvel_new, h)
@@ -476,14 +486,7 @@ def actuator_forces(eng: Engine, qpos, qvel, ctrl, state=None) -> torch.Tensor:
         if kind == "site":
             if state is None:
                 raise ValueError("site-transmission actuators need state kinematics")
-            b, S = c["body"], state.S
-            R_b = sp.quat_to_mat(state.xquat[..., b, :])
-            p_s = state.xpos[..., b, :] + R_b @ c["pos"]
-            R_s = R_b @ c["R"]
-            Fw = R_s @ c["g_f"]
-            tau0 = R_s @ c["g_t"] + sp.cross(p_s, Fw)
-            moment = ((S[..., :, :3] @ tau0[..., :, None])[..., 0]
-                      + (S[..., :, 3:] @ Fw[..., :, None])[..., 0]) * c["anc"]
+            moment = _site_moment(c, state)
             vel = torch.sum(moment * qvel, -1)
             force = float(act.gain) * u + b0 + b2 * vel
             moment_ = moment
@@ -536,25 +539,36 @@ def _solref_tables(solref, solimp, device, dtype) -> dict:
     return dict(k_base=t(kb), b_ref=t(br), imp=contact.Impedance(solimp, device, dtype))
 
 
-def _limit_force(tab: dict, viol, pos_dot, h: float):
-    """The limit law of the penalty tier (JAX _limit_force, forward reading
-    with a0 dropped): f = max(m_eff d(r) (d(r) k_base viol - b pos_dot), 0)
-    on active rows, capped so that the row pushes out at most at
-    RESTITUTION_VCAP; and the implicit damping coefficient m_eff d(r) b.
-    pos_dot is the velocity in the push-back direction."""
+def _limit_force(tab: dict, viol, pos_dot, h: float, a0_pos=None, r_form: bool = False):
+    """The limit law (JAX _limit_force). Forward reading, the penalty
+    tier's (a0 dropped): f = max(m_eff d(r) (d(r) k_base viol - b pos_dot),
+    0) on active rows, capped so that the row pushes out at most at
+    RESTITUTION_VCAP. Inverse reading (r_form=True, inverse_dynamics'):
+    gain m_eff d/(1 - d) with 1 - d floored at 1e-6, the realised
+    acceleration a0_pos subtracted inside the bracket, no cap. Returns the
+    force and the implicit damping coefficient m_eff d(r) b. pos_dot and
+    a0_pos are in the push-back direction."""
     active = (viol > 0).to(viol.dtype) * tab["lim"]
     d_r = tab["imp"](viol)
     me = tab["meff"]
-    f_c = torch.clamp(me * d_r * (d_r * tab["k_base"] * viol - tab["b_ref"] * pos_dot),
-                      min=0.0) * active
-    f_c = torch.minimum(f_c, me * torch.clamp(contact.RESTITUTION_VCAP - pos_dot, min=0.0) / h)
+    gain = me * d_r
+    bracket = d_r * tab["k_base"] * viol - tab["b_ref"] * pos_dot
+    if a0_pos is not None:
+        bracket = bracket - a0_pos
+    if r_form:
+        gain = gain / torch.clamp(1.0 - d_r, min=1e-6)
+    f_c = torch.clamp(gain * bracket, min=0.0) * active
+    if not r_form:
+        f_c = torch.minimum(f_c, me * torch.clamp(contact.RESTITUTION_VCAP - pos_dot, min=0.0) / h)
     return f_c, me * d_r * tab["b_ref"] * active
 
 
-def limit_constraint_forces(eng: Engine, qpos, qvel):
-    """Joint-limit and fixed-tendon-limit forces of the penalty tier (JAX
-    _limit_constraint_forces with qacc0 = 0 and the restitution cap):
-    (tau (..., nv), G (..., nv, nv)) with G = diag(c) over the joints plus
+def limit_constraint_forces(eng: Engine, qpos, qvel, qacc=None, r_form: bool = False):
+    """Joint-limit, fixed-tendon-limit and ball rotation-angle-limit forces
+    (JAX _limit_constraint_forces): the penalty tier's forward reading with
+    qacc0 = 0 and the restitution cap, or with r_form=True the inverse
+    reading at the realised acceleration `qacc` (None: zero). Returns (tau
+    (..., nv), G (..., nv, nv)) with G = diag(c) over the joints plus
     sum_t c_t coef_t coef_t^T over the tendons."""
     tau = torch.zeros_like(qvel)
     g_diag = torch.zeros_like(qvel)
@@ -566,7 +580,8 @@ def limit_constraint_forces(eng: Engine, qpos, qvel):
         below = torch.clamp(tab["lo"] - q, min=0.0)
         above = torch.clamp(q - tab["hi"], min=0.0)
         s = torch.sign(below - above)        # push-back direction in dof space
-        f_c, c_l = _limit_force(tab, below + above, s * v, eng.h)
+        a0 = None if qacc is None else s * qacc[..., eng.hs_dofadr]
+        f_c, c_l = _limit_force(tab, below + above, s * v, eng.h, a0, r_form)
         tau = tau.index_add(-1, eng.hs_dofadr, s * f_c)
         g_diag = g_diag.index_add(-1, eng.hs_dofadr, c_l)
     if eng.lim_ten is not None:
@@ -579,7 +594,8 @@ def limit_constraint_forces(eng: Engine, qpos, qvel):
         below = torch.clamp(tab["lo"] - L, min=0.0)
         above = torch.clamp(L - tab["hi"], min=0.0)
         s = torch.sign(below - above)
-        f_c, c_t = _limit_force(tab, below + above, s * Ldot, eng.h)
+        a0 = None if qacc is None else s * (qacc @ coef.T)
+        f_c, c_t = _limit_force(tab, below + above, s * Ldot, eng.h, a0, r_form)
         tau = tau + (s * f_c) @ coef
         G_extra = torch.einsum("...t,tn,tm->...nm", c_t, coef, coef)
     # ball rotation-angle limits: a row J = -axis over the ball's dofs
@@ -589,7 +605,9 @@ def limit_constraint_forces(eng: Engine, qpos, qvel):
         axis = rotvec / angle[..., None]
         viol = torch.clamp(angle - max_angle, min=0.0)
         v_row = -torch.sum(axis * qvel[..., d:d + 3], -1)
-        f_c, c_b = (x.reshape(viol.shape) for x in _limit_force(tab, viol, v_row, eng.h))
+        a_row = None if qacc is None else -torch.sum(axis * qacc[..., d:d + 3], -1)
+        f_c, c_b = (x.reshape(viol.shape)
+                    for x in _limit_force(tab, viol, v_row, eng.h, a_row, r_form))
         tau = torch.cat([tau[..., :d], tau[..., d:d + 3] + (-axis * f_c[..., None]),
                          tau[..., d + 3:]], -1)
         Gb = c_b[..., None, None] * axis[..., :, None] * axis[..., None, :]
@@ -613,3 +631,112 @@ def integrate_qpos(eng: Engine, qpos, qvel, h: float) -> torch.Tensor:
     for qa, da in eng.ball_adr:
         out[..., qa:qa + 4] = sp.quat_integrate(qpos[..., qa:qa + 4], qvel[..., da:da + 3], h)
     return out
+
+
+# ---------------------------------------------------------------------------
+# inverse dynamics, transmission moments and CoM jacobians (for solver/lqr)
+# ---------------------------------------------------------------------------
+
+def inverse_dynamics(eng: Engine, state: PhysicsState,
+                     qacc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mj_inverse analog (JAX inverse_dynamics): the generalized force that
+    realises `qacc` at the state's (qpos, qvel),
+
+        qfrc_inverse = M qacc + bias - tau_passive - tau_limits - tau_contact
+
+    with the tanh frictionloss in the passive term and the limit and
+    contact forces in their inverse reading (r_form) at the given motion,
+    so no constraint solve is needed and the result is differentiable.
+    qacc=None: zero acceleration, and no M qacc term. One sample or a
+    state with a leading K axis (floor pairs only, as the penalty step)."""
+    if not eng.has_dynamics:
+        raise ValueError("inverse_dynamics needs a snapshot with the engine's fields "
+                         "(export_model_arrays(plant=True))")
+    with _full_f32():
+        qpos, qvel, S = state.qpos, state.qvel, state.S
+        I, _ = spatial_inertias(eng, state.xpos, state.xquat)
+        bias = bias_forces(eng, S, I, state.body_vel, qvel)
+        tau, _ = passive_forces(eng, qpos, qvel, frictionloss=True)
+        if eng.has_limits:
+            tau = tau + limit_constraint_forces(eng, qpos, qvel, qacc, r_form=True)[0]
+        if eng.contact is not None:
+            tau = tau + contact.contact_terms(eng.contact, state, S, eng.h, qacc=qacc,
+                                              r_form=True)[0]
+        out = bias - tau
+        if qacc is not None:
+            out = out + (mass_matrix(eng, S, I) @ qacc[..., None])[..., 0]
+    return out
+
+
+def actuator_moment(eng: Engine, state: Optional[PhysicsState] = None) -> torch.Tensor:
+    """(nu, nv) transmission moment, qfrc_actuator = moment^T force (JAX
+    actuator_moment, mujoco actuator_moment). Joint, multi-dof and
+    fixed-tendon rows are constant; a site's row depends on the state's
+    kinematics (the world wrench turns with the site's body), so a model
+    with a site actuator needs `state`. Spatial tendons never reach here:
+    the snapshot export refuses them (ROADMAP A7)."""
+    m = eng.model
+    M = np.zeros((m.nu, m.nv))
+    site_rows = []
+    for i, a in enumerate(m.actuators):
+        if a.site_bodyid >= 0:
+            if state is None:
+                raise NotImplementedError(
+                    "site-transmission moments are state-dependent; pass the state's "
+                    "kinematics (actuator_moment(eng, state))")
+            site_rows.append(i)
+        elif a.tendon_id >= 0:
+            M[i] = a.gear * m.tendon_coef[a.tendon_id]
+        elif a.ndof > 1:
+            M[i, a.dofadr:a.dofadr + a.ndof] = a.gear6[:a.ndof]
+        else:
+            M[i, a.dofadr] = a.gear
+    out = eng.t(M)
+    if not site_rows:
+        return out
+    rows = {i: c for kind, i, c in eng.trn if kind == "site"}
+    for i in site_rows:
+        out = torch.cat([out[:i], _site_moment(rows[i], state)[None], out[i + 1:]], 0)
+    return out
+
+
+def _site_moment(c: dict, state: PhysicsState) -> torch.Tensor:
+    """A site actuator's moment row (nv,): the gear wrench in the site
+    frame, moved to the world origin and projected on the dofs that move
+    the site's body (actuator_forces' site branch)."""
+    b, S = c["body"], state.S
+    R_b = sp.quat_to_mat(state.xquat[..., b, :])
+    p_s = state.xpos[..., b, :] + R_b @ c["pos"]
+    R_s = R_b @ c["R"]
+    Fw = R_s @ c["g_f"]
+    tau0 = R_s @ c["g_t"] + sp.cross(p_s, Fw)
+    return ((S[..., :, :3] @ tau0[..., :, None])[..., 0]
+            + (S[..., :, 3:] @ Fw[..., :, None])[..., 0]) * c["anc"]
+
+
+def body_com_jacobian(eng: Engine, state: PhysicsState, bodyid: int) -> torch.Tensor:
+    """(3, nv) world translational jacobian of a body's centre of mass
+    (mj_jacBodyCom; JAX body_com_jacobian)."""
+    R = sp.quat_to_mat(state.xquat[bodyid])
+    xipos = state.xpos[bodyid] + R @ eng.body_ipos[bodyid]
+    S_ang, S_lin = state.S[:, :3], state.S[:, 3:]
+    J = (S_lin + sp.cross(S_ang, xipos[None, :])) * eng.A[bodyid][:, None]
+    return J.T
+
+
+def subtree_com_jacobian(eng: Engine, state: PhysicsState, rootid: int) -> torch.Tensor:
+    """(3, nv) jacobian of the mass-weighted CoM of `rootid`'s subtree
+    (mj_jacSubtreeCom; JAX subtree_com_jacobian), the bodies' jacobians
+    summed in body order."""
+    m = eng.model
+    in_sub = np.zeros(m.nbody, bool)
+    in_sub[rootid] = True
+    for b in range(rootid + 1, m.nbody):
+        in_sub[b] = in_sub[m.body_parent[b]]
+    ids = np.where(in_sub)[0]
+    masses = m.body_mass[ids]
+    total = float(masses.sum())
+    J = torch.zeros((3, m.nv), dtype=state.qpos.dtype, device=state.qpos.device)
+    for b, mass in zip(ids.tolist(), masses.tolist()):
+        J = J + (mass / total) * body_com_jacobian(eng, state, b)
+    return J

@@ -177,6 +177,7 @@ class PhysicsModel:
     # and (dofadr, qposadr, max rotation angle, solref, solimp, m_eff)
     ball_springs: Tuple = ()
     ball_limits: Tuple = ()
+    joint_names: Tuple[str, ...] = ()         # one per joint (LQR picks dofs by name)
 
     def body_id(self, name: str) -> int:
         return self.body_names.index(name)
@@ -272,6 +273,7 @@ def export_model_arrays(m, plant: bool = False) -> Dict[str, object]:
     if plant:
         d["cone"], d["impratio"] = int(m.cone), float(m.impratio)
     d["body_names"] = [str(n) for n in m.body_names]
+    d["joint_names"] = [str(n) for n in m.joint_names]
     d["key_names"] = [str(name) for name, _ in m.keyframes]
     d["key_qpos"] = np.asarray([np.asarray(q) for _, q in m.keyframes]).reshape(-1, m.nq)
     pair_fields = _PAIR_FIELDS + (_PLANT_PAIR_FIELDS if plant else ())
@@ -296,7 +298,7 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
     scalars = _MODEL_SCALARS + _PLANT_SCALARS
     ragged = tuple("geom_" + f for f in _GEOM_RAGGED)
     a = {k: np.asarray(v) for k, v in d.items()
-         if k not in scalars and k not in ("body_names", "key_names") + ragged}
+         if k not in scalars and k not in ("body_names", "joint_names", "key_names") + ragged}
     plant = "pred_mask" in d
 
     def objs(cls, prefix, fields, n):
@@ -350,6 +352,7 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
         body_mass=a["body_mass"].astype(np.float64),
         body_inertia=a["body_inertia"].astype(np.float64),
         body_names=tuple(str(n) for n in d["body_names"]),
+        joint_names=tuple(str(n) for n in d["joint_names"]),
         joints=joints,
         body_joints=tuple(tuple(b) for b in body_joints),
         ancestor_mask=a["ancestor_mask"].astype(np.float64),

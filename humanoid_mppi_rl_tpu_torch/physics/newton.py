@@ -18,7 +18,9 @@ takes an exact Newton step with a 12-step safeguarded line search. The JAX
 solver loops while the gradient norm exceeds tol * scale (at most n_iter
 times); here the loop runs n_iter times and a mask freezes x once that
 condition fails, which gives the same iterates without reading anything
-back from the device.
+back from the device. With early_exit the loop ends there instead, which
+reads the flag back each iteration: Engine.step asks for it on the CPU,
+where that costs no device wait.
 """
 
 from __future__ import annotations
@@ -387,10 +389,13 @@ def _phi_deriv(rows: _Rows, u0, du, alpha, mMdx, c_lin, imp_ratio):
     return d1, d2
 
 
-def solve_qacc(rt: RowTables, M, a0, rows: _Rows, n_iter: int = 30, tol: float = 1e-12):
+def solve_qacc(rt: RowTables, M, a0, rows: _Rows, n_iter: int = 30, tol: float = 1e-12,
+               early_exit: bool = False):
     """Newton-minimize the primal objective. Returns (qacc, f_rows,
     iterations taken): n_iter masked iterations, x frozen from the first at
-    which |grad| <= tol * scale (the JAX while_loop's exit)."""
+    which |grad| <= tol * scale (the JAX while_loop's exit), so that nothing
+    waits for the device. With early_exit the loop ends there instead, with
+    the same result, at the cost of reading the flag back each iteration."""
     dtype, dev = a0.dtype, a0.device
     imp_ratio = rt.imp_ratio
     J, aref = rows.J, rows.aref
@@ -418,6 +423,10 @@ def solve_qacc(rt: RowTables, M, a0, rows: _Rows, n_iter: int = 30, tol: float =
     taken = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(n_iter):
         go = gn > tol * scale
+        if early_exit and not bool(go):
+            # converged: the remaining iterations would leave x, gn and taken
+            # as they are
+            break
         u, grad, H = gradient(x, True)
         dx = -cho_solve(H, grad)
         du = J @ dx
@@ -444,15 +453,16 @@ def solve_qacc(rt: RowTables, M, a0, rows: _Rows, n_iter: int = 30, tol: float =
 
 
 def newton_constraint_forces(eng, state, S, a0, M, n_iter: int = 30,
-                             info: Optional[dict] = None) -> torch.Tensor:
+                             info: Optional[dict] = None,
+                             early_exit: bool = False) -> torch.Tensor:
     """Coupled constraint solve by primal Newton: tau (nv,) = J^T f, the
     generalized constraint force (mj qfrc_constraint analog). `info`, when a
     dict, receives "iterations" (device int), "rows" (the row count) and
-    "active_rows" (device)."""
+    "active_rows" (device). `early_exit` as solve_qacc's."""
     rows = build_rows(eng.rows, state, S)
     if rows.J.shape[0] == 0:
         return torch.zeros(eng.model.nv, dtype=a0.dtype, device=a0.device)
-    _, f, taken = solve_qacc(eng.rows, M, a0, rows, n_iter=n_iter)
+    _, f, taken = solve_qacc(eng.rows, M, a0, rows, n_iter=n_iter, early_exit=early_exit)
     if info is not None:
         info.update(iterations=taken, rows=rows.J.shape[0], active_rows=rows.active.sum())
     return rows.J.T @ f

@@ -13,8 +13,8 @@ from .._device import resolve_device
 from ..ops.rollout_kernel import build_rollout_kernel
 from ..physics.model import PhysicsModel
 from ..physics.state import PhysicsState
-from .mppi import (MPPIConfig, MPPIState, _clip_ctrl, diagnostics,
-                   mppi_weights, shift_plan, weighted_noise_update)
+from .mppi import (WHOLE_K, KShard, MPPIConfig, MPPIState, _clip_ctrl, replan_seed,
+                   sample_noise_blocked, shift_plan, weighted_noise_update)
 
 
 def make_kernel_mppi(
@@ -23,15 +23,22 @@ def make_kernel_mppi(
     cfg: MPPIConfig,
     cost_kwargs: Optional[dict] = None,
     device="cuda",
+    shard: KShard = WHOLE_K,
 ):
     """plan(mppi_state, plant: PhysicsState, params=None, noise=None) ->
     (action, state', diag).
 
     `noise` (T, nu, K), when given, replaces the sigma-scaled draw from the
-    state's generator: the matched-noise hook the parity tests use."""
+    state's generator: the matched-noise hook the parity tests use. With
+    cfg.noise_block the draw is `sample_noise_blocked`'s field, which the
+    sharded planner (parallel/mesh) draws too. `shard` (parallel/mesh.
+    make_sharded_kernel_mppi) rolls out its slice of K, one launch a
+    replan, and reduces the weighting over the others: it draws whole
+    blocks of the blocked field at its offset (one block of its slice
+    without noise_block) and takes its slice of an injected `noise`."""
     dev = resolve_device(device)
-    if cfg.noise_block is not None:
-        raise NotImplementedError("noise_block (sharding-invariant noise) is not ported")
+    K, block, offset, sl = shard.part(cfg.K, cfg.noise_block)
+    blocked = bool(cfg.noise_block) or shard.count > 1
     ctrl_low = None if cfg.ctrl_low is None else np.asarray(cfg.ctrl_low)
     ctrl_high = None if cfg.ctrl_high is None else np.asarray(cfg.ctrl_high)
     rollouts = build_rollout_kernel(
@@ -40,7 +47,7 @@ def make_kernel_mppi(
         ctrl_high=ctrl_high if cfg.clamp_rollout_ctrl else None,
         cost_kwargs=cost_kwargs, device=dev,
     )
-    K, T, nu = cfg.K, cfg.T, model.nu
+    T, nu = cfg.T, model.nu
 
     def plan(mppi_state: MPPIState, plant: PhysicsState, params=None, noise=None):
         U = mppi_state.U
@@ -55,11 +62,16 @@ def make_kernel_mppi(
             pvec = torch.nn.functional.pad(pvec, (0, max(0, 13 - pvec.shape[0])))
             sigma = sigma * torch.exp(pvec[11])
             temperature = temperature * torch.exp(pvec[12])
-        if noise is None:
+        if noise is None and blocked:
+            noise = sigma * sample_noise_blocked(replan_seed(mppi_state.generator), T, nu, K,
+                                                 block, offset, dtype, udev)
+        elif noise is None:
             noise = sigma * torch.randn((T, nu, K), generator=mppi_state.generator,
                                         dtype=dtype, device=udev)
-        elif tuple(noise.shape) != (T, nu, K):
-            raise ValueError(f"noise: shape {tuple(noise.shape)}, expected {(T, nu, K)}")
+        elif tuple(noise.shape) != (T, nu, cfg.K):
+            raise ValueError(f"noise: shape {tuple(noise.shape)}, expected {(T, nu, cfg.K)}")
+        else:
+            noise = noise[..., sl].contiguous()
 
         qpK = plant.qpos.to(dtype)[:, None].expand(model.nq, K).contiguous()
         qvK = plant.qvel.to(dtype)[:, None].expand(model.nv, K).contiguous()
@@ -67,8 +79,8 @@ def make_kernel_mppi(
             .expand(1, K).contiguous()
         costs, _, _ = rollouts(qpK, qvK, t0, U, noise, params=params)
 
-        w, beta = mppi_weights(costs, temperature, cfg.weight_eps)
-        update = weighted_noise_update(w, noise).to(dtype)
+        w, beta = shard.weights(costs, temperature, cfg.weight_eps)
+        update = shard.total(weighted_noise_update(w, noise)).to(dtype)
         U_new = update if cfg.update_mode == "replace" else U + update
         if cfg.clamp_plan:
             U_new = _clip_ctrl(U_new, cfg)
@@ -76,7 +88,7 @@ def make_kernel_mppi(
         U_shifted = shift_plan(U_new, cfg.tail_decay)
 
         return (action, MPPIState(U=U_shifted, generator=mppi_state.generator),
-                diagnostics(costs, w, beta, update))
+                shard.diagnostics(costs, w, beta, update))
 
     plan.rollouts = rollouts
     return plan

@@ -16,11 +16,16 @@ The algorithm per replan:
 The JAX PRNG key becomes a torch.Generator held in MPPIState; it advances
 in place when the planner draws noise. The two frameworks draw different
 numbers from one seed, so parity tests inject the same noise into both.
+With cfg.noise_block the field is drawn in K-blocks, each from a generator
+of its own seeded from the replan's seed and the block's index
+(`sample_noise_blocked`): sample k's noise then depends on k // block
+alone, so a planner sharded over K (parallel/mesh) draws the same field.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Callable, Optional
 
 import torch
@@ -45,7 +50,7 @@ class MPPIConfig:
     clamp_rollout_ctrl: bool = True  # clip perturbed ctrl inside rollouts
     terminal_scale: float = 0.0  # if no terminal_fn, terminal = scale * running
     replans_per_step: int = 1    # sample/update passes per control step
-    noise_block: Optional[int] = None  # sharding-invariant noise (not ported)
+    noise_block: Optional[int] = None  # draw K in blocks of this size (sample_noise_blocked)
 
     @property
     def K(self) -> int:
@@ -84,6 +89,45 @@ class MPPIDiagnostics:
     update_norm: torch.Tensor
 
 
+def replan_seed(generator: torch.Generator) -> int:
+    """A 63-bit seed for one replan's blocked noise, drawn from the state's
+    generator on the host: a hash of the generator's state, which is then
+    advanced by one draw. The generator's state lives on the host for a
+    CUDA generator too, so nothing waits for the device."""
+    state = generator.get_state().numpy().tobytes()
+    seed = int.from_bytes(hashlib.blake2b(state, digest_size=8).digest(), "little") >> 1
+    torch.empty(1, device=generator.device).normal_(generator=generator)
+    return seed
+
+
+def _block_seed(seed: int, index: int) -> int:
+    """splitmix64 of (seed, block index), kept to 63 bits."""
+    z = (seed + (index + 1) * 0x9E3779B97F4A7C15) % 2 ** 64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % 2 ** 64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % 2 ** 64
+    return (z ^ (z >> 31)) >> 1
+
+
+def sample_noise_blocked(seed: int, T: int, nu: int, n_local: int, block: int,
+                         block_offset: int = 0, dtype=torch.float32,
+                         device="cuda") -> torch.Tensor:
+    """A standard-normal (T, nu, n_local) field drawn as n_local / block
+    K-blocks, block b from a generator seeded from (seed, block_offset + b)
+    (JAX sample_noise_blocked, fold_in per block). Sample k's noise depends
+    only on (seed, k // block), never on how K is laid out over devices: a
+    shard holding a whole number of blocks at its offset draws its slice of
+    the single-device field."""
+    if n_local % block:
+        raise ValueError(f"n_local={n_local} not divisible by noise block {block}")
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    draws = []
+    for b in range(n_local // block):
+        gen.manual_seed(_block_seed(seed, block_offset + b))
+        draws.append(torch.randn((T, nu, block), generator=gen, dtype=dtype, device=dev))
+    return torch.cat(draws, dim=-1)
+
+
 def _clip_ctrl(u: torch.Tensor, cfg: MPPIConfig) -> torch.Tensor:
     if cfg.ctrl_low is not None and cfg.ctrl_high is not None:
         return torch.clamp(u, device_constant(tuple(cfg.ctrl_low), u.dtype, u.device),
@@ -119,6 +163,43 @@ def diagnostics(costs: torch.Tensor, w: torch.Tensor, beta: torch.Tensor,
         weight_entropy=-torch.sum(w * torch.where(w > 0, torch.log(w + 1e-30), 0.0)),
         update_norm=torch.linalg.norm(update),
     )
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class KShard:
+    """One process's slice of a replan's K samples and the reductions that
+    make its weighting the whole K's. The default is the whole K on one
+    device, with nothing to reduce; parallel/mesh.k_shard builds one over a
+    process group (equal slices, the slice of rank `index` of `count`).
+
+    weights(costs, temperature, weight_eps) -> (w, beta), w normalized over
+    every slice; total(x) sums x over the slices; diagnostics(costs, w,
+    beta, update) -> MPPIDiagnostics over every slice."""
+
+    index: int = 0
+    count: int = 1
+    weights: Callable = mppi_weights
+    total: Callable = _whole
+    diagnostics: Callable = diagnostics
+
+    def part(self, K: int, noise_block: Optional[int]):
+        """(k_local, block, block_offset, slice of K): this slice's sample
+        count, the noise block it draws in (noise_block, else its whole
+        slice) and its first block's index in the global field."""
+        if K % self.count:
+            raise ValueError(f"K={K} not divisible by the mesh's {self.count} ranks")
+        k = K // self.count
+        block = noise_block or k
+        if k % block:
+            raise ValueError(f"local K={k} not divisible by noise_block={block}")
+        return k, block, self.index * (k // block), slice(self.index * k, (self.index + 1) * k)
+
+
+WHOLE_K = KShard()
 
 
 def broadcast_state(x0, K: int):
@@ -165,7 +246,7 @@ def rollout_costs_batched(dynamics_fn: Callable, cost_fn: Callable,
 
 def make_mppi(dynamics_fn: Callable, cost_fn: Callable, cfg: MPPIConfig,
               terminal_fn: Optional[Callable] = None,
-              update_op: Optional[Callable] = None):
+              update_op: Optional[Callable] = None, shard: KShard = WHOLE_K):
     """plan(mppi_state, x0, noise=None) -> (action, state', diag).
 
     Rollouts go through `rollout_costs_batched`: the dynamics (a learned
@@ -173,9 +254,14 @@ def make_mppi(dynamics_fn: Callable, cost_fn: Callable, cfg: MPPIConfig,
     step) and the costs take the K batch natively. `update_op(costs, noise) -> (update, (w, beta))`
     replaces the plain weighting. `noise` (K, T, nu), when given, replaces
     the sigma-scaled draw from the state's generator: the matched-noise
-    hook the parity tests use; it requires replans_per_step=1."""
-    if cfg.noise_block is not None:
-        raise NotImplementedError("noise_block (sharding-invariant noise) is not ported")
+    hook the parity tests use; it requires replans_per_step=1. With
+    cfg.noise_block the draw is `sample_noise_blocked`'s (T, nu, K) field,
+    sample-major. `shard` (parallel/mesh.make_sharded_mppi) rolls out its
+    slice of K and reduces the weighting over the others: it draws whole
+    blocks of the blocked field at its offset (one block of its slice
+    without noise_block) and takes its slice of an injected `noise`."""
+    k_local, block, offset, sl = shard.part(cfg.K, cfg.noise_block)
+    blocked = bool(cfg.noise_block) or shard.count > 1
 
     def plan(mppi_state: MPPIState, x0, noise: Optional[torch.Tensor] = None):
         if noise is not None and cfg.replans_per_step != 1:
@@ -189,17 +275,24 @@ def make_mppi(dynamics_fn: Callable, cost_fn: Callable, cfg: MPPIConfig,
             if injected is None:
                 sigma = (float(cfg.sigma) if isinstance(cfg.sigma, (int, float))
                          else device_constant(tuple(cfg.sigma), U.dtype, U.device))
-                noise = sigma * torch.randn((cfg.K, cfg.T, nu), generator=mppi_state.generator,
-                                            dtype=U.dtype, device=U.device)
+                if blocked:
+                    noise = sigma * sample_noise_blocked(
+                        replan_seed(mppi_state.generator), cfg.T, nu, k_local, block,
+                        offset, U.dtype, U.device).movedim(-1, 0)
+                else:
+                    noise = sigma * torch.randn((cfg.K, cfg.T, nu),
+                                                generator=mppi_state.generator,
+                                                dtype=U.dtype, device=U.device)
             elif tuple(injected.shape) != (cfg.K, cfg.T, nu):
                 raise ValueError(f"noise: shape {tuple(injected.shape)}, "
                                  f"expected {(cfg.K, cfg.T, nu)}")
+            else:
+                noise = injected[sl]
             costs = rollout_costs_batched(dynamics_fn, cost_fn, terminal_fn, cfg, x0, U, noise)
             if update_op is not None:
                 update, (w, beta) = update_op(costs, noise)
             else:
-                w, beta = mppi_weights(costs, cfg.temperature, cfg.weight_eps)
-                update = torch.einsum("k,ktu->tu", w, noise.to(w.dtype))
+                update, (w, beta) = weighted_update(costs, noise, cfg, shard)
             # contain cost-side dtype drift (e.g. f64 cost constants)
             update = update.to(U.dtype)
             U = update if cfg.update_mode == "replace" else U + update
@@ -208,6 +301,14 @@ def make_mppi(dynamics_fn: Callable, cost_fn: Callable, cfg: MPPIConfig,
         action = _clip_ctrl(U[0], cfg)
         return (action,
                 MPPIState(U=shift_plan(U, cfg.tail_decay), generator=mppi_state.generator),
-                diagnostics(costs, w, beta, update))
+                shard.diagnostics(costs, w, beta, update))
 
     return plan
+
+
+def weighted_update(costs: torch.Tensor, noise: torch.Tensor, cfg: MPPIConfig,
+                    shard: KShard = WHOLE_K):
+    """make_mppi's plain weighting of (K, T, nu) noise, reduced over the
+    shard's group: (update (T, nu), (w, beta))."""
+    w, beta = shard.weights(costs, cfg.temperature, cfg.weight_eps)
+    return shard.total(torch.einsum("k,ktu->tu", w, noise.to(w.dtype))), (w, beta)

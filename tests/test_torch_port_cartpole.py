@@ -46,6 +46,11 @@ from humanoid_mppi_rl_tpu_torch.physics.state import PhysicsState
 from torch_port_small_robots import (host_library, host_rollout, j, jax_episode, jax_models,
                                      stack, t, xml)
 
+# One intra-op thread: the suite runs in several worker processes on shared
+# cores, and PyTorch's default of a thread per core in each of them
+# oversubscribes the cores (one trainer test took 35x longer, six at once).
+torch.set_num_threads(1)
+
 K, T = 16, 3
 
 
@@ -234,6 +239,7 @@ def test_cartpole_episode_runner_matches_jax(models, task):
 
 SMALL = dict(hidden_dim=16, attn_layers=1, dropout_rate=0.0)
 LSTEPS = 4
+LK, LT = 8, 3
 
 
 def _surrogate(seed=0):
@@ -257,11 +263,14 @@ def test_make_cartpole_estimator_matches_jax(models):
     make_cartpole_estimator recipe (collect/estimator.py:444-449: the flat
     cartpole costs, ESTIMATOR_CONFIGS["cartpole"]) through its control step
     (make_learned_dynamics -> make_mppi(...).plan(noise=...) ->
-    step(solver="coupled")) at matched noise, at the configuration's own
-    K=2048, T=100, 4 steps from (0, pi)."""
+    step(solver="coupled")) at matched noise, 4 steps from (0, pi). The
+    runner's default config is ESTIMATOR_CONFIGS["cartpole"] (K=2048,
+    T=100); the loop runs it with K and T cut to LK, LT by mppi_override."""
     _, jpm, _, _ = models
     net, params, mod = _surrogate()
-    cfg = jest.ESTIMATOR_CONFIGS["cartpole"]
+    assert dataclasses.asdict(pest.make_cartpole_estimator(mod, device="cpu").cfg) == \
+        dataclasses.asdict(jest.ESTIMATOR_CONFIGS["cartpole"])
+    cfg = dataclasses.replace(jest.ESTIMATOR_CONFIGS["cartpole"], n_samples=LK, horizon=LT)
     rng = np.random.default_rng(13)
     noises = [cfg.sigma * rng.normal(size=(cfg.K, cfg.T, 1)) for _ in range(LSTEPS)]
     running, terminal = jcost.make_costs_flat()
@@ -277,7 +286,8 @@ def test_make_cartpole_estimator_matches_jax(models):
         action, ms, _ = plan(ms, jax_flat_state(plant), jnp.asarray(noise))
         actions.append(np.asarray(action, np.float64))
         plant = step(plant, action)
-    runner = pest.make_cartpole_estimator(mod, device="cpu", dtype=torch.float64)
+    runner = pest.make_cartpole_estimator(mod, device="cpu", dtype=torch.float64,
+                                          mppi_override=dict(n_samples=LK, horizon=LT))
     assert dataclasses.asdict(runner.cfg) == dataclasses.asdict(cfg)
     log = runner.run(n_steps=LSTEPS, init_qpos=(0.0, np.pi), chunk=2,
                      noise_fn=lambda i: torch.from_numpy(noises[i]))
@@ -287,9 +297,6 @@ def test_make_cartpole_estimator_matches_jax(models):
     np.testing.assert_allclose(acts, np.stack(actions), atol=1e-9)
     np.testing.assert_allclose(times, 0.01 * np.arange(LSTEPS), atol=1e-15)
     assert np.abs(acts).max() > 1e-3
-
-
-LK, LT = 8, 3
 
 
 def test_cartpole_estimator_kernel_route(monkeypatch):

@@ -639,3 +639,59 @@ def test_cuda_cli_run_plans_on_the_rollout_kernel(tmp_path):
     assert states.shape == (5, 4) and np.isfinite(states).all()
     assert cli.main(["replay", "--states", str(tmp_path / "run" / "states.csv"),
                      "--asset", "cartpole.xml"]) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_sharded_replan_equals_make_kernel_mppi():
+    """make_sharded_kernel_mppi in a one-rank NCCL group at humanoid_bench
+    (K=8192, H=64, f32) on the same injected noise as make_kernel_mppi:
+    bit-identical action and plan, one rollout launch per replan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import torch.distributed as dist
+
+    from chip_smoke import _free_port
+    from humanoid_mppi_rl_tpu_torch.parallel.mesh import make_mesh, make_sharded_kernel_mppi
+    from humanoid_mppi_rl_tpu_torch.solver.kernel_mppi import make_kernel_mppi
+    from humanoid_mppi_rl_tpu_torch.solver.mppi import MPPIState
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        spec, model, _, _, _, init, cfg = load_task("humanoid_bench")
+        noise = cfg.sigma * torch.randn((cfg.T, model.nu, cfg.K), device="cuda",
+                                        generator=torch.Generator("cuda").manual_seed(2))
+        plan_s = make_sharded_kernel_mppi(model, spec.kernel_cost_factory, cfg, make_mesh(1),
+                                          spec.cost_kwargs)
+        plan_1 = make_kernel_mppi(model, spec.kernel_cost_factory, cfg, spec.cost_kwargs)
+        n0 = rk.launches
+        a_s, st_s, _ = plan_s(MPPIState.seeded(0, cfg.T, model.nu), init, noise=noise)
+        torch.cuda.synchronize()
+        assert rk.launches == n0 + 1
+        a_1, st_1, _ = plan_1(MPPIState.seeded(0, cfg.T, model.nu), init, noise=noise)
+        assert torch.equal(a_s, a_1) and torch.equal(st_s.U, st_1.U)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_humanoid_lqr_stands_on_one_leg():
+    """tests/test_lqr.py:64 on the card in float64: make_humanoid_lqr (101
+    heights here; chip_smoke main_lqr sweeps 2,001), the spectral gates,
+    and 200 controlled coupled steps within |z - z0| < 0.08, max |qvel| <
+    0.5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from humanoid_mppi_rl_tpu_torch.solver.lqr import make_humanoid_lqr
+
+    eng = Engine(load_model("humanoid"), "cuda", torch.float64)
+    controller, d = make_humanoid_lqr(eng, n_heights=101)
+    A, B, K = (m.cpu().numpy() for m in d["mats"])
+    assert np.abs(np.linalg.eigvals(A)).max() > 1.01
+    assert np.abs(np.linalg.eigvals(A - B @ K)).max() < 1.001
+    st = eng.forward(torch.tensor(d["qpos0"], dtype=torch.float64, device="cuda"),
+                     torch.zeros(eng.model.nv, dtype=torch.float64, device="cuda"))
+    for _ in range(200):
+        st = eng.step(st, controller(st))
+    assert abs(float(st.qpos[2]) - float(d["qpos0"][2])) < 0.08
+    assert float(st.qvel.abs().max()) < 0.5

@@ -37,6 +37,11 @@ from humanoid_mppi_rl_tpu_torch.models.convert import params_from_flax
 from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
 
+# One intra-op thread: the suite runs in several worker processes on shared
+# cores, and PyTorch's default of a thread per core in each of them
+# oversubscribes the cores (one trainer test took 35x longer, six at once).
+torch.set_num_threads(1)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GO1_XML = os.path.join(ROOT, "humanoid_mppi_rl_tpu", "assets", "go1.xml")
 K, T, STEPS, CHUNK = 8, 3, 5, 2
@@ -204,13 +209,16 @@ def test_cartpole_estimator_waits_for_slide_joints():
     """It waits no more: with slide joints in the plant (slice 9),
     make_cartpole_estimator builds the cartpole loop on the CPU -- the
     cartpole plant, ESTIMATOR_CONFIGS["cartpole"], the module's own forward
-    -- and one control step moves the cart. Its parity with JAX is in
-    tests/test_torch_port_cartpole.py."""
-    runner = pest.make_cartpole_estimator(make_model("cartpole_attention", hidden_dim=8),
-                                          device="cpu")
+    -- and its control steps run (at K=16, T=3 by mppi_override). Its
+    parity with JAX is in tests/test_torch_port_cartpole.py."""
+    module = make_model("cartpole_attention", hidden_dim=8)
+    runner = pest.make_cartpole_estimator(module, device="cpu")
     assert (runner.plant_model.nq, runner.plant_model.joints[0].jtype) == (2, 2)
     assert (runner.cfg.K, runner.cfg.T, runner.cfg.update_mode) == (2048, 100, "replace")
     assert not hasattr(runner.apply, "plain")
+    runner = pest.make_cartpole_estimator(module, device="cpu",
+                                          mppi_override=dict(n_samples=16, horizon=3))
+    assert (runner.cfg.K, runner.cfg.T, runner.cfg.update_mode) == (16, 3, "replace")
     states, actions, _ = runner.run(n_steps=2, init_qpos=(0.0, np.pi)).arrays()
     assert states.shape == (2, 4) and np.isfinite(actions).all()
 

@@ -35,6 +35,11 @@ from humanoid_mppi_rl_tpu_torch.utils import trajio as ptrajio
 from test_torch_port_collect import _jax_writer
 from test_torch_port_go1 import _jax_plan
 
+# One intra-op thread: the suite runs in several worker processes on shared
+# cores, and PyTorch's default of a thread per core in each of them
+# oversubscribes the cores (one trainer test took 35x longer, six at once).
+torch.set_num_threads(1)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GO1_XML = os.path.join(ROOT, "humanoid_mppi_rl_tpu", "assets", "go1.xml")
 K, T, CHUNK, STEPS = 8, 2, 2, 4
@@ -52,6 +57,16 @@ def jax_plant():
 
 
 @pytest.fixture(scope="module")
+def jax_rows(jax_plant):
+    """JAX's constraint rows and Newton solve of the Go1 under jax.jit (one
+    compile each, where op by op compiles every primitive)."""
+    m = jax_plant[0]
+    return (jax.jit(lambda s: jnewton.build_rows(m, s, s.S, jnp.float64)),
+            jax.jit(lambda s, a0, M: jnewton.newton_constraint_forces(m, s, s.S, a0, M,
+                                                                      n_iter=25)))
+
+
+@pytest.fixture(scope="module")
 def port_engine():
     return peng.Engine(load_model("go1_plant"), device="cpu", dtype=torch.float64)
 
@@ -61,7 +76,7 @@ def _np(x):
 
 
 @pytest.mark.parametrize("case", ["free_fall", "sunk", "self_contact"])
-def test_go1_coupled_step_matches_jax(jax_plant, port_engine, case):
+def test_go1_coupled_step_matches_jax(jax_plant, jax_rows, port_engine, case):
     """One coupled step in f64: qpos 1e-10, qvel 1e-9; the constraint rows
     (504: 12 joint limits, 12 frictionloss rows, then elliptic blocks: 136
     condim-3 floor points, the 4 condim-6 feet and the 8 kept self pairs)
@@ -80,7 +95,7 @@ def test_go1_coupled_step_matches_jax(jax_plant, port_engine, case):
     np.testing.assert_allclose(pnext.qpos.numpy(), _np(jnext.qpos), atol=1e-10)
     np.testing.assert_allclose(pnext.qvel.numpy(), _np(jnext.qvel), atol=1e-9)
 
-    jr = jnewton.build_rows(jm, js, js.S, jnp.float64)
+    jr = jax_rows[0](js)
     pr = pnewton.build_rows(eng.rows, ps, ps.S)
     assert pr.J.shape == jr.J.shape and info["rows"] == jr.J.shape[0] == 504
     assert (pr.n_ineq, pr.n_fric, [b["dim"] for b in pr.blocks]) == (
@@ -94,8 +109,7 @@ def test_go1_coupled_step_matches_jax(jax_plant, port_engine, case):
     M = peng.mass_matrix(eng, ps.S, I)
     a0 = torch.linalg.solve(M, torch.tensor(np.random.default_rng(2).normal(0, 5, jm.nv)))
     tau = pnewton.newton_constraint_forces(eng, ps, ps.S, a0, M, n_iter=25)
-    jtau = jnewton.newton_constraint_forces(jm, js, js.S, jnp.asarray(a0.numpy()),
-                                            jnp.asarray(M.numpy()), n_iter=25)
+    jtau = jax_rows[1](js, jnp.asarray(a0.numpy()), jnp.asarray(M.numpy()))
     np.testing.assert_allclose(tau.numpy(), _np(jtau), rtol=1e-9, atol=1e-7)
 
     ct = eng.contact

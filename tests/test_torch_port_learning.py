@@ -35,6 +35,11 @@ from humanoid_mppi_rl_tpu_torch.models.convert import (
     load_trained, params_from_flax, trained_path)
 from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
 
+# One intra-op thread: the suite runs in several worker processes on shared
+# cores, and PyTorch's default of a thread per core in each of them
+# oversubscribes the cores (one trainer test took 35x longer, six at once).
+torch.set_num_threads(1)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
@@ -410,9 +415,13 @@ def test_train_mode_elementwise_dropout_and_generator():
 
 # ---- train_model behaviour (tests/test_learning.py's) -----------------------
 
+TRAIN_WIDTH = dict(hidden_dim=16)   # the trainer's behaviour tests train a narrow model
+
+
 def _cfg(tmp_path, **kw):
     base = dict(model_preset="cartpole_attention", lr=3e-3, epochs=14, batch_size=32,
-                ckpt_dir=str(tmp_path / "ckpt"), ckpt_every=0, eval_split=0.2)
+                ckpt_dir=str(tmp_path / "ckpt"), ckpt_every=0, eval_split=0.2,
+                model_overrides=TRAIN_WIDTH)
     base.update(kw)
     return ptrain.TrainConfig(**base)
 
@@ -435,7 +444,7 @@ def test_train_model_converges_and_checkpoints(toy_dirs, tmp_path, scan):
     summary = json.load(open(ck / "train_summary.json"))
     assert summary["best_eval_loss"] == out["best_eval_loss"]
     restored = ptrain.load_checkpoint(out["final_checkpoint"],
-                                      make_model("cartpole_attention"))
+                                      make_model("cartpole_attention", **TRAIN_WIDTH))
     x = torch.randn(7, 5)
     torch.testing.assert_close(restored(x), out["model"].eval()(x), rtol=0, atol=0)
 

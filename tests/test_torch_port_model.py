@@ -31,6 +31,11 @@ from humanoid_mppi_rl_tpu_torch.physics.model import (
     snapshot_path)
 from humanoid_mppi_rl_tpu_torch.solver.kernel_mppi import make_kernel_mppi
 
+# One intra-op thread: the suite runs in several worker processes on shared
+# cores, and PyTorch's default of a thread per core in each of them
+# oversubscribes the cores (one trainer test took 35x longer, six at once).
+torch.set_num_threads(1)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 HUMANOID_XML = os.path.join(ROOT, "humanoid_mppi_rl_tpu", "assets", "humanoid.xml")
 
@@ -59,6 +64,7 @@ import dataclasses, importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"):
     sys.modules[name] = None
 import torch
+torch.set_num_threads(1)
 import humanoid_mppi_rl_tpu_torch as pkg
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
@@ -212,6 +218,25 @@ pth = os.path.join(tempfile.mkdtemp(), "cross.pth")
 torch.save(make_model("humanoid_cross").state_dict(), pth)
 assert load_reference_checkpoint(pth, "humanoid_cross", device="cpu")(torch.zeros(2, 76)).shape == (2, 55)
 assert kinematic_replay(load_model("humanoid"), np.zeros((2, 57)), device="cpu").shape == (2, 17, 3)
+import torch.distributed as dist
+from humanoid_mppi_rl_tpu_torch.parallel import distributed as pdist
+from humanoid_mppi_rl_tpu_torch.parallel.mesh import make_mesh, make_sharded_kernel_mppi
+from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
+from humanoid_mppi_rl_tpu_torch.solver.lqr import make_lqr_controller
+eng = Engine(load_model("cartpole_plant"), device="cpu", dtype=torch.float64)
+ctrl, (A, B, K) = make_lqr_controller(eng, np.zeros(2), device="cpu")
+st = eng.forward(torch.tensor([0.1, 0.15], dtype=torch.float64), torch.zeros(2, dtype=torch.float64))
+assert bool(torch.isfinite(eng.step(st, ctrl(st)).qpos).all())
+assert pdist.maybe_initialize(device="cpu") is False
+dist.init_process_group("gloo", init_method="file://" + os.path.join(tempfile.mkdtemp(), "init"),
+                        world_size=1, rank=0)
+spec, model, _, _, _, init, cfg = load_task("cartpole", device="cpu")
+plan = make_sharded_kernel_mppi(model, spec.kernel_cost_factory,
+                                dataclasses.replace(cfg, n_samples=4, horizon=2),
+                                make_mesh(device="cpu"), spec.cost_kwargs)
+action, st, diag = plan(MPPIState.seeded(0, 2, model.nu, device="cpu"), init)
+assert bool(torch.isfinite(action).all()) and pdist.process_info()["num_processes"] == 1
+dist.destroy_process_group()
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
