@@ -35,7 +35,7 @@ Phases, one JSON line each (with its own `seconds`):
              rollout kernel against its plain version with the walk cost and
              a runtime goal (K=256 and 253, T=4: the gates of `check`); a
              warm-up run(max_steps=10, chunk=10) and a timed run(max_steps=
-             50, chunk=50) (bench.py::_bench_collect's protocol at a cut
+             20, chunk=20) (bench.py::_bench_collect's protocol at a cut
              depth: steps/s, control step ms); then 10 control steps one at a time, CUDA
              events around the plan and around the plant step (Newton
              iterations and constraint rows read after), one plant step
@@ -46,7 +46,7 @@ Phases, one JSON line each (with its own `seconds`):
              temporary directory; goal threshold opened to 1e9 so the goal
              gate saves it). Checks: one rollout launch per control
              step, every logged row finite, root height qpos[2] >= 0.7 over
-             the 60 steps (scripts/dev_seed_evidence.py's fall rule), CSVs
+             the 30 steps (scripts/dev_seed_evidence.py's fall rule), CSVs
              of 57 / 21 / 1 columns
   check_go1 -- slice 6: the rollout kernel against its plain version on the
              Go1 (go1.json: frictionloss, box corners, exact cylinder rims,
@@ -63,12 +63,12 @@ Phases, one JSON line each (with its own `seconds`):
              and the plain version at K=4096
   main_quad_collect -- EpisodeRunner("go1_collect", use_kernel=True) at
              K=4096, H=32 with GAIT_TUNED and goal (2, 0) on the Go1 plant
-             (go1_plant.json: 697 candidate pairs): 5 warm-up + 40 timed
+             (go1_plant.json: 697 candidate pairs): 2 warm-up + 40 timed
              control steps, each run in one chunk; 2 steps split into plan and
              plant ms (CUDA events, Newton iterations, active rows); the
              device launches of one plant step; one plant step under
              set_sync_debug_mode("error"); every logged row finite and the
-             trunk height >= 0.08 (the fall line) over the 45 steps; one
+             trunk height >= 0.08 (the fall line) over the 42 steps; one
              collect_quadruped run in one chunk of 2 (goal tolerance opened
              to 1e9 so that its gate saves) read back: 37 / 12 / 1 columns
   check_estimator -- the estimator kernel against its plain version on the
@@ -122,8 +122,8 @@ Phases, one JSON line each (with its own `seconds`):
              on go1_collect's coupled plant, planning on the trained
              surrogate through the estimator kernel (bf16) at K=2048, T=32,
              accumulate update, sigma 0.18, the ctrlrange clamp, the FD gait
-             cost, from `home` with the plan seeded at home: 3 warm-up and 2
-             timed control steps (T forwards each), 2 split into plan and
+             cost, from `home` with the plan seeded at home: 2 warm-up and 2
+             timed control steps (T forwards each), 1 split into plan and
              plant ms by CUDA events, one profiled control step (launches by
              kernel, busy share); every row finite, trunk z >= 0.08 m, the
              progress beside the JAX record
@@ -133,7 +133,7 @@ Phases, one JSON line each (with its own `seconds`):
              estimator kernel (bf16) at ESTIMATOR_CONFIGS["humanoid"] with
              T=25 (K=2048, replace update, sigma 0.4), the walking cost on
              the batched FK of the predicted qpos (f32), state [qpos; foot
-             z]: 3 warm-up and 5 timed control steps, 3 split into plan
+             z]: 3 warm-up and 3 timed control steps, 3 split into plan
              and plant ms by CUDA events, one profiled control step (busy
              share, device launches by kernel) and the device launches of
              one replan (those outside the estimator kernel); T forwards per
@@ -157,8 +157,8 @@ Phases, one JSON line each (with its own `seconds`):
              device launches, one profiled control step; the kernel alone
              beside its plain version and its bound
   main_hopper -- EpisodeRunner("hopper", use_kernel=True) at K=4096,
-             H=100 (artifacts/hopper_k4096.npz's): 5 warm-up and 15 timed
-             control steps, one launch a step, finite rows; the split, the
+             H=100 (artifacts/hopper_k4096.npz's): 3 warm-up and 10 timed
+             control steps (3 split), one launch a step, finite rows; the split, the
              kernel alone, torso z minimum and x progress as main_cartpole
   main_cartpole_pipeline -- two cartpole_collect episodes (K=75, T=100)
              of 100 steps written as CSV, PRESET_CONFIGS["cartpole"] trained
@@ -184,7 +184,7 @@ Phases, one JSON line each (with its own `seconds`):
              humanoid and humanoid_hard
   main_humanoid -- the tasks humanoid (K=50, T=100) and humanoid_hard
              (K=30, T=75) through EpisodeRunner(use_kernel=True), f32, from
-             qpos0, 25 and 15 control steps: one launch a step, finite
+             qpos0, 12 and 8 control steps: one launch a step, finite
              55-column rows, root height; 3 steps split into replan and
              plant ms (CUDA events); each humanoid cost's kernel time at
              K=8192, T=64 (humanoid, humanoid_v1, humanoid_hard) with its
@@ -192,8 +192,8 @@ Phases, one JSON line each (with its own `seconds`):
              K=8192, T=8 (cost rel median < 1e-3)
   main_array_planner -- EpisodeRunner("humanoid_collect", use_kernel=False)
              at K=50, T=100, f32: make_mppi over the penalty engine batched
-             over K (the JAX package's default planner), 1 warm-up and 2
-             timed control steps (replan and plant ms by CUDA events), one
+             over K (the JAX package's default planner), 1 warm-up and 1
+             timed control step (replan and plant ms by CUDA events), one
              replan traced on the device only (launches, busy share), the
              PyTorch dispatches of one (count_dispatches), one replan under
              torch.cuda.set_sync_debug_mode("error"); no rollout-kernel
@@ -218,13 +218,13 @@ Phases, one JSON line each (with its own `seconds`):
              geometry, ptxas registers/stack/spills, the occupancy sweep and
              the step's cycles by phase
   main_arm5 -- arm5_reach through EpisodeRunner(use_kernel=True) (K=64,
-             T=40, f32) for 25 control steps from qpos0: one launch a step,
+             T=40, f32) for 12 control steps from qpos0: one launch a step,
              finite rows, the hand's distance to the target at the start and
              the end; 5 steps split into plan and plant ms (CUDA events),
              the plant step's device launches, one profiled control step,
              one plant step under set_sync_debug_mode("error")
   main_arm5_array -- arm5_reach on the array planner (use_kernel=False):
-             1 warm-up and 2 timed replans, launches and busy share of one
+             1 warm-up and 1 timed replan, launches and busy share of one
              replan traced on the device, one replan under
              set_sync_debug_mode("error"), no rollout-kernel launch
   main_cli -- the command line (cli.main in process): tasks; run
@@ -244,7 +244,7 @@ Phases, one JSON line each (with its own `seconds`):
              sweep, the spectral radius of A (> 1.01) and of A - BK (<
              1.001), and 200 controlled coupled steps (|z - z0| < 0.08, max
              |qvel| < 0.5); the gated steps end each Newton solve at
-             convergence (early_exit, the masked loop's bits), then 10 more
+             convergence (early_exit, the masked loop's bits), then 4 more
              on the default path; seconds of the sweep, the balance Q, the
              linearization and DARE, ms of a controlled step each way
   check_sharded -- parallel/mesh in a one-rank NCCL group: the sharded
@@ -256,6 +256,22 @@ Phases, one JSON line each (with its own `seconds`):
              field drawn whole and in four slices (equal), then 20 sharded
              replans (one rollout launch each) timed in turns with 20
              unsharded ones
+  main_coupled -- slice 14, planning on the coupled tier, the mesh pairs
+             and coupled_pgs. f64 card against CPU (the Newton loop's early
+             exit, the masked loop's bits): one cartpole replan at K=30,
+             T=100 and one Go1 replan at K=8, H=5 on the coupled planner
+             (action max |diff| < 1e-9); 5 coupled steps of each mesh
+             snapshot from a contact state and one penalty step of each
+             over K=256; 3 coupled_pgs steps of the cartpole, hopper and
+             humanoid plants and one hopper step over K=64 (qpos 1e-10,
+             qvel 1e-8). f32, the default masked path:
+             EpisodeRunner("hopper", planner_solver="coupled") at K=4096,
+             H=50 (scripts/dev_hopper.py's), 1 warm-up and 2 timed control
+             steps, and one cartpole replan at K=30, T=100: replan and
+             plant ms, one rollout step's device launches and busy share
+             (profiler) and host syncs (sync debug mode "error"), then one
+             replan with the early exit (its ms and the Newton iterations
+             of each rollout step, the largest over K)
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -296,8 +312,9 @@ EST_PLAIN_CHUNK = 8192   # the plain forward at B=65536 runs in sample chunks (m
 SWEEP_K = (2048, 4096, 8192, 16384, 32768)   # rollout kernel alone, T = the main path's H
 COLLECT_TASK = "humanoid_walk"
 # bench.py::_bench_collect's chunk of 50; its 50 warm-up and 100 timed
-# control steps cut to 10 (in one chunk of 10) and 50 for the run time
-COLLECT_WARMUP, COLLECT_TIMED, COLLECT_CHUNK = 10, 50, 50
+# control steps cut to 10 (in one chunk of 10) and 20 in one chunk of 20
+# for the run time (50 in one chunk of 50 before main_coupled came)
+COLLECT_WARMUP, COLLECT_TIMED, COLLECT_CHUNK = 10, 20, 20
 # main_collect's depth, cut to leave the run time for the later phases:
 # 10 control steps split into plan and plant (20 before), collect_humanoid
 # in one chunk of 10 (50 before)
@@ -314,10 +331,11 @@ GO1_TIME_K = (4096, 8192)   # the rollout kernel alone, T = GO1_H
 # phases: 2 control steps split into plan and plant (20, 10, then 5
 # before), collect_quadruped in one chunk of 2 (50, 10, then 5 before)
 GO1_SPLIT_STEPS, GO1_COLLECT_CHUNK = 2, 2
-# its logged control steps, each run in one chunk: 5 warm-up and 40 timed
-# (50 and 100 in chunks of 50 before; a Go1 plant step takes 1.5-2 s on
-# the card); the train chain's batch is cut to match (CHAIN_BATCH)
-QUAD_WARMUP, QUAD_TIMED = 5, 40
+# its logged control steps, each run in one chunk: 2 warm-up and 40 timed
+# (50 and 100 in chunks of 50, then 5 and 40 before; a Go1 plant step
+# takes 1.5-2 s on the card); the train chain's batch is cut to match
+# (CHAIN_BATCH), and its 32 windows need the 40 timed rows
+QUAD_WARMUP, QUAD_TIMED = 2, 40
 
 
 def emit(obj):
@@ -1610,24 +1628,24 @@ QUAD_ROLLOUT_K = 8
 # quad_data_goal's shape: 16 saved runs, 42,597 pairs (42,613 rows)
 QUAD_DATA_RUNS, QUAD_DATA_PAIRS = 16, 42597
 CHAIN_EPOCHS, CHAIN_CKPT_EVERY = 10, 5
-# the chain's 45 rows make 32 windows of k=8 (all in the timed run: the
-# warm-up's 5 rows hold none), at eval split 0.5 one full train and one
-# full eval batch of CHAIN_BATCH (the preset's 64 needed 150 rows); its 43
-# pairs' training half (22) fills a batch too, which keeps train_model on
+# the chain's 42 rows make 32 windows of k=8 (all in the timed run: the
+# warm-up's 2 rows hold none), at eval split 0.5 one full train and one
+# full eval batch of CHAIN_BATCH (the preset's 64 needed 150 rows); its 40
+# pairs' training half (20) fills a batch too, which keeps train_model on
 # its scanned rollout_k path
 CHAIN_EVAL_SPLIT, CHAIN_BATCH = 0.5, 16
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, TRAIN_SYNC_STEPS = 10, 100, 10
 EST_LOOP_K, EST_LOOP_T = 2048, 32
 # the Go1 loop's depth, cut to leave the run time for the later phases:
-# 3 warm-up, 2 timed and 2 split steps (5, 50 and 6, then 3, 20 and 4,
-# then 3, 10 and 4, then 3, 2 and 4)
-EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 3, 2, 2
+# 2 warm-up, 2 timed and 1 split steps (5, 50 and 6, then 3, 20 and 4,
+# then 3, 10 and 4, then 3, 2 and 4, then 3, 2 and 2)
+EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 2, 2, 1
 # the humanoid loop (scripts/dev_estimator_walk.py --configs fk): K=2048,
-# T=25; 5 timed control steps of the JAX record's 120, cut for the run
-# time (120, 60, then 10 before; 3 warm-up and 3 split steps: 5, 10, then
-# 5 before)
+# T=25; 3 timed control steps of the JAX record's 120, cut for the run
+# time (120, 60, 10, then 5 before; 3 warm-up and 3 split steps: 5, 10,
+# then 5 before)
 HUM_LOOP_K, HUM_LOOP_T = 2048, 25
-HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 3, 5, 3
+HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 3, 3, 3
 # the JAX record (artifacts/rollout_k_surrogate/estimator_summary.json,
 # closed_loop.fk_cost_K2048_T25, on a TPU, another noise stream)
 HUM_JAX_RECORD = {"steps": 120, "K": 2048, "T": 25, "forward_progress_m": 0.159,
@@ -2193,10 +2211,10 @@ def learning_phases(collected: dict) -> dict:
 CART_K, CART_STEPS, CART_SETTLE = 256, 400, 40
 CART_SPLIT_STEPS = 5   # 20 before, cut for the run time
 # the hopper at artifacts/hopper_k4096.npz's K and H
-# (tests/test_e2e_hopper.py:12-14): 5 warm-up and 200 timed control steps
-# 15 timed and 5 split steps (200, 100, then 25 timed and 10 split before),
-# cut for the run time
-HOP_K, HOP_H, HOP_WARMUP, HOP_TIMED, HOP_SPLIT_STEPS = 4096, 100, 5, 15, 5
+# (tests/test_e2e_hopper.py:12-14): 3 warm-up, 10 timed and 3 split
+# control steps (5 warm-up; 200, 100, 25, then 15 timed; 10, then 5 split
+# before), cut for the run time
+HOP_K, HOP_H, HOP_WARMUP, HOP_TIMED, HOP_SPLIT_STEPS = 4096, 100, 3, 10, 3
 # check_hopper's param_gait deltas, slots 4..9: target velocity, landing
 # weight, pitch log-scale, knee weight, hop-clock weight, knee anchor shift
 HOP_GAIT = (0.2, 3.0, 0.3, 2.0, 5.0, -0.1)
@@ -2695,9 +2713,9 @@ def small_robot_phases() -> dict:
 # the reference scripts' operating points (envs/tasks): humanoid K=50,
 # T=100 (src/Humanoid_mppi.jl), humanoid_hard K=30, T=75
 # (src/Humanoid_datacollection.py); control steps of each run
-# control steps of each task, cut for the run time (100 and 50, then 50
-# and 25 before; 3 split steps, 5 before)
-HUM_TASK_STEPS = {"humanoid": 25, "humanoid_hard": 15}
+# control steps of each task, cut for the run time (100 and 50, 50 and
+# 25, then 25 and 15 before; 3 split steps, 5 before)
+HUM_TASK_STEPS = {"humanoid": 12, "humanoid_hard": 8}
 HUM_TASK_SPLIT_STEPS = 3
 # humanoid_v1's step periods checked: 4 (both sides inside an 8-step
 # rollout) and the task's 100
@@ -2709,8 +2727,9 @@ NEW_COST_K, NEW_COST_T = 8192, 64   # each cost's kernel time (humanoid_bench's 
 NEW_COST_PLAIN_T = 8
 # the array planner: humanoid_collect (K=50, T=100, f32), as EpisodeRunner's
 # default (use_kernel=False) runs it
-# 1 warm-up and 2 timed array replans (2 and 3 before), cut for the run time
-ARRAY_TASK, ARRAY_WARMUP, ARRAY_TIMED = "humanoid_collect", 1, 2
+# 1 warm-up and 1 timed array replan (2 and 3, then 1 and 2 before), cut
+# for the run time
+ARRAY_TASK, ARRAY_WARMUP, ARRAY_TIMED = "humanoid_collect", 1, 1
 ARRAY_CHECK_K, ARRAY_CHECK_T = 256, 16
 V2PY_STEPS = 3   # 5 before, cut for the run time (the check reads row 2)
 # humanoid_hard's -1000 x swing-foot-velocity term makes its values cross
@@ -3148,11 +3167,12 @@ def humanoid_task_phases() -> dict:
 # balls turned 0.6-0.8 rad and the elbow past its upper limit
 ARM5_POSES = ("air", "limit", "rest", "deep", "springs")
 ARM5_LIMIT = 70 * np.pi / 180
-# 25 control steps on the kernel planner (100 before), 1 warm-up and 2 timed
-# array replans (2 and 3 before), cut for the run time
-ARM5_TASK_STEPS, ARM5_SPLIT_STEPS = 25, 5
+# 12 control steps on the kernel planner (100, then 25 before), 1 warm-up
+# and 1 timed array replan (2 and 3, then 1 and 2 before), cut for the run
+# time
+ARM5_TASK_STEPS, ARM5_SPLIT_STEPS = 12, 5
 ARM5_TIME_K, ARM5_T = (64, 8192), 40   # the task's K and the sweep's, T = the task's
-ARM5_ARRAY_WARMUP, ARM5_ARRAY_TIMED = 1, 2
+ARM5_ARRAY_WARMUP, ARM5_ARRAY_TIMED = 1, 1
 # the transmission test models (tests/test_engine_generality.py's
 # SITE_ACT_XML and TENDON_ACT_XML), checked with the cartpole cost
 TRANSMISSION_MODELS = ("site_act_plant", "tendon_act_plant")
@@ -3584,8 +3604,9 @@ STAND_STEPS, STAND_HEIGHTS = 200, 2001
 # the gated loops end each Newton solve at convergence (Engine.step's
 # early_exit: the same bits as the card's default 25 masked iterations, a
 # flag read back an iteration), for the run time; LQR_MASKED_STEPS more
-# steps on the default path time a controlled step as a caller gets it
-LQR_MASKED_STEPS = 10
+# steps on the default path time a controlled step as a caller gets it (10
+# before main_coupled came)
+LQR_MASKED_STEPS = 4
 # the sharded planners: the kernel planner at humanoid_bench's shapes, the
 # array planner at humanoid_collect's K=50 with its horizon cut from 100,
 # the blocked field in blocks of NOISE_BLOCK
@@ -3803,6 +3824,264 @@ def sharded_phase(main_replan_ms: float) -> dict:
 
 
 
+# main_coupled: planning on the coupled tier (EpisodeRunner(planner_solver=
+# "coupled")), the mesh pairs and coupled_pgs. The f64 checks hold the card
+# against the CPU with the Newton loop's early exit (the masked loop's
+# bits); the timing runs the default masked path in f32 at
+# scripts/dev_hopper.py's K=4096, H=50 and the cartpole's preset K=30,
+# T=100 (the reference's, src/cartpole_mppi.py:12-15)
+COUPLED_HOPPER = ("hopper", 4096, 50)
+COUPLED_CART = ("cartpole", 30, 100)
+COUPLED_GO1 = ("go1", 8, 5)
+# the checked cartpole replan starts with the cart half-way to its slider
+# limit (as tests/test_torch_port_coupled_planner's oracle test does) and
+# moving toward it at 1 m/s, so that samples reach it within the horizon
+# (at rest there, none of the K=30 does on the first replan): its Newton
+# loop must take iterations
+COUPLED_CART_START = ([0.5, np.pi], [1.0, 0.0])
+COUPLED_WARMUP, COUPLED_TIMED = 1, 2
+MESH_SNAPSHOTS = ("mesh_on_box_plant", "box_on_mesh_plant", "mesh_on_mesh_plant",
+                  "two_dyn_stack_plant", "box_on_dyn_mesh_plant", "mesh_on_sphere_plant",
+                  "mesh_on_capsule_plant", "clustered_cube_plant")
+MESH_STEPS, MESH_K = 5, 256
+PGS_PLANTS, PGS_STEPS, PGS_K = ("cartpole_plant", "hopper_plant", "humanoid_plant"), 3, 64
+
+
+def mesh_states(model, K: int, seed: int = 0):
+    """qpos (nq, K), qvel (nv, K) numpy arrays of a mesh-pair model: qpos0
+    with each free body lowered 5 to 9 cm (into its contact: the models
+    rest 5 cm above it), tilted by N(0, 0.05) on its quaternion, and
+    velocities N(0, 0.3)."""
+    from humanoid_mppi_rl_tpu_torch.physics.model import FREE
+
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(np.asarray(model.qpos0, dtype=np.float64)[:, None], (1, K))
+    qvel = rng.normal(0, 0.3, (model.nv, K))
+    for j in model.joints:
+        if j.jtype == FREE:
+            a = j.qposadr
+            qpos[a + 2] -= 0.05 + rng.uniform(0.0, 0.04, K)
+            q = qpos[a + 3:a + 7] + rng.normal(0, 0.05, (4, K))
+            qpos[a + 3:a + 7] = q / np.linalg.norm(q, axis=0)
+    return qpos, qvel
+
+
+def _early_exit_dynamics(engine, record: Optional[list] = None):
+    """dynamics(state, ctrl, t) stepping `engine` with the Newton loop's
+    early exit (the masked loop's bits, a flag read back an iteration);
+    `record` gathers each step's largest iteration count over K (device)."""
+    def dyn(state, ctrl, t=None, info=None):
+        d = {} if record is not None else None
+        out = engine.step(state, ctrl, solver="coupled", early_exit=True, info=d)
+        if record is not None and "iterations" in d:
+            record.append(d["iterations"].amax())
+        return out
+    return dyn
+
+
+def _coupled_replan(task: str, K: int, T: int, device, dtype, seed: int = 0,
+                    start: Optional[tuple] = None) -> dict:
+    """One replan of `task` on the coupled planner (make_mppi over the
+    coupled step with the early exit) from `start` = (qpos, qvel) (the
+    task's initial state if None), with a plan and noise from `seed`: the action,
+    the shifted plan and the largest Newton iteration count over K of each
+    rollout step."""
+    from humanoid_mppi_rl_tpu_torch.dynamics.physics import make_physics_dynamics
+    from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
+    from humanoid_mppi_rl_tpu_torch.solver.mppi import MPPIState, make_mppi
+
+    spec, model, _, running, terminal, init, cfg = load_task(task, device=device, dtype=dtype)
+    cfg = dataclasses.replace(cfg, n_samples=K, horizon=T)
+    eng = make_physics_dynamics(model, solver="coupled", device=device, dtype=dtype).engine
+    if start is not None:
+        init = eng.forward(*(torch.tensor(x, dtype=dtype, device=device) for x in start))
+    record = []
+    plan = make_mppi(_early_exit_dynamics(eng, record), running, cfg, terminal_fn=terminal)
+    rng = np.random.default_rng(seed)
+    U = torch.tensor(rng.normal(0, 0.3, (T, model.nu)), dtype=dtype, device=device)
+    noise = torch.tensor(rng.normal(0, float(cfg.sigma), (K, T, model.nu)), dtype=dtype,
+                         device=device)
+    ms = MPPIState.seeded(seed, T, model.nu, device=device, dtype=dtype)
+    action, ms, _ = plan(MPPIState(U=U, generator=ms.generator), init, noise)
+    return {"action": action, "U": ms.U, "newton_iterations": torch.stack(record)}
+
+
+def _card_vs_cpu(fn, card: Optional[dict] = None) -> dict:
+    """fn(device) -> dict of tensors, on the card and the CPU: max |diff|
+    of each. `card`, if given, receives the card's outputs."""
+    a, b = fn(torch.device("cuda")), fn(torch.device("cpu"))
+    if card is not None:
+        card.update(a)
+    return {k: float((a[k].cpu() - b[k]).abs().max()) for k in a}
+
+
+def coupled_checks() -> dict:
+    """main_coupled's f64 card-vs-CPU checks: one cartpole replan at K=30,
+    T=100 from COUPLED_CART_START, where samples reach the slider's limit
+    (it fails if no rollout step took a Newton iteration on the card), and
+    one Go1 replan at K=8, H=5 on the coupled planner; 5 coupled steps of
+    each mesh snapshot from a contact state and one penalty step over K=256
+    of each; 3 coupled_pgs steps of the cartpole, hopper and humanoid
+    plants and one over K=64. `card_replans` counts the replans run on the
+    card."""
+    from humanoid_mppi_rl_tpu_torch.physics.engine import Engine
+    from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+
+    f64 = torch.float64
+    out = {"card_replans": 0}
+    for (task, K, T), start in ((COUPLED_CART, COUPLED_CART_START), (COUPLED_GO1, None)):
+        card = {}
+        d = _card_vs_cpu(lambda dev: _coupled_replan(task, K, T, dev, f64, start=start), card)
+        out["card_replans"] += 1
+        iters = card["newton_iterations"]
+        d["newton_iterations_max_card"] = int(iters.max())
+        d["limit_or_contact_steps_card"] = int((iters > 0).sum())
+        out[f"{task}_replan_K{K}_T{T}"] = d
+        if not d["action"] < 1e-9:
+            raise AssertionError(f"coupled {task} replan, card vs CPU: {d}")
+        if d["newton_iterations_max_card"] == 0:
+            raise AssertionError(f"coupled {task} replan: no rollout step took a Newton "
+                                 "iteration, so no constraint row was checked")
+
+    def steps(name, solver, n, qpos, qvel, ctrl):
+        def run(dev):
+            eng = Engine(load_model(name), dev, f64)
+            tt = lambda a: torch.tensor(a, dtype=f64, device=dev)
+            lead = qpos.shape[:-1]
+            st = eng.forward(tt(qpos), tt(qvel), torch.zeros(lead, dtype=f64, device=dev))
+            for _ in range(n):
+                st = eng.step(st, tt(ctrl), solver=solver, early_exit=True)
+            return {"qpos": st.qpos, "qvel": st.qvel}
+        d = _card_vs_cpu(run)
+        if not (d["qpos"] < 1e-10 and d["qvel"] < 1e-8):
+            raise AssertionError(f"{name} {solver} x{n}, card vs CPU: {d}")
+        return d
+
+    for name in MESH_SNAPSHOTS:
+        m = load_model(name)
+        qpos, qvel = mesh_states(m, MESH_K, seed=1)
+        out[name] = {"coupled_steps": steps(name, "coupled", MESH_STEPS, qpos[:, 0], qvel[:, 0],
+                                            np.zeros(m.nu)),
+                     "penalty_K256": steps(name, "penalty", 1, qpos.T.copy(), qvel.T.copy(),
+                                           np.zeros((MESH_K, m.nu)))}
+    for name in PGS_PLANTS:
+        m = load_model(name)
+        if name == "humanoid_plant":
+            qpos, qvel, ctrl = plant_state(m, "sunk", seed=1)
+        else:
+            qs, vs = (hopper_states(m, PGS_K, seed=1) if name == "hopper_plant"
+                      else (x.cpu().numpy() for x in
+                            cartpole_inputs(m, PGS_K, 1, f64, seed=1, device="cpu")[:2]))
+            qpos, qvel, ctrl = qs[:, 0], vs[:, 0], np.full(m.nu, 0.3)
+        out[f"{name}_coupled_pgs"] = steps(name, "coupled_pgs", PGS_STEPS, qpos, qvel, ctrl)
+    m = load_model("hopper_plant")
+    qs, vs = hopper_states(m, PGS_K, seed=2)
+    ctrl = np.random.default_rng(2).normal(0, 0.5, (PGS_K, m.nu))
+    out["hopper_plant_coupled_pgs_K64"] = steps("hopper_plant", "coupled_pgs", 1, qs.T.copy(),
+                                                vs.T.copy(), ctrl)
+    return out
+
+
+def coupled_timing(task: str, K: int, T: int, warmup: int, timed: int) -> dict:
+    """EpisodeRunner(task, planner_solver="coupled") at K, T in f32 on the
+    card, the default masked Newton loop: warmup + timed control steps
+    (replan and plant ms by CUDA events); one rollout step of the planner's
+    dynamics over K under the profiler (device launches, busy share) and
+    under set_sync_debug_mode("error"); then one replan with the early
+    exit through the same costs, for the record (its ms, and the Newton
+    iterations each rollout step took, the largest over K: the masked
+    loop's too, which takes the same iterates)."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
+    from humanoid_mppi_rl_tpu_torch.dynamics.physics import make_physics_dynamics
+    from humanoid_mppi_rl_tpu_torch.solver.mppi import broadcast_state, make_mppi
+
+    t0 = time.perf_counter()
+    runner = EpisodeRunner(task, planner_solver="coupled",
+                           mppi_override=dict(n_samples=K, horizon=T))
+    ms, plant = runner.fresh_controller(0), runner.init_state
+    plan_ms, plant_ms = [], []
+    for i in range(warmup + timed):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        action, ms, diag = runner.plan(ms, plant)
+        ev[1].record()
+        plant = runner.plant_dyn(plant, action, 0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            plan_ms.append(ev[0].elapsed_time(ev[1]))
+            plant_ms.append(ev[1].elapsed_time(ev[2]))
+    for name, v in (("action", action), ("U", ms.U), ("qpos", plant.qpos), ("beta", diag.beta)):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"coupled {task} planner: non-finite {name}")
+    spec, model = runner.spec, runner.model
+    dyn = make_physics_dynamics(model, solver="coupled")
+    eng = dyn.engine
+    x = broadcast_state(plant, K)
+    u = torch.zeros(K, model.nu, device=x.qpos.device) + action
+    running, terminal = spec.cost_factory(model, **spec.cost_kwargs)
+
+    def rollout_step():
+        s = dyn(x, u, 0)
+        return running(s, u, 0)
+
+    rollout_step()
+    prof = kernel_profile(rollout_step, top=6)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rollout_step()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    record = []
+    eplan = make_mppi(_early_exit_dynamics(eng, record=record), running, runner.cfg,
+                      terminal_fn=terminal)
+    torch.cuda.synchronize()
+    te = time.perf_counter()
+    ea, _, _ = eplan(ms, plant)
+    torch.cuda.synchronize()
+    early_ms = (time.perf_counter() - te) * 1e3
+    iters = [int(r) for r in record]
+    per_step = prof["device_launches"]["kernels"]
+    return {"task": task, "K": K, "T": T, "dtype": "float32", "warmup_steps": warmup,
+            "timed_steps": timed, "card_replans": warmup + timed + 1, "replan_ms": plan_ms, "replan_ms_median": statistics.median(plan_ms),
+            "plant_ms": plant_ms, "newton_loop": "25 masked iterations (the default)",
+            "rollout_step": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                   "device_busy_share")},
+            "launches_per_rollout_step": prof["device_launches"],
+            "launches_per_replan_from_steps": None if per_step is None else per_step * T,
+            "sync_free_rollout_step": True,
+            "early_exit_replan_ms": early_ms,
+            "newton_iterations_per_rollout_step": iters,
+            "newton_iterations_max": max(iters), "newton_iterations_mean": statistics.mean(iters),
+            "early_exit_action_finite": bool(torch.isfinite(ea).all()),
+            "seconds": time.perf_counter() - t0}
+
+
+def coupled_phase() -> dict:
+    """main_coupled: the f64 checks (coupled_checks), then the hopper's and
+    the cartpole's coupled planners timed (coupled_timing). No kernel runs
+    on this path: the rollout kernel's count must stay 0."""
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    t0 = time.perf_counter()
+    rk.launches = 0
+    checks = coupled_checks()
+    t_checks = time.perf_counter() - t0
+    hopper = coupled_timing(*COUPLED_HOPPER, COUPLED_WARMUP, COUPLED_TIMED)
+    cart = coupled_timing(*COUPLED_CART, 0, 1)
+    if rk.launches:
+        raise AssertionError(f"the coupled planners launched the rollout kernel {rk.launches} times")
+    out = {"phase": "main_coupled", "checks": checks, "checks_seconds": t_checks,
+           "gates": {"replans": "action max|diff| < 1e-9 (f64, card vs CPU)",
+                     "steps": "qpos 1e-10, qvel 1e-8 (f64, card vs CPU)"},
+           "hopper": hopper, "cartpole": cart, "rollout_kernel_launches": rk.launches,
+           "card_replans": checks["card_replans"] + hopper["card_replans"] + cart["card_replans"],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3941,6 +4220,7 @@ def main() -> int:
     cli = cli_phase(med)
     lqr_phase()
     sharded = sharded_phase(med)
+    coupled = coupled_phase()
     est["paths"] = {"estimator replan": {"launches": est["launches"],
                                          "replans": EST_WARMUP + EST_TIMED},
                     **loop.pop("paths"), **small["estimator"].pop("paths")}
@@ -3966,7 +4246,10 @@ def main() -> int:
                                  "control_steps": arm5["control_steps"]},
                   **cli.pop("paths"),
                   "humanoid_bench sharded replan (one-rank NCCL group)": {
-                      "launches": sharded["launches"], "replans": sharded["replans"]}},
+                      "launches": sharded["launches"], "replans": sharded["replans"]},
+                  "coupled planners (hopper K=4096 H=50, cartpole K=30 T=100)": {
+                      "launches": coupled["rollout_kernel_launches"],
+                      "replans": coupled["card_replans"]}},
         **humanoid,
         "collect_control_step_ms": collect["collect_control_step_ms"],
         "go1": go1,

@@ -6,7 +6,9 @@
   check goal and fall. The planner is the CUDA rollout kernel
   (solver/kernel_mppi, use_kernel=True) or, as in the JAX package by
   default, `make_mppi` over the array engine's penalty tier batched over K
-  (use_kernel=False). Rows, actions, times and goal/fall flags stay on the
+  (use_kernel=False); with planner_solver="coupled" (or "coupled_pgs")
+  `make_mppi` plans on the plant's own constraint tier, a Newton solve
+  (or the dual solver) per sample over K. Rows, actions, times and goal/fall flags stay on the
   device and cross to the host once per chunk.
 - `collect_humanoid()`: the reference's src/Humanoid_datacollection_v2.jl:
   randomized pose and goal, goal-gated saving, 57-column states with the
@@ -26,9 +28,6 @@ it (with its time), plans, steps the plant, then evaluates goal_fn/fall_fn
 on the state after it; a chunk always runs `chunk` steps, logs the rows up
 to and including the first terminating step, and leaves the plant (final
 qpos, sim time) at the chunk's end.
-
-Planning on the coupled tier (planner_solver="coupled", a batched Newton
-over K) is ROADMAP A3; until it exists that option raises.
 """
 
 from __future__ import annotations
@@ -43,6 +42,7 @@ import torch
 
 from .._device import resolve_device
 from ..costs.humanoid import advance_goal_v2py
+from ..dynamics.physics import make_physics_dynamics
 from ..envs.tasks import load_plant, load_task
 from ..solver.kernel_mppi import make_kernel_mppi
 from ..solver.mppi import MPPIState, make_mppi
@@ -75,18 +75,21 @@ class EpisodeRunner:
                  use_kernel: bool = False,
                  planner_solver: Optional[str] = None,
                  device="cuda", dtype=torch.float32):
-        """`planner_solver="coupled"` (rollouts on the coupled tier, JAX's
-        array-engine option) is not ported: it raises."""
-        if planner_solver not in (None, "penalty"):
-            if use_kernel:
-                raise ValueError("the kernel planner implements the penalty tier only; "
-                                 "coupled planning is the array engine's")
-            raise NotImplementedError(
-                f'planner_solver="{planner_solver}" plans on a batched coupled engine, '
-                "which is not ported yet (ROADMAP A3)")
+        """`planner_solver="coupled"` or "coupled_pgs" plans with
+        `make_mppi` over `make_physics_dynamics(model, solver=...)` on the
+        task's planner model, batched over K (JAX's array-engine option,
+        planner equal to plant; the unwrapped dynamics, as JAX's); the
+        kernel planner has the penalty tier only."""
+        coupled = planner_solver not in (None, "penalty")
+        if coupled and use_kernel:
+            raise ValueError("the kernel planner implements the penalty tier only; "
+                             "coupled planning is the array engine's")
         self.device, self.dtype = resolve_device(device), dtype
         spec, model, dynamics, running, terminal, init_state, cfg = load_task(
             task_name, device=self.device, dtype=dtype)
+        if coupled:
+            dynamics = make_physics_dynamics(model, solver=planner_solver, device=self.device,
+                                             dtype=dtype)
         kw = dict(spec.cost_kwargs)
         if cost_kwargs_override:
             kw.update(cost_kwargs_override)

@@ -14,13 +14,14 @@ def make_physics_dynamics(model: PhysicsModel, substeps: int = 1, solver: str = 
                           device="cuda", dtype=torch.float32):
     """dynamics(state, ctrl, t=None, info=None) -> state, stepping the array
     engine `substeps` times per control step with constraint tier `solver`:
-    "coupled" for the environment plant (one sample), "penalty" for the
-    planner's decoupled law, which the rollout kernel matches (one sample
-    or a (K,)-batched state with ctrl (K, nu)). `info`, when a dict,
+    "coupled" for the environment plant (and the planner that plans on
+    it), "coupled_pgs" for the legacy dual solver, "penalty" for the
+    planner's decoupled law, which the rollout kernel matches; one sample
+    or a (K,)-batched state with ctrl (K, nu). `info`, when a dict,
     receives the last coupled substep's Newton diagnostics;
     `dynamics.engine` is the Engine."""
-    if solver not in ("coupled", "penalty"):
-        raise NotImplementedError(f'solver="{solver}" is not ported yet (ROADMAP A3)')
+    if solver not in ("coupled", "coupled_pgs", "penalty"):
+        raise ValueError(f"unknown solver {solver!r}")
     engine = Engine(model, device, dtype)
 
     def dynamics(state, ctrl, t=None, info=None):

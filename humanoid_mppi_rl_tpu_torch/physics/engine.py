@@ -1,9 +1,10 @@
 """Rigid-body dynamics (physics/engine.py counterpart): the environment
-plant that the collection loop steps (`step(solver="coupled")`, one
-sample), and the planner tier that the array planner rolls out
-(`step(solver="penalty")`, one sample or a leading K batch). The
-kinematics (`fk`, `body_velocities`, `Engine.forward`) and every piece of
-the penalty step take the leading K batch.
+plant that the collection loop steps (`step(solver="coupled")`), and the
+planner tiers that the array planner rolls out (`step(solver="penalty")`
+by default, `step(solver="coupled")` when the planner plans on the plant's
+tier). Every step, the kinematics (`fk`, `body_velocities`,
+`Engine.forward`) and every piece of a step take one sample or a leading
+K batch.
 
 Formulation as in the JAX engine: world-frame ("origin" Plucker) algebra.
 Forward kinematics walks the body tree one depth level at a time and gives
@@ -17,7 +18,8 @@ ancestor mask A (nbody, nv) everything downstream is dense tensor algebra:
 
 `step(solver="coupled")` resolves contacts, joint and tendon limits and dof
 friction jointly by the primal Newton solver of physics/newton.py, as the
-JAX environment tier does. `step(solver="penalty")` is the decoupled
+JAX environment tier does; `step(solver="coupled_pgs")` is the JAX
+engine's legacy dual solver (physics/pgs.py). `step(solver="penalty")` is the decoupled
 per-row law that the rollout kernel implements (ops/scalar_physics): limit
 and contact forces with their implicit damping folded into the Euler
 matrix, no a0 compensation, no coupling between rows. `inverse_dynamics`
@@ -32,16 +34,17 @@ numpy model fields. Covered: free, ball, slide and hinge joints; joint,
 multi-dof (ball/free motor), fixed-tendon and site actuator transmissions;
 damping, joint and ball-joint quaternion springs, frictionloss; joint,
 ball rotation-angle and fixed-tendon limits; plane-vs-sphere/capsule/box/
-cylinder/mesh and sphere/capsule/cylinder self contacts -- every robot of
-the JAX registry. As in the JAX engine, the coupled tier enforces no ball
+cylinder/mesh, mesh-vs-sphere/capsule/box/mesh and sphere/capsule/cylinder
+self contacts -- every robot of the JAX registry. As in the JAX engine, the coupled tier enforces no ball
 limit (no Newton row), and the penalty tier adds limits only when a
-single-dof joint or a tendon is limited. The rest raises
-NotImplementedError naming its ROADMAP item.
+single-dof joint or a tendon is limited. A model with anything else
+raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import numpy as np
@@ -50,6 +53,7 @@ import torch
 from .._device import resolve_device
 from . import contact
 from . import newton
+from . import pgs
 from . import spatial as sp
 from .model import BALL, FREE, HINGE, SLIDE, PhysicsModel
 from .newton import cho_solve
@@ -207,6 +211,11 @@ class Engine:
                         if model.contact_pairs else None)
         self.rows = newton.RowTables(model, self.contact, self.device, self.dtype)
 
+    @functools.cached_property
+    def pgs(self) -> pgs.PGSTables:
+        """coupled_pgs's static tables, built on its first step."""
+        return pgs.PGSTables(self)
+
     def _build_transmissions(self, model: PhysicsModel) -> None:
         """Per-actuator constants of the transmissions beyond a single-dof
         joint's (JAX _actuator_forces' loop): (kind, actuator, tensors)."""
@@ -267,36 +276,33 @@ class Engine:
              n_iter: int = 25, info: Optional[dict] = None,
              early_exit: Optional[bool] = None) -> PhysicsState:
         """One physics step (mujoco mj_step analog): forward dynamics and
-        Euler. solver="coupled": the smooth acceleration qacc0 first, then
-        the constraint rows resolved jointly by primal Newton
+        Euler, for one sample or a state whose fields carry a leading K axis
+        with ctrl (K, nu). solver="coupled": the smooth acceleration qacc0
+        first, then the constraint rows resolved jointly by primal Newton
         (newton.newton_constraint_forces), then the damped system solved
-        again; one sample. solver="penalty": the decoupled per-row limit
-        and contact law (the rollout kernel's), one sample or a state whose
-        fields carry a leading K axis with ctrl (K, nu). `info`, when a
-        dict, receives the Newton solve's iteration count and row counts
-        (device tensors). `early_exit` ends the Newton loop at convergence
-        (newton.solve_qacc); by default it does so on the CPU, where reading
-        the flag costs no device wait, and runs all n_iter masked on the
-        card."""
-        if solver == "coupled_pgs":
-            raise NotImplementedError(f'solver="{solver}" is not ported yet (ROADMAP A3)')
-        if solver not in ("coupled", "penalty"):
+        again. solver="coupled_pgs": the same with the rows resolved by
+        the legacy dual solver (pgs.pgs_constraint_forces; the dof
+        frictionloss stays the passive tanh). solver="penalty": the
+        decoupled per-row limit and contact law (the rollout kernel's).
+        `info`, when a dict, receives the Newton solve's iteration count
+        (per sample for a batch) and row counts (device tensors).
+        `early_exit` ends the Newton loop at convergence (newton.solve_qacc;
+        for a batch when no sample goes on); by default it does so on the
+        CPU, where reading the flag costs no device wait, and runs all
+        n_iter masked on the card."""
+        if solver not in ("coupled", "coupled_pgs", "penalty"):
             raise ValueError(f"unknown solver {solver!r}")
         if not self.has_dynamics:
             raise ValueError("step needs a snapshot with the engine's fields "
                              "(export_model_arrays(plant=True))")
-        if solver == "coupled" and state.qpos.dim() != 1:
-            raise NotImplementedError(
-                'solver="coupled" steps one sample; a K batch plans on solver="penalty" '
-                "(batched coupled planning is ROADMAP A3)")
         with _full_f32():
             if solver == "penalty":
                 return self._step_penalty(state, ctrl)
             if early_exit is None:
                 early_exit = self.device.type == "cpu"
-            return self._step(state, ctrl, n_iter, info, early_exit)
+            return self._step(state, ctrl, n_iter, info, early_exit, solver)
 
-    def _step(self, state, ctrl, n_iter, info, early_exit):
+    def _step(self, state, ctrl, n_iter, info, early_exit, solver="coupled"):
         h = self.h
         qpos, qvel, S = state.qpos, state.qvel, state.S
         I, _ = spatial_inertias(self, state.xpos, state.xquat)
@@ -305,15 +311,20 @@ class Engine:
         tau = actuator_forces(self, qpos, qvel, ctrl, state)
         # the Newton tier resolves dof frictionloss as Huber rows, so the
         # smooth tanh approximation is left out there
-        tau_p, G_p = passive_forces(self, qpos, qvel, frictionloss=not self.newton_mode)
+        newton_mode = solver == "coupled" and self.newton_mode
+        tau_p, G_p = passive_forces(self, qpos, qvel, frictionloss=not newton_mode)
         tau = tau + tau_p
         Mh = M + h * torch.diag(self.damping) + h * G_p
         f = tau - bias
-        if self.newton_mode:
+        if newton_mode:
             qacc0 = cho_solve(M, f)
             f = f + newton.newton_constraint_forces(self, state, S, qacc0, M,
                                                     n_iter=n_iter, info=info,
                                                     early_exit=early_exit)
+        elif solver == "coupled_pgs" and (self.contact is not None or self.has_limits):
+            L0 = torch.linalg.cholesky_ex(M).L
+            qacc0 = pgs._solve(L0, f[..., None])[..., 0]
+            f = f + pgs.pgs_constraint_forces(self, state, S, L0, qacc0, n_iter=n_iter)
         qacc = cho_solve(Mh, f)
         qvel_new = qvel + h * qacc
         qpos_new = integrate_qpos(self, qpos, qvel_new, h)

@@ -21,6 +21,14 @@ condition fails, which gives the same iterates without reading anything
 back from the device. With early_exit the loop ends there instead, which
 reads the flag back each iteration: Engine.step asks for it on the CPU,
 where that costs no device wait.
+
+Every function takes one sample or a state whose fields carry a leading K
+axis (the planner's batch, JAX's vmap of the solve): the rows gain the K
+axis, the scalars of the solve (ridge, scale, the line search's alpha, lo
+and hi, the convergence flag) become (K,) tensors, and the masked loop
+freezes each sample on its own, as the vmapped while_loop does; with
+early_exit it ends when no sample goes on. The one-sample path runs the
+same operations as before on tensors without the K axis.
 """
 
 from __future__ import annotations
@@ -131,34 +139,109 @@ def _cap_aref(aref, v_row, h):
     return torch.minimum(aref, torch.clamp((RESTITUTION_VCAP_ENV - v_row) / h, min=0.0))
 
 
+def mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A x: a matrix-vector product for one sample, x (n,), and the batched
+    product for x (K, n) with A (K, m, n) or (m, n)."""
+    return A @ x if x.dim() == 1 else (A @ x[..., None])[..., 0]
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a @ b if a.dim() == 1 else torch.sum(a * b, -1)
+
+
+def _col(a: torch.Tensor) -> torch.Tensor:
+    """A per-sample scalar (K,) as a column (K, 1); a 0-dim one as it is."""
+    return a[..., None] if a.dim() else a
+
+
+def pyramid_rows(rows, fr, sgn: torch.Tensor, base: torch.Tensor):
+    """The four pyramid facets of each contact row `fr` (F of them), in
+    (row, tangent, sign) order: J (..., F*4, nv), the uncapped
+    aref = base - b v and the facet velocity v (..., F*4). Each solver
+    caps aref itself."""
+    mu_f = rows["mu"][..., fr][..., None, None]
+    Jn = rows["JpN"][..., fr, :]
+    Jt = torch.stack([rows["Jt1"][..., fr, :], rows["Jt2"][..., fr, :]], -2)
+    vt = torch.stack([rows["vt1"][..., fr], rows["vt2"][..., fr]], -1)
+    # pyramid rows (F, 2 tangents, 2 signs, nv) -> (F*4, nv)
+    Jpyr = Jn[..., :, None, None, :] + mu_f[..., None] * sgn[None, None, :, None] * Jt[..., :, :, None, :]
+    vel = rows["vn"][..., fr][..., None, None] + mu_f * sgn[None, None, :] * vt[..., None]
+    aref = base[..., fr][..., None, None] - rows["b_ref"][..., fr][..., None, None] * vel
+    lead, F = Jn.shape[:-2], fr.shape[0]
+    return (Jpyr.reshape(lead + (F * 4, Jn.shape[-1])), aref.reshape(lead + (F * 4,)),
+            vel.reshape(lead + (F * 4,)))
+
+
+class _Limit(NamedTuple):
+    """One class of limit rows (the hinge/slide joints' or the tendons'):
+    what both solvers read of it."""
+    J: torch.Tensor          # (..., n, nv) = s E
+    viol: torch.Tensor       # (..., n) distance past the range
+    s_rate: torch.Tensor     # (..., n) s times the coordinate's rate
+    active: torch.Tensor     # (..., n) 0/1
+    kb: torch.Tensor
+    br: torch.Tensor
+    imp: Impedance
+    invw: torch.Tensor
+
+
+def _limit(x, rate, lo, hi, E, lim, kb, br, imp, invw) -> _Limit:
+    below = torch.clamp(lo - x, min=0.0)
+    above = torch.clamp(x - hi, min=0.0)
+    viol = below + above
+    s = torch.sign(below - above)
+    return _Limit(s[..., :, None] * E, viol, s * rate, (viol > 0).to(x.dtype) * lim,
+                  kb, br, imp, invw)
+
+
+def limit_rows(rt: RowTables, qpos: torch.Tensor, qvel: torch.Tensor) -> list:
+    """The joint-limit rows, then the tendon-limit rows, of the classes the
+    model has; each solver forms aref and the regularizer from them."""
+    out = []
+    if rt.limits:
+        out.append(_limit(qpos[..., rt.hs_qposadr], qvel[..., rt.hs_dofadr], rt.hs_lo, rt.hs_hi,
+                          rt.hs_E, rt.hs_lim, rt.hs_kb, rt.hs_br, rt.hs_imp, rt.hs_invw))
+    if rt.tendons:
+        coef = rt.ten_coef
+        qd = torch.zeros_like(qvel)
+        qd[..., rt.hs_dofadr] = qpos[..., rt.hs_qposadr]
+        out.append(_limit(mv(coef, qd), mv(coef, qvel), rt.ten_lo, rt.ten_hi, coef, rt.ten_lim,
+                          rt.ten_kb, rt.ten_br, rt.ten_imp, rt.ten_invw))
+    return out
+
+
 def _block(rows, idx, dim, aref_n, R_n, imp_ratio, nv, qvel):
     """One elliptic block class: rows `idx` of the contact rows, `dim` each."""
     Jrows = [rows["JpN"], rows["Jt1"], rows["Jt2"], rows["JwN"], rows["Jwt1"], rows["Jwt2"]][:dim]
     vels = [rows["vn"], rows["vt1"], rows["vt2"]]
     if dim > 3:
-        vels += [rows["JwN"] @ qvel, rows["Jwt1"] @ qvel, rows["Jwt2"] @ qvel]
-    fri5 = rows["fri5"][idx]
-    mu1 = torch.clamp(fri5[:, 0], min=1e-9)
-    mus = fri5[:, :dim - 1]
+        vels += [mv(rows["JwN"], qvel), mv(rows["Jwt1"], qvel), mv(rows["Jwt2"], qvel)]
+    fri5 = rows["fri5"][..., idx, :]
+    mu1 = torch.clamp(fri5[..., 0], min=1e-9)
+    mus = fri5[..., :dim - 1]
     nb = idx.shape[0]
-    Jb = torch.stack([Jr[idx] for Jr in Jrows], 1)
+    Jb = torch.stack([Jr[..., idx, :] for Jr in Jrows], -2)
+    lead = Jb.shape[:-3]
     # friction-dim aref = -b * v (no position term)
-    aref_b = torch.cat([aref_n[idx][:, None]]
-                       + [(-rows["b_ref"][idx] * v[idx])[:, None] for v in vels[1:dim]], 1)
-    ratio = (mu1[:, None] / torch.clamp(mus, min=1e-12)) ** 2
-    R_b = torch.cat([R_n[idx][:, None], R_n[idx][:, None] * ratio / imp_ratio], 1)
+    aref_b = torch.cat([aref_n[..., idx][..., None]]
+                       + [(-rows["b_ref"][..., idx] * v[..., idx])[..., None]
+                          for v in vels[1:dim]], -1)
+    ratio = (mu1[..., None] / torch.clamp(mus, min=1e-12)) ** 2
+    R_b = torch.cat([R_n[..., idx][..., None], R_n[..., idx][..., None] * ratio / imp_ratio], -1)
     blk = dict(dim=dim, nb=nb, mu=mus, mu1=mu1)
-    return blk, Jb.reshape(nb * dim, nv), aref_b.reshape(-1), R_b.reshape(-1), \
-        rows["active"][idx].repeat_interleave(dim)
+    return blk, Jb.reshape(lead + (nb * dim, nv)), aref_b.reshape(lead + (-1,)), \
+        R_b.reshape(lead + (-1,)), rows["active"][..., idx].repeat_interleave(dim, -1)
 
 
 def build_rows(rt: RowTables, state, S: torch.Tensor) -> _Rows:
     """All constraint rows of the state, [ineq | friction | elliptic]:
     inequality rows are the frictionless contact normals, the pyramidal
-    facets, then the joint and tendon limits."""
+    facets, then the joint and tendon limits. A state with a leading K axis
+    gives rows with it: J (K, C, nv), the vectors (K, C)."""
     nv, h = rt.nv, rt.h
     qpos, qvel = state.qpos, state.qvel
     dtype, dev = qpos.dtype, qpos.device
+    lead = qpos.shape[:-1]
     Js_i, arefs_i, Rs_i, act_i = [], [], [], []
     blocks, Js_b, arefs_b, Rs_b, act_b = [], [], [], [], []
 
@@ -172,10 +255,10 @@ def build_rows(rt: RowTables, state, S: torch.Tensor) -> _Rows:
             groups = rt.dims + ([(rt.ct.condim_self_max, rt.self_idx)] if rt.ct.n_self else [])
             for dim, idx in groups:
                 if dim == 1:
-                    Js_i.append(rows["JpN"][idx])
-                    arefs_i.append(aref_n[idx])
-                    Rs_i.append(R_n[idx])
-                    act_i.append(rows["active"][idx])
+                    Js_i.append(rows["JpN"][..., idx, :])
+                    arefs_i.append(aref_n[..., idx])
+                    Rs_i.append(R_n[..., idx])
+                    act_i.append(rows["active"][..., idx])
                     continue
                 blk, Jb, ab, Rb, actb = _block(rows, idx, dim, aref_n, R_n, rt.imp_ratio, nv,
                                                qvel)
@@ -187,83 +270,54 @@ def build_rows(rt: RowTables, state, S: torch.Tensor) -> _Rows:
         else:
             nf, fr = rt.nf, rt.fr
             if nf.shape[0]:
-                Js_i.append(rows["JpN"][nf])
-                arefs_i.append(aref_n[nf])
-                Rs_i.append(R_n[nf])
-                act_i.append(rows["active"][nf])
+                Js_i.append(rows["JpN"][..., nf, :])
+                arefs_i.append(aref_n[..., nf])
+                Rs_i.append(R_n[..., nf])
+                act_i.append(rows["active"][..., nf])
             if fr.shape[0]:
-                mu_f = rows["mu"][fr][:, None, None]
-                Jn = rows["JpN"][fr]
-                Jt = torch.stack([rows["Jt1"][fr], rows["Jt2"][fr]], 1)
-                vt = torch.stack([rows["vt1"][fr], rows["vt2"][fr]], 1)
-                sgn = rt.sgn
-                # pyramid rows (F, 2 tangents, 2 signs, nv) -> (F*4, nv)
-                Jpyr = (Jn[:, None, None, :]
-                        + mu_f[..., None] * sgn[None, None, :, None] * Jt[:, :, None, :])
-                vel = rows["vn"][fr][:, None, None] + mu_f * sgn[None, None, :] * vt[:, :, None]
-                aref_p = _cap_aref(base[fr][:, None, None]
-                                   - rows["b_ref"][fr][:, None, None] * vel, vel, h)
-                F = fr.shape[0]
-                mu1 = rows["mu"][fr]
+                J_p, aref_p, vel = pyramid_rows(rows, fr, rt.sgn, base)
+                mu1 = rows["mu"][..., fr]
                 # mj_diagApprox pyramid facet law
-                R_pyr = ((1.0 - d_r[fr]) / d_r[fr] * torch.clamp(rows["invw"][fr], min=1e-12)
+                R_pyr = ((1.0 - d_r[..., fr]) / d_r[..., fr]
+                         * torch.clamp(rows["invw"][..., fr], min=1e-12)
                          * 2.0 * mu1 * mu1 * (1.0 + mu1 * mu1))
-                Js_i.append(Jpyr.reshape(F * 4, nv))
-                arefs_i.append(aref_p.reshape(F * 4))
-                Rs_i.append(R_pyr.repeat_interleave(4))
-                act_i.append(rows["active"][fr].repeat_interleave(4))
+                Js_i.append(J_p)
+                arefs_i.append(_cap_aref(aref_p, vel, h))
+                Rs_i.append(R_pyr.repeat_interleave(4, -1))
+                act_i.append(rows["active"][..., fr].repeat_interleave(4, -1))
 
-    if rt.limits:
-        q, v = qpos[rt.hs_qposadr], qvel[rt.hs_dofadr]
-        below = torch.clamp(rt.hs_lo - q, min=0.0)
-        above = torch.clamp(q - rt.hs_hi, min=0.0)
-        viol = below + above
-        s = torch.sign(below - above)
-        d_l = torch.clamp(rt.hs_imp(viol), _MINIMP, _MAXIMP)
-        Js_i.append(s[:, None] * rt.hs_E)
-        arefs_i.append(d_l * rt.hs_kb * viol - rt.hs_br * (s * v))
-        Rs_i.append((1.0 - d_l) / d_l * rt.hs_invw)
-        act_i.append((viol > 0).to(dtype) * rt.hs_lim)
-
-    if rt.tendons:
-        coef = rt.ten_coef
-        qd = torch.zeros(nv, dtype=dtype, device=dev)
-        qd[rt.hs_dofadr] = qpos[rt.hs_qposadr]
-        L, Ldot = coef @ qd, coef @ qvel
-        below = torch.clamp(rt.ten_lo - L, min=0.0)
-        above = torch.clamp(L - rt.ten_hi, min=0.0)
-        viol = below + above
-        s = torch.sign(below - above)
-        d_t = torch.clamp(rt.ten_imp(viol), _MINIMP, _MAXIMP)
-        Js_i.append(s[:, None] * coef)
-        arefs_i.append(d_t * rt.ten_kb * viol - rt.ten_br * (s * Ldot))
-        Rs_i.append((1.0 - d_t) / d_t * rt.ten_invw)
-        act_i.append((viol > 0).to(dtype) * rt.ten_lim)
+    for lim in limit_rows(rt, qpos, qvel):
+        d_l = torch.clamp(lim.imp(lim.viol), _MINIMP, _MAXIMP)
+        Js_i.append(lim.J)
+        arefs_i.append(d_l * lim.kb * lim.viol - lim.br * lim.s_rate)
+        Rs_i.append((1.0 - d_l) / d_l * lim.invw)
+        act_i.append(lim.active)
 
     Js_f, arefs_f, Rs_f = [], [], []
     if rt.n_fl:
-        Js_f.append(rt.fl_E)
-        arefs_f.append(-rt.fl_bf * qvel[rt.fl_dofs])
-        Rs_f.append(rt.fl_R)
+        Js_f.append(rt.fl_E.expand(lead + rt.fl_E.shape))
+        arefs_f.append(-rt.fl_bf * qvel[..., rt.fl_dofs])
+        Rs_f.append(rt.fl_R.expand(lead + rt.fl_R.shape))
 
     def cat(parts, width=None):
         if parts:
-            return torch.cat(parts, 0)
-        return torch.zeros((0,) if width is None else (0, width), dtype=dtype, device=dev)
+            return torch.cat(parts, -1 if width is None else -2)
+        return torch.zeros(lead + ((0,) if width is None else (0, width)), dtype=dtype, device=dev)
 
     J_i, J_f, J_b = cat(Js_i, nv), cat(Js_f, nv), cat(Js_b, nv)
-    n_ineq, n_fric = J_i.shape[0], J_f.shape[0]
-    J = torch.cat([J_i, J_f, J_b], 0)
-    aref = torch.cat([cat(arefs_i), cat(arefs_f), cat(arefs_b)])
-    R = torch.clamp(torch.cat([cat(Rs_i), cat(Rs_f), cat(Rs_b)]), min=1e-14)
-    active = torch.cat([cat(act_i), torch.ones(n_fric, dtype=dtype, device=dev), cat(act_b)])
+    n_ineq, n_fric = J_i.shape[-2], J_f.shape[-2]
+    J = torch.cat([J_i, J_f, J_b], -2)
+    aref = torch.cat([cat(arefs_i), cat(arefs_f), cat(arefs_b)], -1)
+    R = torch.clamp(torch.cat([cat(Rs_i), cat(Rs_f), cat(Rs_b)], -1), min=1e-14)
+    active = torch.cat([cat(act_i), torch.ones(lead + (n_fric,), dtype=dtype, device=dev),
+                        cat(act_b)], -1)
     out_blocks, off = [], n_ineq + n_fric
     for b in blocks:
         blk = dict(start=off, **b)
         blk["const"] = _block_constants(blk, R, active, rt.imp_ratio)
         out_blocks.append(blk)
         off += b["nb"] * b["dim"]
-    fl = rt.fl if rt.n_fl else cat([])
+    fl = rt.fl if rt.n_fl else torch.zeros(0, dtype=dtype, device=dev)
     return _Rows(J=J, aref=aref, R=R, active=active, D=active / R, n_ineq=n_ineq,
                  n_fric=n_fric, fl=fl, blocks=tuple(out_blocks))
 
@@ -273,19 +327,22 @@ def _block_constants(blk, R, active, imp_ratio: float) -> dict:
     (not on u), formed once per solve."""
     nb, dim, start = blk["nb"], blk["dim"], blk["start"]
     sb = slice(start, start + nb * dim)
-    Rb, ab, mu = R[sb].reshape(nb, dim), active[sb].reshape(nb, dim)[:, 0], blk["mu1"]
-    return dict(ab=ab, scale=blk["mu"] / mu[:, None], Db=ab[:, None] / Rb,
-                Rm=Rb[:, 0] * (1.0 + mu * mu / imp_ratio))
+    shape = R.shape[:-1] + (nb, dim)
+    Rb, mu = R[..., sb].reshape(shape), blk["mu1"]
+    ab = active[..., sb].reshape(shape)[..., 0]
+    return dict(ab=ab, scale=blk["mu"] / mu[..., None], Db=ab[..., None] / Rb,
+                Rm=Rb[..., 0] * (1.0 + mu * mu / imp_ratio))
 
 
 def _block_zone(blk, u: torch.Tensor, imp_ratio: float):
     """One elliptic block class at u: its zone masks and the terms its
     gradient and curvature share."""
     nb, dim, start = blk["nb"], blk["dim"], blk["start"]
-    z = dict(blk["const"], ub=u[start:start + nb * dim].reshape(nb, dim), mu=blk["mu1"])
+    z = dict(blk["const"], ub=u[..., start:start + nb * dim].reshape(u.shape[:-1] + (nb, dim)),
+             mu=blk["mu1"])
     mu = z["mu"]
-    N = z["ub"][:, 0]
-    z["up"] = z["ub"][:, 1:] * z["scale"]
+    N = z["ub"][..., 0]
+    z["up"] = z["ub"][..., 1:] * z["scale"]
     z["T"] = T = torch.sqrt(torch.sum(z["up"] * z["up"], -1) + 1e-24)
     z["top"] = N >= mu * T
     z["bottom"] = T * imp_ratio <= -mu * N
@@ -297,26 +354,27 @@ def _block_grad(z, zero):
     g_bot = z["ub"] * z["Db"]
     mu, wv, Rm, T = z["mu"], z["wv"], z["Rm"], z["T"]
     g_mid_N = -wv / Rm
-    g_mid_t = (mu * wv / (Rm * T))[:, None] * z["up"] * z["scale"]
-    g_mid = torch.cat([g_mid_N[:, None], g_mid_t], 1) * z["ab"][:, None]
-    return torch.where(z["top"][:, None], zero, torch.where(z["bottom"][:, None], g_bot, g_mid))
+    g_mid_t = (mu * wv / (Rm * T))[..., None] * z["up"] * z["scale"]
+    g_mid = torch.cat([g_mid_N[..., None], g_mid_t], -1) * z["ab"][..., None]
+    return torch.where(z["top"][..., None], zero,
+                       torch.where(z["bottom"][..., None], g_bot, g_mid))
 
 
 def _sgrad(rows: _Rows, u: torch.Tensor, imp_ratio: float, want_hess: bool):
-    """Zone gradients g = ds/du (C,) and, with want_hess, the diagonal
-    curvature w (C,) and each block class's Hessians (nb, dim, dim). The
-    row forces are f = -g."""
+    """Zone gradients g = ds/du (..., C) and, with want_hess, the diagonal
+    curvature w (..., C) and each block class's Hessians (..., nb, dim,
+    dim). The row forces are f = -g."""
     D = rows.D
-    dtype = u.dtype
+    dtype, lead = u.dtype, u.shape[:-1]
     ni, nf = rows.n_ineq, rows.n_fric
     gs, ws, Hblks = [], [], []
-    Di, ui = D[:ni], u[:ni]
+    Di, ui = D[..., :ni], u[..., :ni]
     neg = (ui < 0).to(dtype)
     gs.append(Di * ui * neg)
     if want_hess:
         ws.append(Di * neg)
     if nf:
-        Df, uf = D[ni:ni + nf], u[ni:ni + nf]
+        Df, uf = D[..., ni:ni + nf], u[..., ni:ni + nf]
         gs.append(torch.clamp(Df * uf, -rows.fl, rows.fl))
         if want_hess:
             ws.append(Df * (torch.abs(Df * uf) < rows.fl).to(dtype))
@@ -324,28 +382,28 @@ def _sgrad(rows: _Rows, u: torch.Tensor, imp_ratio: float, want_hess: bool):
     for blk in rows.blocks:
         nb, dim = blk["nb"], blk["dim"]
         z = _block_zone(blk, u, imp_ratio)
-        gs.append(_block_grad(z, zero).reshape(-1))
+        gs.append(_block_grad(z, zero).reshape(lead + (-1,)))
         if want_hess:
             mu, wv, Rm, T, sc = z["mu"], z["wv"], z["Rm"], z["T"], z["scale"]
-            ws.append(torch.zeros(nb * dim, dtype=dtype, device=u.device))
+            ws.append(torch.zeros(lead + (nb * dim,), dtype=dtype, device=u.device))
             eye_t = torch.eye(dim - 1, dtype=dtype, device=u.device)
             H_bot = torch.diag_embed(z["Db"])
             c = 1.0 / Rm
-            us = z["up"] / T[:, None] * sc
-            H_Nt = -(mu * c)[:, None] * us
-            outer = us[:, :, None] * us[:, None, :]
-            H_tt = ((mu * mu * c)[:, None, None] * outer
-                    + (mu * wv / (Rm * T))[:, None, None]
-                    * (eye_t[None] * (sc * sc)[:, :, None] - outer))
-            H_mid = torch.zeros(nb, dim, dim, dtype=dtype, device=u.device)
-            H_mid[:, 0, 0] = c
-            H_mid[:, 0, 1:] = H_Nt
-            H_mid[:, 1:, 0] = H_Nt
-            H_mid[:, 1:, 1:] = H_tt
-            H_blk = torch.where(z["top"][:, None, None], zero,
-                                torch.where(z["bottom"][:, None, None], H_bot, H_mid))
-            Hblks.append(H_blk * z["ab"][:, None, None])
-    cat = lambda parts: parts[0] if len(parts) == 1 else torch.cat(parts)
+            us = z["up"] / T[..., None] * sc
+            H_Nt = -(mu * c)[..., None] * us
+            outer = us[..., :, None] * us[..., None, :]
+            H_tt = ((mu * mu * c)[..., None, None] * outer
+                    + (mu * wv / (Rm * T))[..., None, None]
+                    * (eye_t * (sc * sc)[..., :, None] - outer))
+            H_mid = torch.zeros(us.shape[:-1] + (dim, dim), dtype=dtype, device=u.device)
+            H_mid[..., 0, 0] = c
+            H_mid[..., 0, 1:] = H_Nt
+            H_mid[..., 1:, 0] = H_Nt
+            H_mid[..., 1:, 1:] = H_tt
+            H_blk = torch.where(z["top"][..., None, None], zero,
+                                torch.where(z["bottom"][..., None, None], H_bot, H_mid))
+            Hblks.append(H_blk * z["ab"][..., None, None])
+    cat = lambda parts: parts[0] if len(parts) == 1 else torch.cat(parts, -1)
     if want_hess:
         return cat(gs), cat(ws), Hblks
     return cat(gs)
@@ -358,34 +416,39 @@ def _phi_deriv(rows: _Rows, u0, du, alpha, mMdx, c_lin, imp_ratio):
     + k (|sc dt|^2 - (us.dt)^2) in the middle zone (c = 1/Rm, k = mu wv /
     (Rm T), us the unit tangent force direction times sc), sum Db du^2 at
     the bottom, 0 on top."""
-    u = u0 + alpha * du
+    u = u0 + _col(alpha) * du
     dtype = u.dtype
+    if u.dim() == 1:
+        tot = lambda x, nd=1: torch.sum(x)
+    else:
+        tot = lambda x, nd=1: torch.sum(x, tuple(range(-nd, 0)))
     ni, nf = rows.n_ineq, rows.n_fric
     D = rows.D
     # rows of one class only (the humanoid's): no slicing
-    Di, ui, dui = (D, u, du) if ni == D.shape[0] else (D[:ni], u[:ni], du[:ni])
+    Di, ui, dui = ((D, u, du) if ni == D.shape[-1]
+                   else (D[..., :ni], u[..., :ni], du[..., :ni]))
     neg = (ui < 0).to(dtype)
-    d1 = c_lin + alpha * mMdx + torch.sum(Di * ui * neg * dui)
-    d2 = mMdx + torch.sum(Di * neg * dui * dui)
+    d1 = c_lin + alpha * mMdx + tot(Di * ui * neg * dui)
+    d2 = mMdx + tot(Di * neg * dui * dui)
     if nf:
-        Df, uf, duf = D[ni:ni + nf], u[ni:ni + nf], du[ni:ni + nf]
-        d1 = d1 + torch.sum(torch.clamp(Df * uf, -rows.fl, rows.fl) * duf)
-        d2 = d2 + torch.sum(Df * (torch.abs(Df * uf) < rows.fl).to(dtype) * duf * duf)
+        Df, uf, duf = D[..., ni:ni + nf], u[..., ni:ni + nf], du[..., ni:ni + nf]
+        d1 = d1 + tot(torch.clamp(Df * uf, -rows.fl, rows.fl) * duf)
+        d2 = d2 + tot(Df * (torch.abs(Df * uf) < rows.fl).to(dtype) * duf * duf)
     zero = torch.zeros((), dtype=dtype, device=u.device) if rows.blocks else None
     for blk in rows.blocks:
         nb, dim, start = blk["nb"], blk["dim"], blk["start"]
         z = _block_zone(blk, u, imp_ratio)
-        dub = du[start:start + nb * dim].reshape(nb, dim)
-        d1 = d1 + torch.sum(_block_grad(z, zero) * dub)
+        dub = du[..., start:start + nb * dim].reshape(du.shape[:-1] + (nb, dim))
+        d1 = d1 + tot(_block_grad(z, zero) * dub, 2)
         mu, wv, Rm, T, sc = z["mu"], z["wv"], z["Rm"], z["T"], z["scale"]
-        us = z["up"] / T[:, None] * sc
-        dN, dt = dub[:, 0], dub[:, 1:]
+        us = z["up"] / T[..., None] * sc
+        dN, dt = dub[..., 0], dub[..., 1:]
         ust = torch.sum(us * dt, -1)
         mid = ((dN - mu * ust) ** 2 / Rm
                + mu * wv / (Rm * T) * (torch.sum(sc * sc * dt * dt, -1) - ust * ust))
         bot = torch.sum(z["Db"] * dub * dub, -1)
         q = torch.where(z["top"], zero, torch.where(z["bottom"], bot, mid * z["ab"]))
-        d2 = d2 + torch.sum(q)
+        d2 = d2 + tot(q)
     return d1, d2
 
 
@@ -395,47 +458,56 @@ def solve_qacc(rt: RowTables, M, a0, rows: _Rows, n_iter: int = 30, tol: float =
     iterations taken): n_iter masked iterations, x frozen from the first at
     which |grad| <= tol * scale (the JAX while_loop's exit), so that nothing
     waits for the device. With early_exit the loop ends there instead, with
-    the same result, at the cost of reading the flag back each iteration."""
+    the same result, at the cost of reading the flag back each iteration.
+    A batch (a0 (K, nv), M (K, nv, nv), rows over K) freezes each sample
+    at its own exit, and its early exit waits for the last sample."""
     dtype, dev = a0.dtype, a0.device
+    lead = a0.shape[:-1]
     imp_ratio = rt.imp_ratio
     J, aref = rows.J, rows.aref
-    ridge = 1e-10 * torch.max(torch.diagonal(M))
+    diag = torch.diagonal(M, dim1=-2, dim2=-1)
+    if lead:
+        ridge = (1e-10 * torch.amax(diag, -1))[..., None, None]
+        norm = lambda v: torch.linalg.vector_norm(v, dim=-1)
+    else:
+        ridge = 1e-10 * torch.max(diag)
+        norm = torch.linalg.vector_norm
     eye = torch.eye(rt.nv, dtype=dtype, device=dev)
-    scale = torch.clamp(torch.linalg.vector_norm(M @ a0), min=1.0)
+    scale = torch.clamp(norm(mv(M, a0)), min=1.0)
 
     def gradient(x, hess):
-        u = J @ x - aref
+        u = mv(J, x) - aref
         out = _sgrad(rows, u, imp_ratio, hess)
         g = out[0] if hess else out
-        grad = M @ (x - a0) + J.T @ g
+        grad = mv(M, x - a0) + mv(J.mT, g)
         if not hess:
             return grad
         _, w, Hblks = out
-        H = M + (J.T * w[None, :]) @ J + ridge * eye
+        H = M + (J.mT * w[..., None, :]) @ J + ridge * eye
         for blk, Hb in zip(rows.blocks, Hblks):
             nb, dim, start = blk["nb"], blk["dim"], blk["start"]
-            Jb = J[start:start + nb * dim].reshape(nb, dim, rt.nv)
-            H = H + torch.einsum("bdi,bde,bej->ij", Jb, Hb, Jb)
+            Jb = J[..., start:start + nb * dim, :].reshape(lead + (nb, dim, rt.nv))
+            H = H + torch.einsum("...bdi,...bde,...bej->...ij", Jb, Hb, Jb)
         return u, grad, H
 
     x = a0
-    gn = torch.linalg.vector_norm(gradient(x, False))
-    taken = torch.zeros((), dtype=torch.int32, device=dev)
+    gn = norm(gradient(x, False))
+    taken = torch.zeros(lead, dtype=torch.int32, device=dev)
     for _ in range(n_iter):
         go = gn > tol * scale
-        if early_exit and not bool(go):
+        if early_exit and not bool(go.any()):
             # converged: the remaining iterations would leave x, gn and taken
             # as they are
             break
         u, grad, H = gradient(x, True)
         dx = -cho_solve(H, grad)
-        du = J @ dx
-        mMdx = dx @ (M @ dx)
-        c_lin = dx @ (M @ (x - a0))
+        du = mv(J, dx)
+        mMdx = _dot(dx, mv(M, dx))
+        c_lin = _dot(dx, mv(M, x - a0))
         # safeguarded 1-D Newton on phi'(alpha) (phi convex, phi'' >= dx M dx)
-        alpha = torch.ones((), dtype=dtype, device=dev)
-        lo = torch.zeros((), dtype=dtype, device=dev)
-        hi = torch.full((), 16.0, dtype=dtype, device=dev)
+        alpha = torch.ones(lead, dtype=dtype, device=dev)
+        lo = torch.zeros(lead, dtype=dtype, device=dev)
+        hi = torch.full(lead, 16.0, dtype=dtype, device=dev)
         for _ in range(12):
             d1, d2 = _phi_deriv(rows, u, du, alpha, mMdx, c_lin, imp_ratio)
             lo = torch.where(d1 < 0, alpha, lo)
@@ -443,26 +515,27 @@ def solve_qacc(rt: RowTables, M, a0, rows: _Rows, n_iter: int = 30, tol: float =
             step = alpha - d1 / torch.clamp(d2, min=1e-30)
             inside = (step > lo) & (step < hi)
             alpha = torch.where(inside, step, 0.5 * (lo + hi))
-        x_new = x + alpha * dx
-        gn_new = torch.linalg.vector_norm(gradient(x_new, False))
-        x = torch.where(go, x_new, x)
+        x_new = x + _col(alpha) * dx
+        gn_new = norm(gradient(x_new, False))
+        x = torch.where(_col(go), x_new, x)
         gn = torch.where(go, gn_new, gn)
         taken = taken + go.to(torch.int32)
-    u = J @ x - aref
+    u = mv(J, x) - aref
     return x, -_sgrad(rows, u, imp_ratio, False), taken
 
 
 def newton_constraint_forces(eng, state, S, a0, M, n_iter: int = 30,
                              info: Optional[dict] = None,
                              early_exit: bool = False) -> torch.Tensor:
-    """Coupled constraint solve by primal Newton: tau (nv,) = J^T f, the
-    generalized constraint force (mj qfrc_constraint analog). `info`, when a
-    dict, receives "iterations" (device int), "rows" (the row count) and
-    "active_rows" (device). `early_exit` as solve_qacc's."""
+    """Coupled constraint solve by primal Newton: tau (..., nv) = J^T f,
+    the generalized constraint force (mj qfrc_constraint analog), for one
+    sample or a K batch. `info`, when a dict, receives "iterations" (device
+    int, (K,) for a batch), "rows" (the row count) and "active_rows"
+    (device). `early_exit` as solve_qacc's."""
     rows = build_rows(eng.rows, state, S)
-    if rows.J.shape[0] == 0:
-        return torch.zeros(eng.model.nv, dtype=a0.dtype, device=a0.device)
+    if rows.J.shape[-2] == 0:
+        return torch.zeros_like(a0)
     _, f, taken = solve_qacc(eng.rows, M, a0, rows, n_iter=n_iter, early_exit=early_exit)
     if info is not None:
-        info.update(iterations=taken, rows=rows.J.shape[0], active_rows=rows.active.sum())
-    return rows.J.T @ f
+        info.update(iterations=taken, rows=rows.J.shape[-2], active_rows=rows.active.sum(-1))
+    return mv(rows.J.mT, f)

@@ -322,11 +322,18 @@ def test_logger_layouts_and_metrics(tmp_path):
 
 
 def test_unported_planners_raise():
-    """Planning on the coupled tier (a batched Newton over K) is not ported:
-    the array planner refuses it, the kernel planner never had it. The
-    default, the array planner on the penalty tier, is ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        prunner.EpisodeRunner(TASK, planner_solver="coupled", device="cpu")
+    """Planning on the coupled tier (a batched Newton over K) is the array
+    planner's: it plans humanoid_walk with make_mppi over the coupled step
+    of the planner model, and its first control step runs; the kernel
+    planner never had it and refuses. The default, the array planner on the
+    penalty tier, is ported."""
+    coupled = prunner.EpisodeRunner(TASK, planner_solver="coupled", device="cpu",
+                                    mppi_override=dict(n_samples=2, horizon=2))
+    assert not coupled.use_kernel and not hasattr(coupled.plan, "rollouts")
+    ms = coupled.fresh_controller()
+    action, ms, plant, diag = coupled.control_step(ms, coupled.init_state, None)
+    assert action.shape == (coupled.model.nu,) and torch.isfinite(action).all()
+    assert torch.isfinite(plant.qpos).all() and torch.isfinite(diag.beta).all()
     with pytest.raises(ValueError, match="penalty tier only"):
         prunner.EpisodeRunner(TASK, use_kernel=True, planner_solver="coupled", device="cpu")
     runner = prunner.EpisodeRunner(TASK, mppi_override=dict(n_samples=2, horizon=2),

@@ -181,8 +181,8 @@ def test_penalty_pieces_of_a_batch_equal_their_one_sample_calls(robot):
 
 
 def test_penalty_dynamics_and_the_planner_tier_of_load_task():
-    """make_physics_dynamics(solver="penalty") steps a batch; the coupled
-    tier refuses one (batched coupled planning is not ported)."""
+    """make_physics_dynamics(solver="penalty") steps a batch; so does the
+    coupled tier, each sample its one-sample step."""
     pm = load_model("hopper")
     dyn = make_physics_dynamics(pm, substeps=2, solver="penalty", device="cpu", dtype=F64)
     qpos, qvel, ctrl = _states(pm, "hopper", seed=2)
@@ -192,8 +192,12 @@ def test_penalty_dynamics_and_the_planner_tier_of_load_task():
                            torch.tensor(ctrl), solver="penalty")
     assert torch.equal(two.qpos, once.qpos) and two.qpos.shape == (K, pm.nq)
     coupled = make_physics_dynamics(load_model("hopper_plant"), device="cpu", dtype=F64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        coupled(_port_state(coupled.engine, qpos, qvel), torch.tensor(ctrl))
+    batch = coupled(_port_state(coupled.engine, qpos, qvel), torch.tensor(ctrl))
+    assert batch.qpos.shape == (K, pm.nq)
+    for k in (0, K - 1):
+        one = coupled(coupled.engine.forward(torch.tensor(qpos[k]), torch.tensor(qvel[k])),
+                      torch.tensor(ctrl[k]))
+        torch.testing.assert_close(batch.qvel[k], one.qvel, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("robot", ["humanoid", "hopper"])

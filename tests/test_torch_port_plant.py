@@ -260,24 +260,38 @@ def test_one_step_replay_of_walk_seed(jax_plant, port_model):
 
 
 def test_unported_solvers_and_features_raise(port_model):
-    """coupled_pgs and a K batch on the coupled tier stay unported; a model
-    without the engine's fields cannot step (the planner snapshots carry
-    them since the penalty tier plans on them)."""
+    """Every solver and feature of the JAX engine steps: coupled_pgs on the
+    humanoid plant (finite, the qpos0 state sunk 0.2 m), a K batch on the
+    coupled tier (each sample its one-sample step), a mesh-vs-primitive
+    pair (tests/test_torch_port_mesh_pairs.py holds it against JAX); an
+    unknown solver raises, and a model without the engine's fields cannot
+    step (the planner snapshots carry them since the penalty tier plans on
+    them)."""
     eng = _engine(port_model)
     st = eng.forward(torch.tensor(port_model.qpos0), torch.zeros(port_model.nv))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        eng.step(st, torch.zeros(port_model.nu), solver="coupled_pgs")
-    batch = eng.forward(torch.tensor(port_model.qpos0).expand(2, -1),
-                        torch.zeros(2, port_model.nv), torch.zeros(2, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        eng.step(batch, torch.zeros(2, port_model.nu))
+    qpos = np.asarray(port_model.qpos0, dtype=np.float64).copy()
+    qpos[2] -= 0.2
+    f64 = torch.float64
+    rest = eng.forward(torch.tensor(port_model.qpos0), torch.zeros(port_model.nv, dtype=f64))
+    sunk = eng.forward(torch.tensor(qpos), torch.zeros(port_model.nv, dtype=f64))
+    pgs = eng.step(sunk, torch.zeros(port_model.nu, dtype=f64), solver="coupled_pgs")
+    assert torch.isfinite(pgs.qvel).all() and float(pgs.qvel[2]) > 0.0
+    batch = eng.forward(torch.tensor(np.stack([port_model.qpos0, qpos])),
+                        torch.zeros(2, port_model.nv, dtype=f64), torch.zeros(2, dtype=f64))
+    stepped = eng.step(batch, torch.zeros(2, port_model.nu, dtype=f64))
+    for k, one in enumerate((rest, sunk)):
+        torch.testing.assert_close(stepped.qvel[k],
+                                   eng.step(one, torch.zeros(21, dtype=f64)).qvel,
+                                   rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="unknown solver"):
+        eng.step(st, torch.zeros(port_model.nu), solver="pgs")
     no_fields = dataclasses.replace(load_model("humanoid"), pred_mask=None)
     with pytest.raises(ValueError, match="engine's fields"):
         peng.Engine(no_fields, device="cpu", dtype=torch.float64).step(st, torch.zeros(21))
-    # a mesh in a body-body pair (mesh-vs-primitive) stays unported; its
-    # floor pairs are ported (arm5's, tests/test_torch_port_arm5.py)
-    meshed = dataclasses.replace(port_model, geoms=tuple(
-        dataclasses.replace(g, gtype=7, gtype_orig=7, mesh_verts=np.eye(3) * 0.05)
-        if i == 3 else g for i, g in enumerate(port_model.geoms)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        _engine(meshed)
+    meshed = _engine(load_model("mesh_on_box_plant"))
+    assert meshed.contact.mesh_pairs and meshed.contact.n_plane == 8
+    q = np.asarray(meshed.model.qpos0, dtype=np.float64).copy()
+    q[2] -= 0.06
+    out = meshed.step(meshed.forward(torch.tensor(q), torch.zeros(6, dtype=f64)),
+                      torch.zeros(0, dtype=f64))
+    assert torch.isfinite(out.qpos).all() and float(out.qvel[2]) > 0.0
