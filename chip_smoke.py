@@ -36,7 +36,7 @@ Phases, one JSON line each (with its own `seconds`):
              a runtime goal (K=256 and 253, T=4: the gates of `check`); a
              warm-up run(max_steps=10, chunk=10) and a timed run(max_steps=
              20, chunk=20) (bench.py::_bench_collect's protocol at a cut
-             depth: steps/s, control step ms); then 10 control steps one at a time, CUDA
+             depth: steps/s, control step ms); then 5 control steps one at a time, CUDA
              events around the plan and around the plant step (Newton
              iterations and constraint rows read after), one plant step
              under torch.profiler (device launches) and one control step
@@ -122,7 +122,7 @@ Phases, one JSON line each (with its own `seconds`):
              on go1_collect's coupled plant, planning on the trained
              surrogate through the estimator kernel (bf16) at K=2048, T=32,
              accumulate update, sigma 0.18, the ctrlrange clamp, the FD gait
-             cost, from `home` with the plan seeded at home: 2 warm-up and 2
+             cost, from `home` with the plan seeded at home: 1 warm-up and 2
              timed control steps (T forwards each), 1 split into plan and
              plant ms by CUDA events, one profiled control step (launches by
              kernel, busy share); every row finite, trunk z >= 0.08 m, the
@@ -133,7 +133,7 @@ Phases, one JSON line each (with its own `seconds`):
              estimator kernel (bf16) at ESTIMATOR_CONFIGS["humanoid"] with
              T=25 (K=2048, replace update, sigma 0.4), the walking cost on
              the batched FK of the predicted qpos (f32), state [qpos; foot
-             z]: 3 warm-up and 3 timed control steps, 3 split into plan
+             z]: 1 warm-up and 2 timed control steps, 2 split into plan
              and plant ms by CUDA events, one profiled control step (busy
              share, device launches by kernel) and the device launches of
              one replan (those outside the estimator kernel); T forwards per
@@ -157,17 +157,17 @@ Phases, one JSON line each (with its own `seconds`):
              device launches, one profiled control step; the kernel alone
              beside its plain version and its bound
   main_hopper -- EpisodeRunner("hopper", use_kernel=True) at K=4096,
-             H=100 (artifacts/hopper_k4096.npz's): 3 warm-up and 10 timed
+             H=100 (artifacts/hopper_k4096.npz's): 1 warm-up and 5 timed
              control steps (3 split), one launch a step, finite rows; the split, the
              kernel alone, torso z minimum and x progress as main_cartpole
   main_cartpole_pipeline -- two cartpole_collect episodes (K=75, T=100)
-             of 100 steps written as CSV, PRESET_CONFIGS["cartpole"] trained
+             of 50 steps written as CSV, PRESET_CONFIGS["cartpole"] trained
              on them for 10 epochs (eval loss falls), the trained weights at
              check_estimator_trained's gates (B=2048 and 253) and timed as
              time_estimator does, then EstimatorRunner("cartpole", ...,
              batched_dynamics=True) at ESTIMATOR_CONFIGS["cartpole"] (K=2048,
-             T=100, bf16): 3 warm-up and 10 timed control steps, T forwards
-             a step, 5 split into plan and plant ms, one profiled step and
+             T=100, bf16): 1 warm-up and 5 timed control steps, T forwards
+             a step, 3 split into plan and plant ms, one profiled step and
              the replan's device launches outside the estimator kernel
   check_humanoid_costs -- slice 10: the rollout kernel with humanoid_v1
              (step periods 4 and 100, T=8: both swing sides inside the
@@ -266,12 +266,43 @@ Phases, one JSON line each (with its own `seconds`):
              humanoid plants and one hopper step over K=64 (qpos 1e-10,
              qvel 1e-8). f32, the default masked path:
              EpisodeRunner("hopper", planner_solver="coupled") at K=4096,
-             H=50 (scripts/dev_hopper.py's), 1 warm-up and 2 timed control
-             steps, and one cartpole replan at K=30, T=100: replan and
+             H=50 (scripts/dev_hopper.py's), 1 timed control step (no
+             warm-up), and one cartpole replan at K=30, T=100: replan and
              plant ms, one rollout step's device launches and busy share
              (profiler) and host syncs (sync debug mode "error"), then one
              replan with the early exit (its ms and the Newton iterations
              of each rollout step, the largest over K)
+  check_spatial_tendon -- slice 15: the spatial-tendon arm
+             (assets/spatial_tendon_plant.json: a three-site tendon limited
+             to 0.62 m, 0.66 m at rest, driven by a motor) in f64, the card
+             against the CPU: 20 coupled steps from (0.4, -0.3), where the
+             limit is active, under seeded controls, one penalty and one
+             coupled step over K=64 seeded states (qpos 1e-10, qvel 1e-8);
+             a coupled step's ms and one under set_sync_debug_mode("error")
+  main_pipelines -- the estimator kernel past 64 tokens: the bf16
+             attention alone at each of query tiles 5-8 and head widths 16,
+             32, 64, 128 against its plain version (bit for bit on exact
+             inputs, the bf16 tolerance on normal ones); the whole kernel on
+             seeded humanoid_attention weights at state_dim 57 (F=78,
+             vel_pipeline's surrogate) and 107 (F=128): check_estimator's
+             gates at B=64 and 61 (and F=78 at B=2048, which is also timed
+             beside its plain version, bound and library call) and each
+             kernel alone bit for bit on exact_stage_cases;
+             then three pipeline runs at once through `python -m`, in a
+             temporary directory (PIPE_RUNNER writes both kernels' launch
+             counts and the control steps executed at exit): full_pipeline's
+             collect stage alone (the later stages' markers written first;
+             --max-steps 10, one chunk of 50 control steps at K=8192, H=64,
+             one rollout launch per executed step, the logged steps read
+             from its collect_metrics.jsonl; goal gating saves nothing), and
+             full_pipeline's and vel_pipeline's
+             train (2 epochs; vel: rollout_k 8) and estimator (--flash,
+             K=2048, 2 steps: T=50, 100 estimator launches; T=25, 50) stages,
+             fed through a .done_collect marker and main_collect's two logged
+             runs copied 8 times into data/*_ft/; every marker, finite
+             estimator states, the stage lines and summary.json's keys
+  entry   -- graft_entry.entry()'s replan (humanoid_collect, K=64, H=16,
+             the array planner) once on the card: finite, no rollout launch
 then a `kernels` line, the nvidia-smi line, and the final status line.
 Any failed check raises, and the script exits non-zero without the status
 line. It imports no JAX and nothing of the JAX package.
@@ -316,9 +347,9 @@ COLLECT_TASK = "humanoid_walk"
 # for the run time (50 in one chunk of 50 before main_coupled came)
 COLLECT_WARMUP, COLLECT_TIMED, COLLECT_CHUNK = 10, 20, 20
 # main_collect's depth, cut to leave the run time for the later phases:
-# 10 control steps split into plan and plant (20 before), collect_humanoid
-# in one chunk of 10 (50 before)
-COLLECT_SPLIT_STEPS, HUM_COLLECT_CHUNK = 10, 10
+# 5 control steps split into plan and plant (20, then 10 before),
+# collect_humanoid in one chunk of 10 (50 before)
+COLLECT_SPLIT_STEPS, HUM_COLLECT_CHUNK = 5, 10
 FALL_Z = 0.7   # scripts/dev_seed_evidence.py:53
 # the Go1 at scripts/quad_pipeline.py's operating point (collect_quadruped
 # with use_kernel=True, K=4096, H=32, GAIT_TUNED, goals at (2 + i mod 3, 0))
@@ -1129,7 +1160,8 @@ def collect_phase() -> dict:
           "collect_episode": episode[0], "csv_columns": shapes,
           "seconds": time.perf_counter() - t0})
     return {"launches_collect": path_launches, "control_steps": executed,
-            "collect_control_step_ms": wall / COLLECT_TIMED * 1e3}
+            "collect_control_step_ms": wall / COLLECT_TIMED * 1e3,
+            "rows": [warm.logger.arrays(), timed.logger.arrays()]}
 
 
 def go1_replans(task: str, K: int, H: int, params, warmup: int, timed: int,
@@ -1637,15 +1669,15 @@ CHAIN_EVAL_SPLIT, CHAIN_BATCH = 0.5, 16
 TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS, TRAIN_SYNC_STEPS = 10, 100, 10
 EST_LOOP_K, EST_LOOP_T = 2048, 32
 # the Go1 loop's depth, cut to leave the run time for the later phases:
-# 2 warm-up, 2 timed and 1 split steps (5, 50 and 6, then 3, 20 and 4,
-# then 3, 10 and 4, then 3, 2 and 4, then 3, 2 and 2)
-EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 2, 2, 1
+# 1 warm-up, 2 timed and 1 split steps (5, 50 and 6, then 3, 20 and 4,
+# then 3, 10 and 4, then 3, 2 and 4, then 3, 2 and 2, then 2, 2 and 1)
+EST_LOOP_WARMUP, EST_LOOP_TIMED, EST_LOOP_SPLIT = 1, 2, 1
 # the humanoid loop (scripts/dev_estimator_walk.py --configs fk): K=2048,
-# T=25; 3 timed control steps of the JAX record's 120, cut for the run
-# time (120, 60, 10, then 5 before; 3 warm-up and 3 split steps: 5, 10,
-# then 5 before)
+# T=25; 2 timed control steps of the JAX record's 120, cut for the run
+# time (120, 60, 10, 5, then 3 before); 1 warm-up (3 before) and 2 split
+# steps (5, 10, 5, then 3 before)
 HUM_LOOP_K, HUM_LOOP_T = 2048, 25
-HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 3, 3, 3
+HUM_LOOP_WARMUP, HUM_LOOP_TIMED, HUM_LOOP_SPLIT = 1, 2, 2
 # the JAX record (artifacts/rollout_k_surrogate/estimator_summary.json,
 # closed_loop.fk_cost_K2048_T25, on a TPU, another noise stream)
 HUM_JAX_RECORD = {"steps": 120, "K": 2048, "T": 25, "forward_progress_m": 0.159,
@@ -2211,20 +2243,22 @@ def learning_phases(collected: dict) -> dict:
 CART_K, CART_STEPS, CART_SETTLE = 256, 400, 40
 CART_SPLIT_STEPS = 5   # 20 before, cut for the run time
 # the hopper at artifacts/hopper_k4096.npz's K and H
-# (tests/test_e2e_hopper.py:12-14): 3 warm-up, 10 timed and 3 split
-# control steps (5 warm-up; 200, 100, 25, then 15 timed; 10, then 5 split
-# before), cut for the run time
-HOP_K, HOP_H, HOP_WARMUP, HOP_TIMED, HOP_SPLIT_STEPS = 4096, 100, 3, 10, 3
+# (tests/test_e2e_hopper.py:12-14): 1 warm-up, 5 timed and 3 split
+# control steps (5, then 3 warm-up; 200, 100, 25, 15, then 10 timed; 10,
+# then 5 split before), cut for the run time
+HOP_K, HOP_H, HOP_WARMUP, HOP_TIMED, HOP_SPLIT_STEPS = 4096, 100, 1, 5, 3
 # check_hopper's param_gait deltas, slots 4..9: target velocity, landing
 # weight, pitch log-scale, knee weight, hop-clock weight, knee anchor shift
 HOP_GAIT = (0.2, 3.0, 0.3, 2.0, 5.0, -0.1)
 # the cartpole learning loop: two cartpole_collect episodes (K=75, T=100,
-# the reference's) of 100 steps, PRESET_CONFIGS["cartpole"] cut to 10
+# the reference's) of 50 steps, PRESET_CONFIGS["cartpole"] cut to 10
 # epochs, then the closed loop at ESTIMATOR_CONFIGS["cartpole"]
-# (episodes of 100 steps: 200 before, cut for the run time)
-CART_EPISODES, CART_EPISODE_STEPS, CART_TRAIN_EPOCHS = 2, 100, 10
-# 10 timed closed-loop steps (100, then 50 before), cut for the run time
-CART_LOOP_WARMUP, CART_LOOP_TIMED, CART_LOOP_SPLIT = 3, 10, 5
+# (episodes of 50 steps, one chunk each: 200, then 100 before, cut for the
+# run time; the eval loss still falls)
+CART_EPISODES, CART_EPISODE_STEPS, CART_TRAIN_EPOCHS = 2, 50, 10
+# 1 warm-up, 5 timed closed-loop steps and 3 split (3 warm-up; 100, 50,
+# then 10 timed and 5 split before), cut for the run time
+CART_LOOP_WARMUP, CART_LOOP_TIMED, CART_LOOP_SPLIT = 1, 5, 3
 CART_LOOP_CHECK_B = (2048, 253)
 # hopper poses for the rollout checks (sample k in pose k % 4): (name, hip,
 # knee, ankle, the foot's lowest point above the floor (m), vertical
@@ -3839,7 +3873,10 @@ COUPLED_GO1 = ("go1", 8, 5)
 # (at rest there, none of the K=30 does on the first replan): its Newton
 # loop must take iterations
 COUPLED_CART_START = ([0.5, np.pi], [1.0, 0.0])
-COUPLED_WARMUP, COUPLED_TIMED = 1, 2
+# the hopper's coupled planner: 1 timed control step and no warm-up, as the
+# cartpole's (1 + 2, then 1 + 1 before, cut for the run time; the phase's
+# f64 checks have run the coupled step on the card first)
+COUPLED_WARMUP, COUPLED_TIMED = 0, 1
 MESH_SNAPSHOTS = ("mesh_on_box_plant", "box_on_mesh_plant", "mesh_on_mesh_plant",
                   "two_dyn_stack_plant", "box_on_dyn_mesh_plant", "mesh_on_sphere_plant",
                   "mesh_on_capsule_plant", "clustered_cube_plant")
@@ -4082,6 +4119,360 @@ def coupled_phase() -> dict:
     return out
 
 
+
+# ---- slice 15: spatial tendons, the pipelines and the graft entry ---------
+
+SPATIAL_MODEL = "spatial_tendon_plant"
+SPATIAL_START = ([0.4, -0.3], [0.3, -0.2])   # tests/test_engine_generality.py's: limit active
+SPATIAL_STEPS, SPATIAL_K = 20, 64
+PIPE_COLLECT_STEPS = 10     # full_pipeline --max-steps; its one chunk of 50 runs whole
+PIPE_EPOCHS, PIPE_EST_STEPS, PIPE_EST_K = 2, 2, 2048
+PIPE_COPIES = 8             # copies of main_collect's two logged runs in the training data
+PIPE_TIMEOUT = 300.0
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# runs a module as `python -m` does, and writes at exit both kernels' launch
+# counts and the control steps EpisodeRunner executed (each call of its
+# control_step, counted where it is called): argv = [counts path, module,
+# the module's arguments...]
+PIPE_RUNNER = r"""
+import atexit, json, runpy, sys
+from humanoid_mppi_rl_tpu_torch.collect import runner
+from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek, rollout_kernel as rk
+counts, module = sys.argv[1], sys.argv[2]
+executed = [0]
+control_step = runner.EpisodeRunner.control_step
+def counted(self, *args, **kwargs):
+    executed[0] += 1
+    return control_step(self, *args, **kwargs)
+runner.EpisodeRunner.control_step = counted
+def dump():
+    with open(counts, "w") as f:
+        json.dump({"rollout": rk.launches, "estimator": ek.launches,
+                   "control_steps": executed[0]}, f)
+atexit.register(dump)
+sys.argv = [module] + sys.argv[3:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def spatial_inputs(K: int, seed: int = 0):
+    """(qpos, qvel, ctrl) of K samples of the spatial-tendon arm: angles
+    over +-1.2 rad (the tendon inside and past its 0.62 m limit), a few
+    rad/s, controls past the motor's +-3 range."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1.2, 1.2, (K, 2)), rng.normal(0, 2, (K, 2)), rng.uniform(-4, 4, (K, 1))
+
+
+def spatial_phase() -> dict:
+    """check_spatial_tendon: f64, the card against the CPU."""
+    from humanoid_mppi_rl_tpu_torch.physics.engine import Engine, spatial_tendon_geometry
+    from humanoid_mppi_rl_tpu_torch.physics.model import load_model
+
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    ctrls = np.random.default_rng(2).uniform(-1.5, 1.5, (SPATIAL_STEPS, 1))
+
+    def steps(dev):
+        eng = Engine(load_model(SPATIAL_MODEL), dev, f64)
+        tt = lambda a: torch.tensor(a, dtype=f64, device=dev)
+        st = eng.forward(*(tt(a) for a in SPATIAL_START))
+        L0, M0 = spatial_tendon_geometry(eng, st)
+        for u in ctrls:
+            st = eng.step(st, tt(u))
+        return {"L0": L0, "moment0": M0, "qpos": st.qpos, "qvel": st.qvel}
+
+    def batch(solver):
+        def run(dev):
+            eng = Engine(load_model(SPATIAL_MODEL), dev, f64)
+            qpos, qvel, ctrl = (torch.tensor(a, dtype=f64, device=dev)
+                                for a in spatial_inputs(SPATIAL_K, seed=3))
+            st = eng.step(eng.forward(qpos, qvel, torch.zeros(SPATIAL_K, dtype=f64, device=dev)),
+                          ctrl, solver=solver)
+            return {"qpos": st.qpos, "qvel": st.qvel}
+        return run
+
+    card = {}
+    out = {"coupled_steps": _card_vs_cpu(steps, card)}
+    if not float(card["L0"][0]) > 0.62:
+        raise AssertionError(f"spatial tendon at {float(card['L0'][0])} m: the limit is not active")
+    for solver in ("penalty", "coupled"):
+        out[f"{solver}_K{SPATIAL_K}"] = _card_vs_cpu(batch(solver))
+    for name, d in out.items():
+        if not (d["qpos"] < 1e-10 and d["qvel"] < 1e-8):
+            raise AssertionError(f"spatial tendon {name}, card vs CPU: {d}")
+    # one coupled step timed, and one under set_sync_debug_mode("error")
+    eng = Engine(load_model(SPATIAL_MODEL), "cuda", f64)
+    st = eng.forward(*(torch.tensor(a, dtype=f64, device="cuda") for a in SPATIAL_START))
+    u = torch.tensor(ctrls[0], dtype=f64, device="cuda")
+    eng.step(st, u)
+    step_ms = cuda_ms(lambda: eng.step(st, u), 3)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step(st, u)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    res = {"phase": "check_spatial_tendon", "model": SPATIAL_MODEL, "dtype": "float64",
+           "steps": SPATIAL_STEPS, "K": SPATIAL_K, "tendon_length_start_m": float(card["L0"][0]),
+           "limit_m": 0.62, "max_abs_diff": out,
+           "gates": "qpos 1e-10, qvel 1e-8 (f64, card vs CPU)",
+           "coupled_step_ms": step_ms, "sync_free_coupled_step": True,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def _write_humanoid_runs(data_dir: str, rows: list) -> int:
+    """main_collect's logged runs, PIPE_COPIES times each, in the goal-gated
+    collector's layout data/{states,actions,times}_ft/; returns the files."""
+    from humanoid_mppi_rl_tpu_torch.utils.trajio import write_csv
+
+    n = 0
+    for c in range(PIPE_COPIES):
+        for i, run in enumerate(rows):
+            for kind, arr in zip(("states", "actions", "times"), run):
+                d = os.path.join(data_dir, f"{kind}_ft")
+                os.makedirs(d, exist_ok=True)
+                write_csv(os.path.join(d, f"{kind}_{c}_{i}.csv"), arr)
+            n += 1
+    return n
+
+
+def _mark_done(out: str, stages) -> None:
+    """The pipelines' completion markers of `stages` under out."""
+    for stage in stages:
+        with open(os.path.join(out, f".done_{stage}"), "w") as f:
+            f.write("ok")
+
+
+def _pipeline_start(module: str, argv: list, cwd: str, name: str) -> dict:
+    """`python -m humanoid_mppi_rl_tpu_torch.scripts.<module> argv` in cwd,
+    through PIPE_RUNNER (the launch counts at exit)."""
+    counts = os.path.join(cwd, f"{name}_launches.json")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cmd = [sys.executable, "-c", PIPE_RUNNER, counts,
+           f"humanoid_mppi_rl_tpu_torch.scripts.{module}", *argv]
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return {"name": name, "proc": proc, "counts": counts, "t0": time.perf_counter(),
+            "argv": argv}
+
+
+def _pipeline_wait(run: dict) -> dict:
+    """The run's stage lines, launch counts and seconds; raises if it
+    failed or outlived PIPE_TIMEOUT (then it is killed)."""
+    proc = run["proc"]
+    try:
+        out, err = proc.communicate(timeout=PIPE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{run['name']}: no exit in {PIPE_TIMEOUT} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{run['name']}: rc {proc.returncode}\n{err[-4000:]}")
+    with open(run["counts"]) as f:
+        launches = json.load(f)
+    control_steps = launches.pop("control_steps")
+    return {"argv": run["argv"], "seconds": time.perf_counter() - run["t0"],
+            "stages": [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")],
+            "launches": launches, "control_steps": control_steps}
+
+
+def _stage(res: dict, name: str) -> dict:
+    got = [s for s in res["stages"] if s["stage"] == name]
+    if len(got) != 1:
+        raise AssertionError(f"stage {name}: {len(got)} lines in {res['stages']}")
+    return got[0]
+
+
+# the bf16 attention past 64 tokens (query tiles 5..8): vel_pipeline's
+# surrogate (also at its estimator's B, PIPE_EST_K) and the widest row the
+# kernel takes
+VEL_ESTIMATOR = "humanoid_attention, state_dim=57 (F=78, vel_pipeline)"
+WIDE_ESTIMATORS = ((VEL_ESTIMATOR, 57, EST_CHECK_B + (PIPE_EST_K,)),
+                   ("humanoid_attention, state_dim=107 (F=128)", 107, EST_CHECK_B))
+# each instantiation of the bf16 attention past 4 query tiles: (tiles, head width)
+ATTENTION_TILES = tuple((nt, hd) for nt in (5, 6, 7, 8) for hd in (16, 32, 64, 128))
+
+
+def attention_tile_check(nt: int, hd: int, B: int = 29) -> dict:
+    """The bf16 attention kernel alone at `nt` query tiles and head width
+    hd (2 heads, F = 16 nt - 3 tokens: the last tile ragged) against its
+    plain version: bit for bit on exact_stage_cases' attention inputs (all
+    F queries, and the state queries alone), and at the bf16 tolerance on
+    seeded normal q, k, v. Raises on a difference; returns the errors."""
+    from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+
+    F = 16 * nt - 3
+    module = make_model("quadruped_attention", state_dim=F - 12, hidden_dim=2 * hd,
+                        num_heads=2, attn_layers=1)
+    if ek.attention_rows(F, hd) != 16 * nt:
+        raise AssertionError(f"F={F} does not fill {nt} query tiles")
+    cases = exact_stage_cases(module, B=B, seed=1000 * nt + hd)
+    out = {"F": F}
+    for name in ("attention", "attention_state_queries"):
+        _, args, kw = cases[name]
+        got, want = ek.attention_cuda(*args, **kw), ek.attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        if differ or not torch.isfinite(got).all():
+            raise AssertionError(f"attention NT={nt} HD={hd} {name}: kernel and plain differ "
+                                 f"in {differ} of {want.numel()}")
+        out[f"bit_exact/{name}"] = {"differ": differ, "of": want.numel()}
+    gen = torch.Generator(device="cuda").manual_seed(1000 * nt + hd)
+    qkv = torch.randn(B, F, 6 * hd, generator=gen, device="cuda").to(torch.bfloat16)
+    e = bf16_errors(ek.attention_cuda(qkv, 2, hd ** -0.5), ek.attention_plain(qkv, 2, hd ** -0.5))
+    if not e["within"]:
+        raise AssertionError(f"attention NT={nt} HD={hd} on normal inputs: {e}")
+    out["normal_inputs"] = e
+    return out
+
+
+def wide_estimator_checks() -> dict:
+    """Each ATTENTION_TILES instantiation alone (attention_tile_check); the
+    estimator kernel against its plain version on seeded weights of
+    WIDE_ESTIMATORS at the gates of check_estimator (f32 and bf16, at B=64
+    and 61, and vel_pipeline's surrogate at its estimator's B), then each
+    kernel alone bit for bit on exact_stage_cases (B=61). Returns the
+    errors and the surrogate's forward timed at its estimator's B
+    (time_forward)."""
+    from humanoid_mppi_rl_tpu_torch.models.predictors import make_model
+    from humanoid_mppi_rl_tpu_torch.ops import estimator_kernel as ek
+
+    out = {"attention_tiles": {f"NT={nt},HD={hd}": attention_tile_check(nt, hd)
+                               for nt, hd in ATTENTION_TILES}}
+    timed = None
+    for name, state_dim, batches in WIDE_ESTIMATORS:
+        module = seeded_weights(make_model("humanoid_attention", state_dim=state_dim), seed=1)
+        F = module.input_dim
+        x_of = lambda B, seed: torch.tensor(np.random.default_rng(seed).normal(size=(B, F)),
+                                            dtype=torch.float32, device="cuda")
+        out[name] = check_weights(name, module, x_of, batches)
+        if name == VEL_ESTIMATOR:
+            timed = time_forward(module, x_of(PIPE_EST_K, seed=3), name, stages=False)
+        for case, (stage, args, kw) in exact_stage_cases(module, B=EST_CHECK_B[-1],
+                                                         seed=5).items():
+            kernel, plain = ek.STAGES[stage]
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            if differ or not torch.isfinite(got).all():
+                raise AssertionError(f"{name}/{case}: kernel and plain differ in {differ} of "
+                                     f"{want.numel()}")
+            out[name][f"bit_exact/{case}"] = {"differ": differ, "of": want.numel()}
+    return out, timed
+
+
+def pipelines_phase(rows: list) -> dict:
+    """main_pipelines: the estimator kernel past 64 tokens
+    (wide_estimator_checks), then full_pipeline and vel_pipeline through
+    `python -m` at cut depths, the later stages fed through the pipelines'
+    own markers (see the module docstring). Returns both kernels' launches
+    on these paths for the `kernels` line."""
+    from humanoid_mppi_rl_tpu_torch.collect.runner import CHUNK
+
+    t0 = time.perf_counter()
+    wide, vel_forward = wide_estimator_checks()
+    t_wide = time.perf_counter() - t0
+    est_common = ["--epochs", str(PIPE_EPOCHS), "--estimator-steps", str(PIPE_EST_STEPS),
+                  "--estimator-k", str(PIPE_EST_K), "--flash"]
+    with tempfile.TemporaryDirectory() as root:
+        col, full, vel = (os.path.join(root, n) for n in ("full_collect", "full", "vel"))
+        # full_pipeline's collect alone, the later stages marked done; beside
+        # it full_pipeline's and vel_pipeline's train and estimator on the
+        # logged rows, each with its collect marked done: all three at once
+        os.makedirs(col)
+        _mark_done(col, ("train", "estimator"))
+        for out in (full, vel):
+            files = _write_humanoid_runs(os.path.join(out, "data"), rows)
+            _mark_done(out, ("collect",))
+        runs = [_pipeline_start("full_pipeline", [
+                    "--out", col, "--episodes", "1", "--max-steps", str(PIPE_COLLECT_STEPS),
+                    "--retries", "0"], root, "full_collect"),
+                _pipeline_start("full_pipeline", ["--out", full, *est_common], root, "full"),
+                _pipeline_start("vel_pipeline", ["--out", vel, *est_common], root, "vel")]
+        collect, full_run, vel_run = [_pipeline_wait(r) for r in runs]
+        summaries = {}
+        for name, out in (("full_collect", col), ("full", full), ("vel", vel)):
+            with open(os.path.join(out, "summary.json")) as f:
+                summaries[name] = json.load(f)
+            for stage in ("collect", "train", "estimator"):
+                if not os.path.exists(os.path.join(out, f".done_{stage}")):
+                    raise AssertionError(f"{name}: no .done_{stage}")
+            if name == "full_collect":
+                # the logged steps, from the stage's own metrics
+                with open(os.path.join(out, "collect_metrics.jsonl")) as f:
+                    chunks = [e for e in map(json.loads, f) if e["kind"] == "chunk"]
+                logged = sum(c["steps"] for c in chunks)
+                continue
+            states = np.load(os.path.join(out, "estimator_closedloop.npz"))["states"]
+            if states.shape != (PIPE_EST_STEPS, 55) or not np.isfinite(states).all():
+                raise AssertionError(f"{name}_pipeline estimator states {states.shape}")
+    if [s["stage"] for s in collect["stages"]] != ["collect", "done"]:
+        raise AssertionError(f"full_pipeline collect run: {collect['stages']}")
+    # one rollout launch per executed control step, and a chunk runs whole
+    executed = collect["control_steps"]
+    if collect["launches"] != {"rollout": executed, "estimator": 0}:
+        raise AssertionError(f"full_pipeline collect: launches {collect['launches']} for "
+                             f"{executed} executed control steps")
+    if executed != CHUNK * len(chunks) or not 0 < logged <= min(executed, PIPE_COLLECT_STEPS):
+        raise AssertionError(f"full_pipeline collect: {executed} executed control steps in "
+                             f"{len(chunks)} chunks of {CHUNK}, {logged} logged")
+    for name, res, T in (("full", full_run, 50), ("vel", vel_run, 25)):
+        if [s["stage"] for s in res["stages"] if s["stage"] != "done"] != ["train", "estimator"]:
+            raise AssertionError(f"{name}_pipeline: stages {res['stages']}")
+        tr, est = _stage(res, "train"), _stage(res, "estimator")
+        if not (np.isfinite(tr["best_eval_loss"]) and est["finite"]
+                and est["steps"] == PIPE_EST_STEPS and est["K"] == PIPE_EST_K):
+            raise AssertionError(f"{name}_pipeline: {tr} {est}")
+        if res["launches"] != {"rollout": 0, "estimator": est["steps"] * T}:
+            raise AssertionError(f"{name}_pipeline: launches {res['launches']} for "
+                                 f"{est['steps']} replans of {T} forwards")
+    out = {"phase": "main_pipelines", "wide_estimator_checks": wide,
+           "wide_estimator_checks_seconds": t_wide, "collect_rows_copied": files,
+           "full_collect": collect, "full_collect_logged_steps": logged,
+           "full": full_run, "vel": vel_run,
+           "summary_keys": {k: {s: list(v) for s, v in d.items()} for k, d in summaries.items()},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return {"collect_launches": collect["launches"]["rollout"], "collect_steps": executed,
+            "collect_logged_steps": logged,
+            "full_forwards": full_run["launches"]["estimator"],
+            "vel_forwards": vel_run["launches"]["estimator"],
+            "full_replans": _stage(full_run, "estimator")["steps"],
+            "vel_replans": _stage(vel_run, "estimator")["steps"],
+            "vel_forward_B2048": vel_forward}
+
+
+def entry_phase() -> dict:
+    """entry: graft_entry.entry()'s replan (humanoid_collect on make_mppi
+    at K=64, H=16, f32) once on the card: finite, no rollout launch."""
+    from humanoid_mppi_rl_tpu_torch import graft_entry
+    from humanoid_mppi_rl_tpu_torch.ops import rollout_kernel as rk
+
+    t0 = time.perf_counter()
+    fn, (ms, state) = graft_entry.entry()
+    rk.launches = 0
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    action, ms, diag = fn(ms, state)
+    b.record()
+    torch.cuda.synchronize()
+    if tuple(action.shape) != (21,) or not (torch.isfinite(action).all()
+                                            and torch.isfinite(ms.U).all()):
+        raise AssertionError("graft_entry.entry: non-finite replan")
+    if rk.launches:
+        raise AssertionError(f"graft_entry.entry launched the rollout kernel {rk.launches} times")
+    res = {"phase": "entry", "task": "humanoid_collect", "K": 64, "H": 16, "dtype": "float32",
+           "replan_ms_first": a.elapsed_time(b), "beta": float(diag.beta),
+           "rollout_kernel_launches": rk.launches, "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4221,11 +4612,23 @@ def main() -> int:
     lqr_phase()
     sharded = sharded_phase(med)
     coupled = coupled_phase()
+    spatial_phase()
+    pipes = pipelines_phase(collect.pop("rows"))
+    entry = entry_phase()
     est["paths"] = {"estimator replan": {"launches": est["launches"],
                                          "replans": EST_WARMUP + EST_TIMED},
-                    **loop.pop("paths"), **small["estimator"].pop("paths")}
+                    **loop.pop("paths"), **small["estimator"].pop("paths"),
+                    "full_pipeline estimator --flash (python -m)": {
+                        "launches": pipes["full_forwards"], "replans": pipes["full_replans"]},
+                    "vel_pipeline estimator --flash (python -m)": {
+                        "launches": pipes["vel_forwards"], "replans": pipes["vel_replans"]}}
     est["trained_weights"] = loop
     est.update(small["estimator"])
+    vel = pipes["vel_forward_B2048"]
+    est["vel_pipeline_F78_B2048"] = {"ms": vel["kernel_ms"], "plain_ms": vel["plain_ms"],
+                                     "bound_ms": vel["bound_ms"], "bound_by": vel["bound_by"],
+                                     "library_ms": vel["library_ms"],
+                                     "max_abs_err": vel["max_abs_err"]}
 
     emit({"kernels": [{
         "name": "rollout",
@@ -4249,7 +4652,13 @@ def main() -> int:
                       "launches": sharded["launches"], "replans": sharded["replans"]},
                   "coupled planners (hopper K=4096 H=50, cartpole K=30 T=100)": {
                       "launches": coupled["rollout_kernel_launches"],
-                      "replans": coupled["card_replans"]}},
+                      "replans": coupled["card_replans"]},
+                  "full_pipeline collect (python -m)": {
+                      "launches": pipes["collect_launches"],
+                      "control_steps": pipes["collect_steps"],
+                      "logged_steps": pipes["collect_logged_steps"]},
+                  "graft_entry.entry replan (array planner)": {
+                      "launches": entry["rollout_kernel_launches"], "replans": 1}},
         **humanoid,
         "collect_control_step_ms": collect["collect_control_step_ms"],
         "go1": go1,

@@ -517,12 +517,16 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 // shared row of a padded tile: HD + 8 bf16, so the 8 rows x 4 words of a
 // fragment load fall in 32 distinct banks
 __host__ __device__ constexpr int attn_ld(int hd) { return hd + 8; }
-// threads a block may have: the wider the head, the more registers a warp
-// holds (scores 8 NT and outputs HD / 2 per thread)
-__host__ __device__ constexpr int attn_threads(int hd) { return hd <= 16 ? 1024 : hd <= 64 ? 512 : 256; }
+// threads a block may have: the more query tiles and the wider the head,
+// the more registers a warp holds (scores 8 NT and outputs HD / 2 per
+// thread). Up to 4 tiles by the head width alone; past 4, 512 threads while
+// those live values stay within 72 registers, else 256 (255 registers each)
+__host__ __device__ constexpr int attn_threads(int nt, int hd) {
+  return nt <= 4 ? (hd <= 16 ? 1024 : hd <= 64 ? 512 : 256) : 8 * nt + hd / 2 <= 72 ? 512 : 256;
+}
 
 template <int NT, int HD>
-__global__ void __launch_bounds__(attn_threads(HD))
+__global__ void __launch_bounds__(attn_threads(NT, HD))
 attention_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int B,
                                       int F, int Fq, int H, int nh, float scale) {
   const int hd = H / nh;
@@ -761,11 +765,12 @@ template <int NT, int HD>
 int attention_bf16(const bf16* qkv, bf16* out, int B, int F, int Fq, int H, int nh, float scale,
                    cudaStream_t st) {
   // pairs per block: enough that a block moves >= 64 KB of q, k, v, within
-  // attn_threads(HD) threads and ~110 KB of shared memory (two blocks per SM)
+  // attn_threads(NT, HD) threads and ~110 KB of shared memory (two blocks
+  // per SM at up to 4 tiles)
   const int pair_bytes = 3 * F * (H / nh) * 2;
   const int pair_smem = 3 * 16 * NT * attn_ld(HD) * 2;
   int per = (65536 + pair_bytes - 1) / pair_bytes;
-  per = min(per, attn_threads(HD) / (32 * NT));
+  per = min(per, attn_threads(NT, HD) / (32 * NT));
   per = min(per, max(1, 110 * 1024 / pair_smem));
   per = max(1, min(per, B * nh));
   const int smem = per * pair_smem;
@@ -789,7 +794,8 @@ int attention_bf16_hd(const bf16* qkv, bf16* out, int B, int F, int Fq, int H, i
   return attention_bf16<NT, 128>(qkv, out, B, F, Fq, H, nh, scale, st);
 }
 
-// bf16 attention takes F <= 64 tokens and head widths that are multiples
+// bf16 attention takes F <= 128 tokens (8 query tiles; the velocity-
+// supervised humanoid surrogate has 78) and head widths that are multiples
 // of 8 up to 128 (padded to 16, 32, 64 or 128)
 int launch_attention(const bf16* qkv, bf16* out, int B, int F, int Fq, int H, int nh, float scale,
                      cudaStream_t st) {
@@ -798,6 +804,10 @@ int launch_attention(const bf16* qkv, bf16* out, int B, int F, int Fq, int H, in
     case 2: return attention_bf16_hd<2>(qkv, out, B, F, Fq, H, nh, scale, st);
     case 3: return attention_bf16_hd<3>(qkv, out, B, F, Fq, H, nh, scale, st);
     case 4: return attention_bf16_hd<4>(qkv, out, B, F, Fq, H, nh, scale, st);
+    case 5: return attention_bf16_hd<5>(qkv, out, B, F, Fq, H, nh, scale, st);
+    case 6: return attention_bf16_hd<6>(qkv, out, B, F, Fq, H, nh, scale, st);
+    case 7: return attention_bf16_hd<7>(qkv, out, B, F, Fq, H, nh, scale, st);
+    case 8: return attention_bf16_hd<8>(qkv, out, B, F, Fq, H, nh, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -147,11 +147,12 @@ def forward_plain(w: list, x: torch.Tensor, num_heads: int, state_dim: int,
 def attention_rows(F: int, head_dim: int) -> int:
     """Token rows of one (sample, head) in the bf16 attention kernel: F
     padded to a multiple of 16 (the tensor-core tile). That kernel holds a
-    query tile's scores in registers, so it takes F <= 64 (every preset
-    has F <= 51) and head widths that are multiples of 8 up to 128 (padded
-    with zeros to 16, 32, 64 or 128); raises otherwise."""
-    if not 1 <= F <= 64 or head_dim % 8 or not 8 <= head_dim <= 128:
-        raise ValueError(f"bf16 attention kernel takes 1 <= F <= 64 tokens and a head width "
+    query tile's scores in registers, so it takes F <= 128 (every preset
+    has F <= 51; the velocity-supervised humanoid surrogate, state_dim 57,
+    has 78) and head widths that are multiples of 8 up to 128 (padded with
+    zeros to 16, 32, 64 or 128); raises otherwise."""
+    if not 1 <= F <= 128 or head_dim % 8 or not 8 <= head_dim <= 128:
+        raise ValueError(f"bf16 attention kernel takes 1 <= F <= 128 tokens and a head width "
                          f"that is a multiple of 8 up to 128; got F={F}, head width {head_dim}")
     return 16 * -(-F // 16)
 

@@ -212,10 +212,14 @@ def _solimp_power_ok(solimp) -> bool:
 
 def check_kernel_supported(model: PhysicsModel) -> None:
     """Refuse what the kernel (and the plain step) does not cover: the JAX
-    kernel's refusals (spatial tendons -- which no port model carries -- and
-    a mesh in a pair without a plane), the features named by
+    kernel's refusals (spatial tendons, whose length and moment depend on
+    the state, and a mesh in a pair without a plane), the features named by
     scalar_physics.unsupported_features, and the kernel's fixed
     capacities."""
+    if model.spatial_tendons:
+        raise NotImplementedError(
+            "spatial (site-chain) tendons are array-engine-only (state-dependent "
+            "length/moment, engine.spatial_tendon_geometry)")
     bad = sph.unsupported_features(model)
     for p in model.contact_pairs:
         g1, g2 = model.geoms[p.geom1], model.geoms[p.geom2]

@@ -25,17 +25,21 @@ and contact forces with their implicit damping folded into the Euler
 matrix, no a0 compensation, no coupling between rows. `inverse_dynamics`
 reads the same laws inversely (JAX r_form: the force that realises a
 given acceleration), for solver/lqr with `actuator_moment` and the CoM
-jacobians.
+jacobians. Spatial (site-chain) tendons have a length and a moment row
+that depend on the state (`spatial_tendon_geometry`); they reach the
+transmissions, both limit tiers and `inverse_dynamics`, while coupled_pgs
+refuses their limits, as in the JAX engine.
 
 An `Engine` holds every constant of one model on one device in one dtype,
 built once. A step copies nothing from the host and reads nothing back: the
 only decisions on the host are the static ones the JAX engine also takes on
 numpy model fields. Covered: free, ball, slide and hinge joints; joint,
-multi-dof (ball/free motor), fixed-tendon and site actuator transmissions;
-damping, joint and ball-joint quaternion springs, frictionloss; joint,
-ball rotation-angle and fixed-tendon limits; plane-vs-sphere/capsule/box/
-cylinder/mesh, mesh-vs-sphere/capsule/box/mesh and sphere/capsule/cylinder
-self contacts -- every robot of the JAX registry. As in the JAX engine, the coupled tier enforces no ball
+multi-dof (ball/free motor), fixed- and spatial-tendon and site actuator
+transmissions; damping, joint and ball-joint quaternion springs,
+frictionloss; joint, ball rotation-angle, fixed- and spatial-tendon
+limits; plane-vs-sphere/capsule/box/cylinder/mesh,
+mesh-vs-sphere/capsule/box/mesh and sphere/capsule/cylinder self contacts
+-- every robot of the JAX registry. As in the JAX engine, the coupled tier enforces no ball
 limit (no Newton row), and the penalty tier adds limits only when a
 single-dof joint or a tendon is limited. A model with anything else
 raises NotImplementedError.
@@ -103,6 +107,10 @@ class Engine:
         self.armature = t(model.dof_armature)
         self.damping = t(model.dof_damping)
         self._build_fk(model)
+        # per spatial tendon: its sites' body ids, body-local positions and
+        # the ancestor rows of those bodies
+        self.spatial = [(ix(bodies), t(lpos), t(model.ancestor_mask[list(bodies)]))
+                        for _, bodies, lpos in model.spatial_tendons]
         self.has_dynamics = model.pred_mask is not None
         if self.has_dynamics:
             self._build_dynamics(model)
@@ -205,11 +213,15 @@ class Engine:
         self.has_limits = bool(any(j.limited for j in hs) or np.any(model.tendon_limited))
         has_fl = bool(np.any(np.asarray(model.dof_frictionloss) > 0))
         self.newton_mode = bool(model.contact_pairs) or self.has_limits or has_fl
+        self.lim_sp = None
         if self.has_limits:
             self._build_limits(model, hs)
         self.contact = (contact.ContactTables(model, self.device, self.dtype)
                         if model.contact_pairs else None)
-        self.rows = newton.RowTables(model, self.contact, self.device, self.dtype)
+        self.rows = newton.RowTables(
+            model, self.contact, self.device, self.dtype,
+            spatial=None if self.lim_sp is None
+            else (functools.partial(spatial_tendon_geometry, self), self.lim_sp))
 
     @functools.cached_property
     def pgs(self) -> pgs.PGSTables:
@@ -221,8 +233,11 @@ class Engine:
         joint's (JAX _actuator_forces' loop): (kind, actuator, tensors)."""
         t = self.t
         self.trn = []
+        spatial = model.spatial_tendon_ids
         for i, a in enumerate(model.actuators):
-            if a.site_bodyid >= 0:
+            if a.tendon_id in spatial:
+                self.trn.append(("spatial", i, dict(idx=spatial.index(a.tendon_id))))
+            elif a.site_bodyid >= 0:
                 g = t(a.gear6)
                 self.trn.append(("site", i, dict(
                     body=a.site_bodyid, pos=t(a.site_pos), R=sp.quat_to_mat(t(a.site_quat)),
@@ -233,8 +248,10 @@ class Engine:
                 self.trn.append(("multi", i, dict(gv=t(a.gear6[:a.ndof]))))
 
     def _build_limits(self, model: PhysicsModel, hs) -> None:
-        """The penalty tier's joint- and fixed-tendon-limit constants
-        (JAX _limit_constraint_forces reads them from the model)."""
+        """The penalty tier's joint- and tendon-limit constants (JAX
+        _limit_constraint_forces reads them from the model). Spatial
+        tendons are masked out of the fixed tendons' rows (their coef row is
+        zero) and have rows of their own."""
         t = self.t
         self.lim_hs = dict(lo=t([j.range[0] for j in hs]), hi=t([j.range[1] for j in hs]),
                            lim=t([float(j.limited) for j in hs]),
@@ -246,11 +263,22 @@ class Engine:
         if nt:
             self.lim_ten = dict(coef=t(model.tendon_coef), lo=t(model.tendon_range[:, 0]),
                                 hi=t(model.tendon_range[:, 1]),
-                                lim=t(np.asarray(model.tendon_limited, dtype=np.float64)),
+                                lim=t(model.fixed_tendon_limited),
                                 meff=t(model.tendon_limit_meff),
                                 **_solref_tables(model.tendon_limit_solref,
                                                  model.tendon_limit_solimp,
                                                  self.device, self.dtype))
+        # the spatial tendons' rows, here and in the coupled tiers' row tables
+        # (newton.RowTables): invw is their regularizer's meff
+        sids = model.spatial_tendon_ids
+        if np.any(model.tendon_limited[sids]):
+            self.lim_sp = dict(lo=t(model.tendon_range[sids, 0]), hi=t(model.tendon_range[sids, 1]),
+                               lim=t(np.asarray(model.tendon_limited[sids], dtype=np.float64)),
+                               meff=t(model.tendon_limit_meff[sids]),
+                               invw=t(np.maximum(model.tendon_invweight0[sids], 1e-12)),
+                               **_solref_tables(model.tendon_limit_solref[sids],
+                                                model.tendon_limit_solimp[sids],
+                                                self.device, self.dtype))
         self.lim_ball = [(d, q, float(ang), dict(
             lim=t(1.0), meff=t(meff), **_solref_tables([sr], [si], self.device, self.dtype)))
             for d, q, ang, sr, si, meff in model.ball_limits]
@@ -345,7 +373,7 @@ class Engine:
         Mh = M + h * torch.diag(self.damping) + h * G_p
         f = tau - bias
         if self.has_limits:
-            tau_l, G_l = limit_constraint_forces(self, qpos, qvel)
+            tau_l, G_l = limit_constraint_forces(self, qpos, qvel, state=state)
             f = f + tau_l
             Mh = Mh + h * G_l
         if self.contact is not None:
@@ -470,11 +498,41 @@ def project_forces(eng: Engine, S: torch.Tensor, F_body: torch.Tensor) -> torch.
     return torch.einsum("bn,...bi,...ni->...n", eng.A, F_body, S)
 
 
+def spatial_tendon_geometry(eng: Engine, state: PhysicsState):
+    """(L (..., nst), moment (..., nst, nv)) of the straight site-chain
+    tendons (JAX spatial_tendon_geometry; mj_tendon's site wraps without
+    geom wraps): L is the sum of the segments' lengths, the moment dL/dqvel
+    the sum over segments of the unit segment direction dotted into the
+    difference of its end points' jacobians. One sample or a leading K
+    axis; the sites of a tendon are placed together, the segments are
+    summed in order."""
+    S_ang, S_lin = state.S[..., :, None, :3], state.S[..., :, None, 3:]   # (..., nv, 1, 3)
+    Ls, Ms = [], []
+    for bodies, lpos, anc in eng.spatial:
+        R_b = sp.quat_to_mat(state.xquat[..., bodies, :])
+        pts = state.xpos[..., bodies, :] + (R_b @ lpos[..., None])[..., 0]   # (..., n, 3)
+        # the point jacobians, (..., nv, n, 3), each on its body's chain
+        Jp = (S_lin + sp.cross(S_ang, pts[..., None, :, :])) * anc.T[:, :, None]
+        L = torch.zeros(pts.shape[:-2], dtype=pts.dtype, device=pts.device)
+        mom = torch.zeros(state.qvel.shape, dtype=pts.dtype, device=pts.device)
+        for i in range(pts.shape[-2] - 1):
+            d = pts[..., i + 1, :] - pts[..., i, :]
+            ln = torch.sqrt(torch.sum(d * d, -1) + 1e-24)
+            dh = d / ln[..., None]
+            L = L + ln
+            mom = mom + torch.sum(Jp[..., i + 1, :] * dh[..., None, :], -1)
+            mom = mom - torch.sum(Jp[..., i, :] * dh[..., None, :], -1)
+        Ls.append(L)
+        Ms.append(mom)
+    return torch.stack(Ls, -1), torch.stack(Ms, -2)
+
+
 def actuator_forces(eng: Engine, qpos, qvel, ctrl, state=None) -> torch.Tensor:
     """qfrc_actuator (..., nv): the single-dof joint actuators at once
     (mujoco gain/bias), then each other transmission in actuator order
     (JAX _actuator_forces): a ball/free motor's gear vector, a fixed
-    tendon's coefficients, a site's wrench (needs `state`'s kinematics)."""
+    tendon's coefficients, a spatial tendon's length and moment row or a
+    site's wrench (these two need `state`'s kinematics)."""
     qfrc = torch.zeros(qpos.shape[:-1] + (eng.model.nv,), dtype=qpos.dtype, device=qpos.device)
     if eng.model.nu == 0:
         return qfrc
@@ -488,6 +546,7 @@ def actuator_forces(eng: Engine, qpos, qvel, ctrl, state=None) -> torch.Tensor:
         force = (eng.act_gain * u + bias[:, 0] + bias[:, 1] * length + bias[:, 2] * velocity)
         force = torch.clamp(force, eng.act_force_lo, eng.act_force_hi)
         qfrc = qfrc.index_add(-1, eng.act_dofadr, gear * force)
+    geometry = None
     for kind, i, c in eng.trn:
         act = eng.model.actuators[i]
         u = ctrl[..., i]
@@ -501,6 +560,16 @@ def actuator_forces(eng: Engine, qpos, qvel, ctrl, state=None) -> torch.Tensor:
             vel = torch.sum(moment * qvel, -1)
             force = float(act.gain) * u + b0 + b2 * vel
             moment_ = moment
+        elif kind == "spatial":
+            if state is None:
+                raise ValueError("spatial-tendon actuators need state kinematics")
+            if geometry is None:
+                geometry = spatial_tendon_geometry(eng, state)
+            gear = float(act.gear)
+            moment_ = gear * geometry[1][..., c["idx"], :]
+            length = gear * geometry[0][..., c["idx"]]
+            vel = torch.sum(moment_ * qvel, -1)
+            force = float(act.gain) * u + b0 + b1 * length + b2 * vel
         elif kind == "tendon":
             qd = torch.zeros_like(qvel).index_copy(-1, eng.hs_dofadr, qpos[..., eng.hs_qposadr])
             gear = float(act.gear)
@@ -574,13 +643,16 @@ def _limit_force(tab: dict, viol, pos_dot, h: float, a0_pos=None, r_form: bool =
     return f_c, me * d_r * tab["b_ref"] * active
 
 
-def limit_constraint_forces(eng: Engine, qpos, qvel, qacc=None, r_form: bool = False):
-    """Joint-limit, fixed-tendon-limit and ball rotation-angle-limit forces
+def limit_constraint_forces(eng: Engine, qpos, qvel, qacc=None, r_form: bool = False,
+                            state: Optional[PhysicsState] = None):
+    """Joint-limit, tendon-limit and ball rotation-angle-limit forces
     (JAX _limit_constraint_forces): the penalty tier's forward reading with
     qacc0 = 0 and the restitution cap, or with r_form=True the inverse
     reading at the realised acceleration `qacc` (None: zero). Returns (tau
     (..., nv), G (..., nv, nv)) with G = diag(c) over the joints plus
-    sum_t c_t coef_t coef_t^T over the tendons."""
+    sum_t c_t coef_t coef_t^T over the fixed tendons, then the same over
+    the spatial tendons with their moment rows (these need `state`'s
+    kinematics)."""
     tau = torch.zeros_like(qvel)
     g_diag = torch.zeros_like(qvel)
     G_extra = None
@@ -609,6 +681,21 @@ def limit_constraint_forces(eng: Engine, qpos, qvel, qacc=None, r_form: bool = F
         f_c, c_t = _limit_force(tab, below + above, s * Ldot, eng.h, a0, r_form)
         tau = tau + (s * f_c) @ coef
         G_extra = torch.einsum("...t,tn,tm->...nm", c_t, coef, coef)
+    if eng.spatial and state is None:
+        raise ValueError("spatial-tendon limits need state kinematics")
+    if eng.lim_sp is not None:
+        # the same law over the state-dependent length, the moment row as J
+        tab = eng.lim_sp
+        L_sp, M_sp = spatial_tendon_geometry(eng, state)
+        Ldot = newton.mv(M_sp, qvel)
+        below = torch.clamp(tab["lo"] - L_sp, min=0.0)
+        above = torch.clamp(L_sp - tab["hi"], min=0.0)
+        s = torch.sign(below - above)
+        a0 = None if qacc is None else s * newton.mv(M_sp, qacc)
+        f_c, c_t = _limit_force(tab, below + above, s * Ldot, eng.h, a0, r_form)
+        tau = tau + newton.mv(M_sp.mT, s * f_c)
+        G_sp = torch.einsum("...t,...tn,...tm->...nm", c_t, M_sp, M_sp)
+        G_extra = G_sp if G_extra is None else G_extra + G_sp
     # ball rotation-angle limits: a row J = -axis over the ball's dofs
     for d, qa, max_angle, tab in eng.lim_ball:
         rotvec = sp.quat_log(qpos[..., qa:qa + 4])
@@ -669,7 +756,8 @@ def inverse_dynamics(eng: Engine, state: PhysicsState,
         bias = bias_forces(eng, S, I, state.body_vel, qvel)
         tau, _ = passive_forces(eng, qpos, qvel, frictionloss=True)
         if eng.has_limits:
-            tau = tau + limit_constraint_forces(eng, qpos, qvel, qacc, r_form=True)[0]
+            tau = tau + limit_constraint_forces(eng, qpos, qvel, qacc, r_form=True,
+                                                state=state)[0]
         if eng.contact is not None:
             tau = tau + contact.contact_terms(eng.contact, state, S, eng.h, qacc=qacc,
                                               r_form=True)[0]
@@ -682,20 +770,27 @@ def inverse_dynamics(eng: Engine, state: PhysicsState,
 def actuator_moment(eng: Engine, state: Optional[PhysicsState] = None) -> torch.Tensor:
     """(nu, nv) transmission moment, qfrc_actuator = moment^T force (JAX
     actuator_moment, mujoco actuator_moment). Joint, multi-dof and
-    fixed-tendon rows are constant; a site's row depends on the state's
-    kinematics (the world wrench turns with the site's body), so a model
-    with a site actuator needs `state`. Spatial tendons never reach here:
-    the snapshot export refuses them (ROADMAP A7)."""
+    fixed-tendon rows are constant; a site's row and a spatial tendon's
+    depend on the state's kinematics (the world wrench turns with the
+    site's body, the tendon's segments with theirs), so a model with such
+    an actuator needs `state`."""
     m = eng.model
     M = np.zeros((m.nu, m.nv))
-    site_rows = []
+    state_rows = []
+    spatial = {i: c["idx"] for kind, i, c in eng.trn if kind == "spatial"}
     for i, a in enumerate(m.actuators):
-        if a.site_bodyid >= 0:
+        if i in spatial:
+            if state is None:
+                raise NotImplementedError(
+                    "spatial-tendon moments are state-dependent; pass state kinematics "
+                    "(actuator_moment(eng, state))")
+            state_rows.append(i)
+        elif a.site_bodyid >= 0:
             if state is None:
                 raise NotImplementedError(
                     "site-transmission moments are state-dependent; pass the state's "
                     "kinematics (actuator_moment(eng, state))")
-            site_rows.append(i)
+            state_rows.append(i)
         elif a.tendon_id >= 0:
             M[i] = a.gear * m.tendon_coef[a.tendon_id]
         elif a.ndof > 1:
@@ -703,11 +798,14 @@ def actuator_moment(eng: Engine, state: Optional[PhysicsState] = None) -> torch.
         else:
             M[i, a.dofadr] = a.gear
     out = eng.t(M)
-    if not site_rows:
+    if not state_rows:
         return out
     rows = {i: c for kind, i, c in eng.trn if kind == "site"}
-    for i in site_rows:
-        out = torch.cat([out[:i], _site_moment(rows[i], state)[None], out[i + 1:]], 0)
+    M_sp = spatial_tendon_geometry(eng, state)[1] if spatial else None
+    for i in state_rows:
+        row = (float(m.actuators[i].gear) * M_sp[spatial[i]] if i in spatial
+               else _site_moment(rows[i], state))
+        out = torch.cat([out[:i], row[None], out[i + 1:]], 0)
     return out
 
 

@@ -18,9 +18,10 @@ hinge (Joint.jtype); the array engine derives its per-dof type masks (JAX
 dof_type_*) from them. Ball joints carry their quaternion springs and
 rotation-angle limits (`ball_springs`, `ball_limits`, the JAX tuples);
 actuators their multi-dof, fixed-tendon and site transmissions; mesh geoms
-their vertices and convex-hull planes (ragged lists in the snapshot).
-Spatial tendons, which the port does not cover, are refused by the export
-rather than dropped.
+their vertices and convex-hull planes (ragged lists in the snapshot);
+spatial (site-chain) tendons their site bodies and body-local site
+positions (ragged lists too, exported only by a model that has them, so
+every other snapshot reads as before).
 """
 
 from __future__ import annotations
@@ -178,9 +179,28 @@ class PhysicsModel:
     ball_springs: Tuple = ()
     ball_limits: Tuple = ()
     joint_names: Tuple[str, ...] = ()         # one per joint (LQR picks dofs by name)
+    # spatial (site-chain) tendons: (tendon id, the sites' body ids, the
+    # sites' body-local positions (nsite, 3)); their tendon_coef rows are
+    # zero and their length and moment depend on the state
+    spatial_tendons: Tuple = ()
+    tendon_is_spatial: np.ndarray = None      # (ntendon,) bool; None: no spatial tendon
 
     def body_id(self, name: str) -> int:
         return self.body_names.index(name)
+
+    @property
+    def spatial_tendon_ids(self) -> list:
+        """The tendon ids of the spatial tendons, in their order."""
+        return [tid for tid, _, _ in self.spatial_tendons]
+
+    @property
+    def fixed_tendon_limited(self) -> np.ndarray:
+        """tendon_limited as floats with the spatial tendons masked out:
+        their coef row is zero, so a fixed-tendon limit row of theirs would
+        be a second, wrong limit row (their own rows follow the fixed ones)."""
+        lim = np.asarray(self.tendon_limited, dtype=np.float64).copy()
+        lim[self.spatial_tendon_ids] = 0.0
+        return lim
 
     def ctrl_range(self) -> Tuple[np.ndarray, np.ndarray]:
         """Per-actuator control bounds (-inf/inf where not ctrllimited)."""
@@ -226,14 +246,9 @@ _BALL_LIMIT = (("dofadr", 0, True), ("qposadr", 0, True), ("max_angle", 0, False
                ("solref", 2, False), ("solimp", 5, False), ("meff", 0, False))
 # the site frame of an actuator without a site, as exported
 _ACT_ABSENT = {"site_pos": np.zeros(3), "site_quat": np.zeros(4)}
-
-
-def _refuse_unsupported(m) -> None:
-    """Features a PhysicsModel of the JAX package may hold that this port
-    cannot represent: spatial (site-chain) tendons, array-engine-only in
-    the reference too."""
-    if getattr(m, "spatial_tendons", ()):
-        raise NotImplementedError("the port cannot carry: spatial tendons")
+# the spatial tendons, one entry per tendon: its id, and ragged lists of
+# its sites' body ids and body-local positions
+_SPATIAL = ("spatial_tendon_id", "spatial_tendon_bodies", "spatial_tendon_lpos")
 
 
 def _act_field(a, f):
@@ -264,7 +279,6 @@ def export_model_arrays(m, plant: bool = False) -> Dict[str, object]:
     """Flatten a PhysicsModel (duck-typed: attributes are read, nothing is
     imported) into a dict of numpy arrays, ints, floats and name lists.
     plant=True adds the fields of the array engine (_PLANT_*)."""
-    _refuse_unsupported(m)
     d: Dict[str, object] = {k: (int(getattr(m, k)) if k != "timestep"
                                 else float(m.timestep)) for k in _MODEL_SCALARS}
     arrays = _MODEL_ARRAYS + (_PLANT_ARRAYS if plant else ())
@@ -289,6 +303,12 @@ def export_model_arrays(m, plant: bool = False) -> Dict[str, object]:
                           for g in m.geoms]
     d.update(_tuples_to_arrays(getattr(m, "ball_springs", ()), _BALL_SPRING, "ball_spring_"))
     d.update(_tuples_to_arrays(getattr(m, "ball_limits", ()), _BALL_LIMIT, "ball_limit_"))
+    spatial = getattr(m, "spatial_tendons", ())
+    if spatial:
+        d["tendon_is_spatial"] = np.asarray(m.tendon_is_spatial, dtype=bool)
+        d["spatial_tendon_id"] = np.asarray([tid for tid, _, _ in spatial], dtype=np.int64)
+        d["spatial_tendon_bodies"] = [[int(b) for b in bodies] for _, bodies, _ in spatial]
+        d["spatial_tendon_lpos"] = [np.asarray(lpos, dtype=np.float64) for _, _, lpos in spatial]
     return d
 
 
@@ -296,7 +316,7 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
     """Inverse of export_model_arrays (also accepts the JSON snapshot's
     nested lists)."""
     scalars = _MODEL_SCALARS + _PLANT_SCALARS
-    ragged = tuple("geom_" + f for f in _GEOM_RAGGED)
+    ragged = tuple("geom_" + f for f in _GEOM_RAGGED) + _SPATIAL[1:]
     a = {k: np.asarray(v) for k, v in d.items()
          if k not in scalars and k not in ("body_names", "joint_names", "key_names") + ragged}
     plant = "pred_mask" in d
@@ -340,6 +360,12 @@ def model_from_arrays(d: Dict[str, object]) -> PhysicsModel:
         extra["dof_solref"] = extra["dof_solref"].reshape(nv, 2)
         extra["dof_solimp"] = extra["dof_solimp"].reshape(nv, 5)
         extra["cone"], extra["impratio"] = int(d["cone"]), float(d["impratio"])
+    if "spatial_tendon_id" in d:
+        extra["tendon_is_spatial"] = a["tendon_is_spatial"].reshape(ntendon).astype(bool)
+        extra["spatial_tendons"] = tuple(
+            (int(tid), tuple(int(b) for b in bodies), np.asarray(lpos, dtype=np.float64).reshape(-1, 3))
+            for tid, bodies, lpos in zip(a["spatial_tendon_id"].reshape(-1),
+                                         d["spatial_tendon_bodies"], d["spatial_tendon_lpos"]))
     return PhysicsModel(
         nq=int(d["nq"]), nv=nv, nu=int(d["nu"]), nbody=nbody,
         timestep=float(d["timestep"]),

@@ -60,9 +60,13 @@ class _Rows(NamedTuple):
 
 class RowTables:
     """The static half of build_rows for one model on the device: the row
-    classes' index sets and the limit and friction rows' constants."""
+    classes' index sets and the limit and friction rows' constants.
+    `spatial`, for a model with a limited spatial tendon, is (geometry,
+    table): geometry(state) -> (L, moment) (engine.spatial_tendon_geometry)
+    and the engine's limit constants of those tendons (Engine.lim_sp)."""
 
-    def __init__(self, model: PhysicsModel, ct: Optional[ContactTables], device, dtype):
+    def __init__(self, model: PhysicsModel, ct: Optional[ContactTables], device, dtype,
+                 spatial: Optional[tuple] = None):
         t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
         ix = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
         nv = model.nv
@@ -106,11 +110,12 @@ class RowTables:
         if self.tendons:
             self.ten_coef = t(model.tendon_coef)
             self.ten_lo, self.ten_hi = t(model.tendon_range[:, 0]), t(model.tendon_range[:, 1])
-            self.ten_lim = t(np.asarray(model.tendon_limited, dtype=np.float64))
+            self.ten_lim = t(model.fixed_tendon_limited)
             kb, br = solref_kb(model.tendon_limit_solref, model.tendon_limit_solimp)
             self.ten_kb, self.ten_br = t(kb), t(br)
             self.ten_imp = Impedance(model.tendon_limit_solimp, device, dtype)
             self.ten_invw = t(np.maximum(model.tendon_invweight0, 1e-12))
+        self.spatial = spatial
         fl_dofs = np.nonzero(np.asarray(model.dof_frictionloss) > 0)[0]
         self.n_fl = int(fl_dofs.size)
         if self.n_fl:
@@ -173,8 +178,8 @@ def pyramid_rows(rows, fr, sgn: torch.Tensor, base: torch.Tensor):
 
 
 class _Limit(NamedTuple):
-    """One class of limit rows (the hinge/slide joints' or the tendons'):
-    what both solvers read of it."""
+    """One class of limit rows (the hinge/slide joints', the fixed
+    tendons' or the spatial tendons'): what both solvers read of it."""
     J: torch.Tensor          # (..., n, nv) = s E
     viol: torch.Tensor       # (..., n) distance past the range
     s_rate: torch.Tensor     # (..., n) s times the coordinate's rate
@@ -194,9 +199,12 @@ def _limit(x, rate, lo, hi, E, lim, kb, br, imp, invw) -> _Limit:
                   kb, br, imp, invw)
 
 
-def limit_rows(rt: RowTables, qpos: torch.Tensor, qvel: torch.Tensor) -> list:
-    """The joint-limit rows, then the tendon-limit rows, of the classes the
-    model has; each solver forms aref and the regularizer from them."""
+def limit_rows(rt: RowTables, state) -> list:
+    """The joint-limit rows, then the fixed-tendon-limit rows, then the
+    spatial-tendon-limit rows (J = s times the state's moment row), of the
+    classes the model has; each solver forms aref and the regularizer from
+    them."""
+    qpos, qvel = state.qpos, state.qvel
     out = []
     if rt.limits:
         out.append(_limit(qpos[..., rt.hs_qposadr], qvel[..., rt.hs_dofadr], rt.hs_lo, rt.hs_hi,
@@ -207,6 +215,11 @@ def limit_rows(rt: RowTables, qpos: torch.Tensor, qvel: torch.Tensor) -> list:
         qd[..., rt.hs_dofadr] = qpos[..., rt.hs_qposadr]
         out.append(_limit(mv(coef, qd), mv(coef, qvel), rt.ten_lo, rt.ten_hi, coef, rt.ten_lim,
                           rt.ten_kb, rt.ten_br, rt.ten_imp, rt.ten_invw))
+    if rt.spatial is not None:
+        geometry, sp = rt.spatial
+        L_sp, M_sp = geometry(state)
+        out.append(_limit(L_sp, mv(M_sp, qvel), sp["lo"], sp["hi"], M_sp, sp["lim"],
+                          sp["k_base"], sp["b_ref"], sp["imp"], sp["invw"]))
     return out
 
 
@@ -286,7 +299,7 @@ def build_rows(rt: RowTables, state, S: torch.Tensor) -> _Rows:
                 Rs_i.append(R_pyr.repeat_interleave(4, -1))
                 act_i.append(rows["active"][..., fr].repeat_interleave(4, -1))
 
-    for lim in limit_rows(rt, qpos, qvel):
+    for lim in limit_rows(rt, state):
         d_l = torch.clamp(lim.imp(lim.viol), _MINIMP, _MAXIMP)
         Js_i.append(lim.J)
         arefs_i.append(d_l * lim.kb * lim.viol - lim.br * lim.s_rate)

@@ -35,6 +35,12 @@ class PGSTables:
     frictionless and pyramid index sets and every row's pyramid slot."""
 
     def __init__(self, eng):
+        m = eng.model
+        if np.any(m.tendon_limited[m.spatial_tendon_ids]):
+            # JAX keeps this legacy tier for triage only
+            raise NotImplementedError(
+                "spatial-tendon limits unsupported in the coupled_pgs tier (use the default "
+                "coupled/newton or penalty tier)")
         ct, rt = eng.contact, eng.rows
         ix = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=eng.device)
         slots = []
@@ -75,8 +81,7 @@ def pgs_constraint_forces(eng, state, S, L0: torch.Tensor, qacc0: torch.Tensor,
     """tau (..., nv) = J^T f for the coupled_pgs rows of `state`, given
     M's lower Cholesky factor L0 and the smooth acceleration qacc0."""
     pt, rt = eng.pgs, eng.rows
-    qpos, qvel = state.qpos, state.qvel
-    lead, h = qpos.shape[:-1], eng.h
+    lead, h = state.qpos.shape[:-1], eng.h
     if pt.n_rows == 0:
         return torch.zeros_like(qacc0)
     cap = lambda aref, v: torch.minimum(aref, torch.clamp((RESTITUTION_VCAP - v) / h, min=0.0))
@@ -104,7 +109,7 @@ def pgs_constraint_forces(eng, state, S, L0: torch.Tensor, qacc0: torch.Tensor,
             # the pyramid facet's diagApprox: invw0 2 mu^2 (1 + mu^2)
             d = rep(rows["invw"] * 2.0 * mu1 * mu1 * (1.0 + mu1 * mu1))
             dapx.append(d.expand(lead + d.shape[-1:]))
-    for lim in limit_rows(rt, qpos, qvel):
+    for lim in limit_rows(rt, state):
         d_l = lim.imp(lim.viol)
         Js.append(lim.J)
         arefs.append(d_l * lim.kb * lim.viol - lim.br * lim.s_rate)

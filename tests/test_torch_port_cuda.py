@@ -13,9 +13,10 @@ import torch
 
 import numpy as np
 
-from chip_smoke import (arm5_inputs, arm5_states, bf16_errors, cartpole_inputs,
-                        exact_stage_cases, go1_inputs, go1_plant_state, hopper_gait_params,
-                        hopper_inputs, plant_state, seeded_inputs, seeded_weights)
+from chip_smoke import (ATTENTION_TILES, arm5_inputs, arm5_states, attention_tile_check,
+                        bf16_errors, cartpole_inputs, exact_stage_cases, go1_inputs,
+                        go1_plant_state, hopper_gait_params, hopper_inputs, plant_state,
+                        seeded_inputs, seeded_weights)
 from humanoid_mppi_rl_tpu_torch.collect.runner import EpisodeRunner
 from humanoid_mppi_rl_tpu_torch.costs.quadruped import GAIT_TUNED
 from humanoid_mppi_rl_tpu_torch.envs.tasks import load_task
@@ -180,13 +181,26 @@ def test_cuda_estimator_ragged_batch(preset, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_bf16_apply_refuses_tokens_past_the_attention_tile():
-    """The bf16 attention kernel takes F <= 64: a longer token row is refused
-    when the apply is built, with the reason; f32 takes any F."""
+@pytest.mark.parametrize("nt, hd", ATTENTION_TILES)
+def test_cuda_attention_past_four_query_tiles_matches_plain(nt, hd):
+    """Each instantiation of the bf16 attention at 5-8 query tiles (F up to
+    128) and each padded head width equals its plain version bit for bit on
+    exact inputs, for all queries and the state queries alone, and is
+    within the bf16 tolerance on normal inputs (attention_tile_check)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    module = make_model("cartpole_attention", state_dim=60, action_dim=5)
-    with pytest.raises(ValueError, match="F=65"):
+    out = attention_tile_check(nt, hd)
+    assert out["F"] == 16 * nt - 3 and out["normal_inputs"]["within"], out
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_apply_refuses_tokens_past_the_attention_tile():
+    """The bf16 attention kernel takes F <= 128: a longer token row is
+    refused when the apply is built, with the reason; f32 takes any F."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    module = make_model("cartpole_attention", state_dim=124, action_dim=5)
+    with pytest.raises(ValueError, match="F=129"):
         ek.make_flash_feature_attention(module, torch.bfloat16)
     ek.make_flash_feature_attention(module, torch.float32)
 

@@ -260,12 +260,12 @@ def test_trimmed_plain_equals_untrimmed(preset, cd):
 
 @pytest.mark.parametrize("F, head_dim, rows", [
     (5, 16, 16), (16, 32, 16), (17, 64, 32), (37, 128, 48), (49, 128, 64), (51, 64, 64),
-    (64, 16, 64), (49, 8, 64), (49, 48, 64)])
+    (64, 16, 64), (49, 8, 64), (49, 48, 64), (65, 64, 80), (78, 64, 80), (128, 128, 128)])
 def test_attention_rows_pad_tokens_to_the_tensor_core_tile(F, head_dim, rows):
     assert ek.attention_rows(F, head_dim) == rows
 
 
-@pytest.mark.parametrize("F, head_dim", [(65, 128), (49, 12), (49, 136), (0, 16)])
+@pytest.mark.parametrize("F, head_dim", [(129, 128), (49, 12), (49, 136), (0, 16)])
 def test_attention_rows_refuses_what_the_bf16_kernel_cannot_take(F, head_dim):
     with pytest.raises(ValueError, match="bf16 attention kernel"):
         ek.attention_rows(F, head_dim)

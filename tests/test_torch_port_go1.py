@@ -403,16 +403,18 @@ REFSITE_XML = """
 def test_go1_unported_costs_and_features_still_raise(models):
     """What the port leaves out stays refused, as the JAX package refuses
     it on the kernel path: a cost the kernel does not carry, spatial
-    tendons (the snapshot export), a mesh in a pair without a plane
-    (mesh-vs-box), a site transmission with a refsite (the model build) and
-    a plane on a moving body."""
+    tendons (the rollout kernel; the array engine carries them), a mesh in
+    a pair without a plane (mesh-vs-box), a site transmission with a
+    refsite (the model build) and a plane on a moving body."""
     from test_engine_generality import MESH_ON_BOX_XML, SPATIAL_TENDON_XML
 
     _, pm = models
     with pytest.raises(NotImplementedError, match="carries"):
         rk._cost_constants(lambda model: None, pm, {})
-    with pytest.raises(NotImplementedError, match="spatial tendons"):
-        export_model_arrays(build_from_mjcf(xml=SPATIAL_TENDON_XML), plant=True)
+    spatial = model_from_arrays(export_model_arrays(build_from_mjcf(xml=SPATIAL_TENDON_XML),
+                                                    plant=True))
+    with pytest.raises(NotImplementedError, match="spatial .site-chain. tendons"):
+        rk.check_kernel_supported(spatial)
     mesh_on_box = model_from_arrays(export_model_arrays(
         build_from_mjcf(xml=MESH_ON_BOX_XML, include_self_collisions=True), plant=True))
     with pytest.raises(NotImplementedError, match="mesh-vs-primitive"):

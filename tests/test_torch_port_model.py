@@ -29,7 +29,10 @@ from humanoid_mppi_rl_tpu_torch.ops.rollout_kernel import build_rollout_kernel
 from humanoid_mppi_rl_tpu_torch.physics.model import (
     export_model_arrays, load_model, model_from_arrays, snapshot_json,
     snapshot_path)
+from humanoid_mppi_rl_tpu_torch.scripts import (e2e_pipeline, full_pipeline, quad_pipeline,
+                                                vel_pipeline)
 from humanoid_mppi_rl_tpu_torch.solver.kernel_mppi import make_kernel_mppi
+from humanoid_mppi_rl_tpu_torch import graft_entry
 
 # One intra-op thread: the suite runs in several worker processes on shared
 # cores, and PyTorch's default of a thread per core in each of them
@@ -237,6 +240,23 @@ plan = make_sharded_kernel_mppi(model, spec.kernel_cost_factory,
 action, st, diag = plan(MPPIState.seeded(0, 2, model.nu, device="cpu"), init)
 assert bool(torch.isfinite(action).all()) and pdist.process_info()["num_processes"] == 1
 dist.destroy_process_group()
+from humanoid_mppi_rl_tpu_torch import graft_entry
+from humanoid_mppi_rl_tpu_torch.physics.engine import spatial_tendon_geometry
+from humanoid_mppi_rl_tpu_torch.scripts import e2e_pipeline, full_pipeline, quad_pipeline, vel_pipeline
+fn, (ms0, st0) = graft_entry.entry(device="cpu")
+action, _, _ = fn(ms0, st0)
+assert action.shape == (21,) and bool(torch.isfinite(action).all())
+eng = Engine(load_model("spatial_tendon_plant"), device="cpu", dtype=torch.float64)
+st = eng.forward(torch.tensor([0.4, -0.3], dtype=torch.float64), torch.zeros(2, dtype=torch.float64))
+assert float(spatial_tendon_geometry(eng, st)[0][0]) > 0.62
+for solver in ("coupled", "penalty"):
+    assert bool(torch.isfinite(eng.step(st, torch.ones(1, dtype=torch.float64), solver=solver).qvel).all())
+for mod in (full_pipeline, quad_pipeline, vel_pipeline):
+    done = tempfile.mkdtemp()
+    for stage in ("collect", "train", "estimator"):
+        open(os.path.join(done, f".done_{stage}"), "w").write("ok")
+    assert mod.main(["--out", done, "--device", "cpu"]) == 0
+assert e2e_pipeline.settings("cpu")["task"] == "go1_collect"
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "mujoco", "humanoid_mppi_rl_tpu"))
 assert not loaded, loaded
@@ -261,8 +281,9 @@ def test_port_runs_without_jax_mujoco_or_the_jax_package():
                                    "load_trained", "collect_humanoid_jl",
                                    "make_cartpole_estimator", "EpisodeRunner_cartpole",
                                    "EpisodeRunner_hopper", "EpisodeRunner_array",
-                                   "collect_humanoid_v2py"])
-def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
+                                   "collect_humanoid_v2py", "graft_entry", "full_pipeline",
+                                   "quad_pipeline", "vel_pipeline", "e2e_pipeline"])
+def test_entry_points_default_to_cuda_and_refuse_without_it(entry, tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     spec, model, *_, cfg = load_task("humanoid_bench", device="cpu")
@@ -292,6 +313,12 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(entry):
         "EpisodeRunner_hopper": lambda: EpisodeRunner("hopper", use_kernel=True),
         "EpisodeRunner_array": lambda: EpisodeRunner("humanoid_collect"),
         "collect_humanoid_v2py": lambda: collect_humanoid_v2py(save=False),
+        "graft_entry": lambda: graft_entry.entry(),
+        "full_pipeline": lambda: full_pipeline.main(["--out", str(tmp_path)]),
+        "quad_pipeline": lambda: quad_pipeline.main(["--out", str(tmp_path)]),
+        "vel_pipeline": lambda: vel_pipeline.main(["--out", str(tmp_path)]),
+        "e2e_pipeline": lambda: e2e_pipeline.main([]),
     }
+    monkeypatch.setenv("E2E_OUT", str(tmp_path))
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
